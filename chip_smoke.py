@@ -5,11 +5,13 @@
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card, drives the
-port's main path (8192^2 float32 ``qr`` at the default configuration, then
-the geqrt panel path at 4096^2), checks the results against the residual and
-orthogonality gates, and prints timings beside the card's name and power
-limit.  Every phase raises on failure, so any failure exits non-zero; it
-also fails on a machine without a CUDA device.
+port's paths (8192^2 float32 ``qr`` at the default configuration, the geqrt
+panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, and the
+rank-revealing solvers and ``lstsq`` at 8192 x 2048), checks the results
+against the residual and orthogonality gates and known answers, and prints
+timings beside the card's name and power limit.  Every phase raises on
+failure, so any failure exits non-zero; it also fails on a machine without
+a CUDA device.
 
 The second-to-last line is a JSON object of the kernels (launch counts from
 the main-path run, errors against the plain versions, times); the last line
@@ -27,6 +29,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 N_MAIN = 8192
 N_GEQRT = 4096
+N_RANK = (8192, 2048, 1536)   # BASELINE config 4's shape; rank of the solver phase
+RANK_TRUNC = 1024
+# (l, cand, nb, seed): the default block step's tile, and the gate's extremes
+SELECT_TILES = ((160, 512, 128, 5), (64, 128, 32, 1), (288, 1024, 256, 0))
+MIN_GAP = 1e-5  # "well separated": float32 rounding moves a downdated norm ~1e-7
 TOL32 = 1e-4    # kernel vs plain, float32: other summation order; L^-1 x cond(G)
 TOL64 = 1e-10
 
@@ -141,6 +148,108 @@ def phase_geqrt(torch, np, dev):
     return out
 
 
+def phase_select(torch, np, dev):
+    from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
+                                                     selection_margin)
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    out = {"max_abs_err": 0}
+    for l, cand, nb, seed in SELECT_TILES:
+        S = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (l, cand), dtype=np.float32)).to(dev)
+        norms = (S.double() ** 2).sum(0).float()
+        tiles = [("gaussian", S, norms)]
+        if (l, cand, nb) == SELECT_TILES[0][:3]:
+            T = S.clone()
+            T[:, [40, 300]] = T[:, [7, 7]]          # duplicates of column 7
+            T[:, [3, 200, 511]] = 0                 # zero columns
+            tn = (T.double() ** 2).sum(0).float()
+            inactive = tn.clone()
+            inactive[::3] = -1                      # ineligible columns
+            tiles += [("duplicate+zero", T, tn), ("inactive", T, inactive)]
+        for name, T, tn in tiles:
+            gap = selection_margin(T, tn, nb)
+            T0 = T.clone()
+            got = select_pivots_kernel(T, tn, nb)
+            want = select_pivots_plain(T, tn, nb)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            picks = torch.sort(got[got >= 0]).values
+            say(f"select_pivots l={l} cand={cand} nb={nb} {name}: min gap {gap:.2e} "
+                f"(>= {MIN_GAP:g}), ord identical {same}")
+            if gap < MIN_GAP:
+                raise AssertionError(f"select tile {name} {(l, cand, nb)} is not well separated")
+            if not (same and torch.equal(T, T0) and torch.equal(
+                    picks, torch.arange(nb, dtype=torch.int32, device=dev))):
+                raise AssertionError(f"select_pivots disagrees with its plain version "
+                                     f"at {(l, cand, nb)} on the {name} tile")
+            if name == "inactive" and not bool((got[::3] == -1).all()):
+                raise AssertionError("select_pivots picked an ineligible column")
+            out["max_abs_err"] = max(out["max_abs_err"], int((got - want).abs().max()))
+        if (l, cand, nb) == SELECT_TILES[0][:3]:
+            out["ms"] = cuda_time_ms(lambda: select_pivots_kernel(S, norms, nb), reps=20)
+            out["plain_ms"] = cuda_time_ms(lambda: select_pivots_plain(S, norms, nb), reps=3)
+    say(f"select_pivots: 160x512 nb=128 kernel {out['ms']:.4f} ms vs plain "
+        f"{out['plain_ms']:.4f} ms")
+    return out
+
+
+def phase_rank(torch, np, ct, cfg, dev):
+    """Rank-revealing solvers on an exactly rank-r 8192 x 2048 A = B C, and
+    full-rank lstsq on a Gaussian of the same shape."""
+    m, n, r = N_RANK
+    rng = np.random.default_rng(4)
+    B = torch.from_numpy(rng.standard_normal((m, r))).to(dev)
+    C = torch.from_numpy(rng.standard_normal((r, n))).to(dev)
+    b = torch.from_numpy(rng.standard_normal(m)).to(dev)
+    A = (B @ C).float()
+    eps = float(torch.finfo(torch.float32).eps)
+    t0 = time.perf_counter()
+    rank = ct.matrix_rank(A, config=cfg)
+    t_rank = time.perf_counter() - t0
+    say(f"matrix_rank {m}x{n} (rank {r} by construction): {rank}, {t_rank:.3f} s")
+    if rank != r:
+        raise AssertionError(f"matrix_rank gave {rank}, expected {r}")
+    t0 = time.perf_counter()
+    x, resid, rk, _ = ct.lstsq_rr(A, b.float(), config=cfg)
+    torch.cuda.synchronize()
+    t_rr = time.perf_counter() - t0
+    # Minimum-norm solution from the known factors, float64 on the card:
+    # x = C^T (C C^T)^{-1} (B^T B)^{-1} B^T b.
+    y = torch.linalg.solve(B.T @ B, B.T @ b)
+    x_mn = C.T @ torch.linalg.solve(C @ C.T, y)
+    err = float((x.double() - x_mn).norm() / x_mn.norm())
+    # float32 COD of a matrix with cond ~35 (Gaussian factors): expect
+    # ~cond * sqrt(n) * eps ~ 2e-4; the gate allows 5x that.
+    say(f"lstsq_rr: rank {rk}, rel err vs min-norm float64 {err:.3e} (< 1e-3), "
+        f"residual {float(resid):.4e}, {t_rr:.3f} s")
+    if not (rk == r and err < 1e-3):
+        raise AssertionError("lstsq_rr does not give the minimum-norm solution")
+    N = ct.null_space(A, config=cfg).double()
+    G = N.T @ N
+    G.diagonal().sub_(1.0)
+    orth = float(G.norm())
+    an = float((A.double() @ N).norm() / A.double().norm())
+    say(f"null_space: {tuple(N.shape)}, ||N^T N - I|| {orth:.3e} (< {4 * n * eps:.3e}), "
+        f"||A N||/||A|| {an:.3e} (< {n * eps:.3e})")
+    if not (N.shape == (n, n - r) and orth < 4 * n * eps and an < n * eps):
+        raise AssertionError("null_space fails its gates")
+    del B, C, A, N
+    Af = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32)).to(dev)
+    bf = torch.from_numpy(rng.standard_normal(m, dtype=np.float32)).to(dev)
+    t0 = time.perf_counter()
+    res = ct.lstsq(Af, bf, cfg)
+    torch.cuda.synchronize()
+    t_ls = time.perf_counter() - t0
+    want = torch.linalg.lstsq(Af.double(), bf.double()[:, None]).solution[:, 0]
+    rres = float((Af.double() @ want - bf.double()).norm())
+    ex = float((res.x.double() - want).norm() / want.norm())
+    er = abs(float(res.residual_norm) - rres) / rres
+    say(f"lstsq full rank {m}x{n}: rel err x {ex:.3e}, residual {er:.3e} vs torch.linalg.lstsq "
+        f"float64 (< 1e-4), {t_ls:.3f} s")
+    if not (ex < 1e-4 and er < 1e-4):
+        raise AssertionError("lstsq disagrees with torch.linalg.lstsq in float64")
+
+
 def gate(name, chk) -> None:
     say(f"{name}: residual {chk.residual:.3e} (< {chk.n * chk.eps:.3e}), "
         f"orthogonality {chk.orthogonality:.3e} (< {4 * chk.n * chk.eps:.3e}), "
@@ -161,6 +270,8 @@ def main() -> int:
     from cuda_qr_tpu_torch.ops import smalllinalg
     from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
     from cuda_qr_tpu_torch.ops.geqrt import geqrt_base
+    from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
+    from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms, qr_flops
 
     smi = phase_device(torch)
@@ -171,6 +282,7 @@ def main() -> int:
     phase_build()
     chol = phase_chol(torch, np, dev)
     geqrt = phase_geqrt(torch, np, dev)
+    select = phase_select(torch, np, dev)
 
     # ---- main path: 8192^2 float32 qr at DEFAULT_CONFIG, then geqrt 4096^2
     cfg = ct.DEFAULT_CONFIG.replace(device="cuda")
@@ -209,6 +321,44 @@ def main() -> int:
         raise AssertionError("geqrt path launched no geqrt kernel")
     del Q, R, Q4, R4, fac4, A4
 
+    # ---- QRCP path: 8192^2 float32 qr_pivoted at DEFAULT_CONFIG
+    torch.cuda.synchronize()
+    chol_with_inv_kernel.launches = 0
+    geqrt_base.launches = 0
+    select_pivots_kernel.launches = 0
+    smalllinalg.host_syncs = 0
+    t0 = time.perf_counter()
+    Qp, Rp, piv = ct.qr_pivoted(A, cfg)
+    torch.cuda.synchronize()
+    t_piv = time.perf_counter() - t0
+    launches["select_pivots"] = select_pivots_kernel.launches
+    chol_piv, syncs_piv = chol_with_inv_kernel.launches, smalllinalg.host_syncs
+    panels = N_MAIN // cfg.panel_width
+    say(f"QRCP path: qr_pivoted {N_MAIN}^2 f32: {t_piv:.3f} s first call, select_pivots "
+        f"launches {launches['select_pivots']}, chol_inv launches {chol_piv}, "
+        f"host syncs {syncs_piv}")
+    if not torch.equal(torch.sort(piv).values, torch.arange(N_MAIN, device=dev)):
+        raise AssertionError("qr_pivoted: piv is not a permutation")
+    gate(f"qr_pivoted {N_MAIN}^2 f32", ct.check_qr_device(A[:, piv], Qp, Rp))
+    if launches["select_pivots"] < panels or chol_piv < panels:
+        raise AssertionError(f"qr_pivoted launched select_pivots {launches['select_pivots']} "
+                             f"and chol_inv {chol_piv} times, expected >= {panels} each")
+    del Qp, Rp
+    Qt, Rt, pt = ct.qr_pivoted(A, cfg, rank=RANK_TRUNC)
+    if Qt.shape != (N_MAIN, RANK_TRUNC) or Rt.shape != (RANK_TRUNC, N_MAIN):
+        raise AssertionError(f"qr_pivoted rank={RANK_TRUNC}: shapes {Qt.shape}, {Rt.shape}")
+    # The factored columns are exact: A[:, pt[:k]] = Q R11, and R12 = Q^T A[:, pt[k:]].
+    gate(f"qr_pivoted rank={RANK_TRUNC} factored columns",
+         ct.check_qr_device(A[:, pt[:RANK_TRUNC]], Qt, Rt[:, :RANK_TRUNC]))
+    A2 = A[:, pt[RANK_TRUNC:]].double()
+    r12 = float((Qt.double().T @ A2 - Rt[:, RANK_TRUNC:].double()).norm() / A2.norm())
+    r12_tol = N_MAIN * float(torch.finfo(torch.float32).eps)
+    say(f"qr_pivoted rank={RANK_TRUNC}: ||Q^T A2 - R12|| / ||A2|| {r12:.3e} (< {r12_tol:.3e})")
+    if not r12 < r12_tol:
+        raise AssertionError("qr_pivoted truncated: R12 is not Q^T A2")
+    del Qt, Rt, A2
+    phase_rank(torch, np, ct, cfg, dev)
+
     # ---- timings (informational)
     flops = qr_flops(N_MAIN, N_MAIN)
     t_fac = cuda_time_ms(lambda: ct.qr_blocked(A, cfg), reps=3, warmup=1)
@@ -228,6 +378,10 @@ def main() -> int:
                                ct.extract_r(fm, N_MAIN))
     del fm
     t_torch = cuda_time_ms(lambda: torch.linalg.qr(A), reps=3, warmup=1)
+    t_qrcp = cuda_time_ms(lambda: qrcp_blocked(A, cfg), reps=3, warmup=1)
+    smalllinalg.host_syncs = 0
+    qrcp_blocked(A, cfg)
+    syncs_qrcp = smalllinalg.host_syncs
     say(f"timings on {smi}:")
     say(f"  factor {N_MAIN}^2 f32 highest: {t_fac:.2f} ms ({flops / t_fac / 1e6:.0f} GFLOP/s), "
         f"{syncs_fac} host syncs")
@@ -236,6 +390,8 @@ def main() -> int:
         f"ok={chk_m.residual_ok}, orthogonality {chk_m.orthogonality:.3e} "
         f"ok={chk_m.orthogonality_ok}")
     say(f"  torch.linalg.qr (reduced, Q and R): {t_torch:.2f} ms")
+    say(f"  pivoted factor qrcp_blocked {N_MAIN}^2 f32 highest: {t_qrcp:.2f} ms, "
+        f"{syncs_qrcp} host syncs (unpivoted factor above: {t_fac:.2f} ms)")
 
     kernels = [
         {"name": "chol_inv", "route": "cuda",
@@ -246,6 +402,10 @@ def main() -> int:
          "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
          "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
          "launches": launches["geqrt"], **geqrt},
+        {"name": "select_pivots", "route": "cuda",
+         "source": "cuda_qr_tpu_torch/csrc/select_pivots.cu",
+         "replaces": "cuda_qr_tpu/ops/pallas_select.py:40",
+         "launches": launches["select_pivots"], **select},
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

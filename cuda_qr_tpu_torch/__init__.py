@@ -1,5 +1,6 @@
-"""cuda_qr_tpu_torch: the blocked-Householder QR of ``cuda_qr_tpu`` in
-PyTorch, with hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+"""cuda_qr_tpu_torch: the blocked-Householder QR of ``cuda_qr_tpu``, its
+column-pivoted QR and the solvers on both, in PyTorch, with hand-written
+CUDA kernels for an NVIDIA H100 (sm_90a).
 
 The JAX package ``cuda_qr_tpu`` is the reference; this package keeps its
 factor storage and conventions so the two compare piece by piece.  It
@@ -8,7 +9,9 @@ nvcc at first use on a CUDA tensor; CPU tensors take each kernel's plain
 PyTorch version.
 """
 
-from .models.qr import QRResult, qr, qr_factor
+from .models.lstsq import LstsqResult, lstsq, solve
+from .models.qr import QRResult, qr, qr_factor, qr_pivoted
+from .models.rank import lstsq_rr, matrix_rank, null_space, pinv, slogdet
 from .ops.blocked import PackedQR, extract_r, orgqr, ormqr, qr_blocked
 from .ops.householder import geqr2, larfb, larft, make_reflector, unpack_r, unpack_v
 from .utils.config import DEFAULT_CONFIG, MIXED_CONFIG, QRConfig
@@ -16,7 +19,9 @@ from .utils.errors import QRError, QRNumericalError, QRShapeError
 from .utils.verify import QRCheck, check_qr, check_qr_device
 
 __all__ = [
-    "qr", "qr_factor", "QRResult", "PackedQR", "qr_blocked", "orgqr", "ormqr",
+    "qr", "qr_factor", "QRResult", "qr_pivoted", "matrix_rank", "lstsq_rr",
+    "pinv", "null_space", "slogdet", "lstsq", "solve", "LstsqResult",
+    "PackedQR", "qr_blocked", "orgqr", "ormqr",
     "extract_r", "geqr2", "larfb", "larft", "make_reflector", "unpack_r",
     "unpack_v", "QRConfig", "DEFAULT_CONFIG", "MIXED_CONFIG", "QRCheck",
     "check_qr", "check_qr_device", "QRError", "QRShapeError", "QRNumericalError",

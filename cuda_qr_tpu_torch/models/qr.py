@@ -12,6 +12,7 @@ import torch
 
 from ..ops.blocked import (PackedQR, _require_real, as_tensor, extract_r, orgqr,
                            ormqr, qr_blocked)
+from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 
@@ -74,6 +75,33 @@ class _ThinQR(torch.autograd.Function):
         dQ = torch.zeros_like(Q) if dQ is None else dQ
         dR = torch.zeros_like(R) if dR is None else dR
         return thin_qr_vjp(Q, R, dQ, dR), None
+
+
+def qr_pivoted(A, config: QRConfig = DEFAULT_CONFIG, rank: int | None = None,
+               generator: torch.Generator | None = None, omega=None):
+    """Column-pivoted (rank-revealing) QR: A[:, piv] = Q @ R, by randomized
+    blocked QRCP (``ops/qrcp.py``).
+
+    rank=None: full factorization, Q (m x n), R (n x n) upper-triangular,
+      piv (n,) with A[:, piv] = Q R.
+    rank=r: truncated rank-revealing factorization after ceil(r/nb) panel
+      blocks, Q (m x r), R (r x n), piv (n,) with A[:, piv] ~= Q R up to
+      the neglected singular values.
+    generator / omega: the sketch's source, as for ``qrcp_blocked``.
+    """
+    A = as_tensor(A, config)
+    m, n = A.shape
+    num_panels = None
+    if rank is not None:
+        if not 1 <= rank <= n:
+            raise QRShapeError(f"rank must be in [1, {n}], got {rank}")
+        num_panels = -(-rank // config.panel_width)
+    factors, jpvt, R12 = qrcp_blocked(A, config, generator, num_panels, omega)
+    kb = factors.packed.shape[1]
+    Q = orgqr(factors, m, kb, config)
+    R = torch.cat([extract_r(factors, kb), R12], 1)
+    r = min(n, kb) if rank is None else rank
+    return Q[:, :r], R[:r, :n], jpvt[:n]
 
 
 def qr(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):

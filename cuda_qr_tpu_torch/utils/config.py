@@ -4,8 +4,8 @@ Counterpart of ``cuda_qr_tpu/utils/config.py``: one frozen dataclass of the
 knobs the blocked factorization reads.  Knobs that existed only to bound
 XLA/Mosaic compile size or the TPU's VMEM (``driver``, ``scan_stages``,
 ``stage_schedule``, ``interpret``, ``max_vmem_panel_rows``) have no
-counterpart, nor do the QRCP/TSQR knobs (``block_rows``,
-``use_select_kernel``, ``tsqr_leaf``) whose modules are not ported yet.
+counterpart, nor do the TSQR knobs (``block_rows``, ``tsqr_leaf``), whose
+module is not ported yet.
 
 Precision.  The reference's ``jax.lax.Precision`` becomes a string:
   "highest": float32 GEMMs in full float32 (TF32 off) -- Precision.HIGHEST;
@@ -52,6 +52,8 @@ class QRConfig:
         one merged g*nb-deep trailing update per group.
       use_chol_kernel: run the panel Gram Cholesky + inverse on the chol_inv
         kernel where it is eligible (float32, nb a multiple of 16, <= 512).
+      use_select_kernel: run the QRCP pivot selection on the select_pivots
+        kernel where it is eligible (``ops/select_kernel.supported``).
       device: where numpy input is placed; tensor input stays on its device.
     """
 
@@ -66,6 +68,7 @@ class QRConfig:
     apply_aggregate: int = 4
     factor_lookahead: int = 4
     use_chol_kernel: bool = True
+    use_select_kernel: bool = True
     device: str = "cpu"
 
     def __post_init__(self):

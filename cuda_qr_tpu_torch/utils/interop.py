@@ -46,10 +46,10 @@ def config_from_reference(cfg, device: str = "cpu") -> QRConfig:
 
     Carried over: panel_width, panel_base, dtype, precision,
     trailing_precision, orgqr_precision, use_pallas (as use_kernels),
-    panel_method, apply_aggregate, factor_lookahead, use_chol_kernel.
+    panel_method, apply_aggregate, factor_lookahead, use_chol_kernel,
+    use_select_kernel.
     Ignored (no counterpart): driver, scan_stages, stage_schedule,
-    interpret, max_vmem_panel_rows, block_rows, use_select_kernel,
-    tsqr_leaf.
+    interpret, max_vmem_panel_rows, block_rows, tsqr_leaf.
     """
     dtype_name = np.dtype(cfg.dtype).name
     if dtype_name not in _DTYPES:
@@ -66,5 +66,6 @@ def config_from_reference(cfg, device: str = "cpu") -> QRConfig:
         apply_aggregate=cfg.apply_aggregate,
         factor_lookahead=cfg.factor_lookahead,
         use_chol_kernel=cfg.use_chol_kernel,
+        use_select_kernel=cfg.use_select_kernel,
         device=device,
     )

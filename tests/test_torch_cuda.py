@@ -7,7 +7,10 @@ a machine with a card and without JAX (tests/conftest.py imports JAX):
 
 Each kernel is held against its plain PyTorch version on the same device.
 float32 1e-4 relative: other summation orders, and L^{-1} amplifies by
-cond(G); float64 1e-10.
+cond(G); float64 1e-10.  The pivot selection's order must be identical on
+tiles whose greedy steps are separated (relative gap >= 1e-5 between the
+largest norm and the next distinct one, checked in float64), since float32
+rounding moves a norm by ~1e-7.
 """
 
 import numpy as np
@@ -17,6 +20,8 @@ import torch
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_base_plain
+from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
+                                                 selection_margin)
 from cuda_qr_tpu_torch.ops.smalllinalg import cholesky_with_inv
 
 pytestmark = pytest.mark.cuda
@@ -84,3 +89,51 @@ def test_qr_on_the_card(dev, method):
     assert chol_with_inv_kernel.launches + geqrt_base.launches > launches
     assert ct.check_qr_device(A, Q, R).ok
     assert ct.check_qr(A, Q, R).ok
+
+
+@pytest.mark.parametrize("l,cand,nb,seed", [(160, 512, 128, 5), (64, 128, 32, 1),
+                                            (288, 1024, 256, 0)])
+def test_select_kernel_matches_plain(dev, l, cand, nb, seed):
+    S = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (l, cand), dtype=np.float32)).to(dev)
+    norms = (S.double() ** 2).sum(0).float()
+    S0 = S.clone()
+    assert selection_margin(S, norms, nb) >= 1e-5
+    before = select_pivots_kernel.launches
+    got = select_pivots_kernel(S, norms, nb)
+    assert select_pivots_kernel.launches == before + 1
+    assert torch.equal(got, select_pivots_plain(S, norms, nb))
+    assert torch.equal(S, S0)
+    assert torch.equal(torch.sort(got[got >= 0]).values,
+                       torch.arange(nb, dtype=torch.int32, device=dev))
+
+
+def test_select_kernel_ties_and_rejects(dev):
+    S = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (160, 512), dtype=np.float32)).to(dev)
+    S[:, [40, 300]] = S[:, [7, 7]]
+    S[:, [3, 200, 511]] = 0
+    norms = (S.double() ** 2).sum(0).float()
+    norms[::3] = -1
+    assert selection_margin(S, norms, 128) >= 1e-5
+    got = select_pivots_kernel(S, norms, 128)
+    assert torch.equal(got, select_pivots_plain(S, norms, 128))
+    assert (got[::3] == -1).all()
+    with pytest.raises(TypeError):
+        select_pivots_kernel(S.double(), norms.double(), 8)
+    with pytest.raises(ValueError):
+        select_pivots_kernel(S.t().contiguous().t(), norms, 8)
+    with pytest.raises(ValueError):
+        big = torch.zeros((2048, 1024), device=dev)
+        select_pivots_kernel(big, big[0].contiguous(), 8)
+
+
+def test_qr_pivoted_on_the_card(dev):
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1024, 768), dtype=np.float32)).to(dev)
+    cfg = ct.QRConfig(device="cuda")
+    before = select_pivots_kernel.launches
+    Q, R, piv = ct.qr_pivoted(A, cfg)
+    assert select_pivots_kernel.launches == before + 768 // cfg.panel_width
+    assert torch.equal(torch.sort(piv).values, torch.arange(768, device=dev))
+    assert ct.check_qr_device(A[:, piv], Q, R).ok
