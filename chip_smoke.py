@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
-holds each kernel against its plain PyTorch version on the card, drives the
+holds each kernel against its plain PyTorch version on the card (the geqrt
+kernel's batch grid and the chol_inv kernel's stack included), drives the
 port's paths (8192^2 float32 ``qr`` at the default configuration, the geqrt
-panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, and the
-rank-revealing solvers and ``lstsq`` at 8192 x 2048), checks the results
-against the residual and orthogonality gates and known answers, and prints
-timings beside the card's name and power limit.  Every phase raises on
+panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, the
+rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
+1,048,576 x 128 with both leaves and an ill-conditioned input that takes
+the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
+``qr_multiply`` in float64, and the QR updates on an 8192 x 1024 thin QR),
+checks the results against the residual and orthogonality gates and known
+answers, and prints timings beside the card's name and power limit.  Every phase raises on
 failure, so any failure exits non-zero; it also fails on a machine without
 a CUDA device.
 
@@ -36,6 +40,16 @@ SELECT_TILES = ((160, 512, 128, 5), (64, 128, 32, 1), (288, 1024, 256, 0))
 MIN_GAP = 1e-5  # "well separated": float32 rounding moves a downdated norm ~1e-7
 TOL32 = 1e-4    # kernel vs plain, float32: other summation order; L^-1 x cond(G)
 TOL64 = 1e-10
+# geqrt batch grid (L, m, w, off, float64?, zero panels): the TSQR leaf shape
+# at 1M x 128 (first), a tree-node-like stack, an odd width with an offset
+GEQRT_BATCHED = ((1024, 1024, 128, 0, False, False), (64, 256, 128, 0, False, False),
+                 (8, 2048, 77, 3, True, False), (16, 512, 64, 0, False, True))
+CHOL_STACK = (4096, 64)
+N_TSQR = (1 << 20, 128)          # BASELINE config 3
+N_TSQR_ILL = (65536, 128, 7)     # cond 1e7: the cholqr2 path must fall back
+N_BATCHED = (8192, 256, 64)
+N_DECOMP = (8192, 2048, 64)      # tall shape; lq takes its transpose; C columns
+N_UPDATE = (8192, 1024, 100)     # thin QR; insert/delete index
 
 
 def say(*parts) -> None:
@@ -250,6 +264,278 @@ def phase_rank(torch, np, ct, cfg, dev):
         raise AssertionError("lstsq disagrees with torch.linalg.lstsq in float64")
 
 
+def phase_geqrt_batched(torch, np, dev):
+    """The geqrt kernel's batch grid against its plain version."""
+    from cuda_qr_tpu_torch.ops.geqrt import geqrt_batched, geqrt_batched_plain
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    rng = np.random.default_rng(6)
+    out = {"batched_max_abs_err": 0.0}
+    for L, m, w, off, f64, zero in GEQRT_BATCHED:
+        dtype, tol = (torch.float64, TOL64) if f64 else (torch.float32, TOL32)
+        P = torch.from_numpy(rng.standard_normal((L, m, w), dtype=np.float32)).to(dev, dtype)
+        if zero:
+            P[5] = 0.0                  # one panel of zero columns only
+            P[9, :, [0, 7]] = 0.0
+        pk, tau, T = geqrt_batched(P, off)
+        pp, taup, Tp = geqrt_batched_plain(P, off)
+        torch.cuda.synchronize()
+        errs = (rel_err(pk, pp), rel_err(tau, taup), rel_err(T, Tp))
+        finite = bool(torch.isfinite(pk).all() and torch.isfinite(T).all())
+        say(f"geqrt_batched {str(dtype)[6:]} {L} x {m}x{w} off={off}"
+            f"{' zero panel' if zero else ''}: rel err packed {errs[0]:.2e}, tau {errs[1]:.2e}, "
+            f"T {errs[2]:.2e} (tol {tol:g})")
+        if not (finite and max(errs) < tol and torch.equal(pk[:, :off], P[:, :off])):
+            raise AssertionError(f"geqrt_batched disagrees with its plain version at "
+                                 f"{(L, m, w, off)}")
+        if zero and not bool((tau[5] == 0).all()):
+            raise AssertionError("geqrt_batched: a zero panel gave a nonzero tau")
+        if (L, m, w, off) == GEQRT_BATCHED[0][:4]:
+            out["batched_max_abs_err"] = max(abs_err(pk, pp), abs_err(tau, taup), abs_err(T, Tp))
+            out["batched_ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0), reps=5, warmup=1)
+            out["batched_plain_ms"] = cuda_time_ms(lambda: geqrt_batched_plain(P, 0),
+                                                   reps=2, warmup=1)
+        del P, pk, pp, T, Tp
+    L, m, w = GEQRT_BATCHED[0][:3]
+    say(f"geqrt_batched: {L} x {m}x{w} f32 kernel {out['batched_ms']:.4f} ms vs plain "
+        f"{out['batched_plain_ms']:.4f} ms")
+    return out
+
+
+def phase_chol_stack(torch, np, ct, dev):
+    """A stack of Gram matrices through chol_with_inv_auto: one launch of
+    the chol_inv kernel's batch grid, against the batched plain recursion."""
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+    from cuda_qr_tpu_torch.ops.smalllinalg import chol_with_inv_auto, cholesky_with_inv
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    b, n = CHOL_STACK
+    B = torch.from_numpy(np.random.default_rng(7).standard_normal((b, n, 2 * n))).to(dev)
+    G = (B @ B.mT / (2 * n)).float()
+    cfg = ct.QRConfig(device="cuda")
+    before = chol_with_inv_kernel.launches
+    L, Li = chol_with_inv_auto(G, cfg)
+    launched = chol_with_inv_kernel.launches - before
+    Lp, Lip = cholesky_with_inv(G)
+    torch.cuda.synchronize()
+    eL, eLi = rel_err(L, Lp), rel_err(Li, Lip)
+    t_k = cuda_time_ms(lambda: chol_with_inv_auto(G, cfg), reps=10)
+    t_p = cuda_time_ms(lambda: cholesky_with_inv(G), reps=3)
+    say(f"chol_inv stack {b} x {n}x{n} f32 via chol_with_inv_auto: {launched} launch, rel err "
+        f"L {eL:.2e}, L^-1 {eLi:.2e} (tol {TOL32:g}); kernel {t_k:.4f} ms vs batched plain "
+        f"{t_p:.4f} ms")
+    if not (launched == 1 and eL < TOL32 and eLi < TOL32):
+        raise AssertionError("chol_inv stack disagrees with the batched plain recursion")
+
+
+def counters():
+    from cuda_qr_tpu_torch.ops import smalllinalg
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+    from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
+    return smalllinalg, (chol_with_inv_kernel, geqrt_base, geqrt_batched)
+
+
+def reset_counts(torch) -> None:
+    torch.cuda.synchronize()
+    sl, fns = counters()
+    sl.host_syncs = 0
+    for fn in fns:
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    sl, (chol, base, batched) = counters()
+    return {"chol_inv": chol.launches, "geqrt": base.launches,
+            "geqrt_batched": batched.launches, "host_syncs": sl.host_syncs}
+
+
+def phase_tsqr(torch, np, ct, dev, smi):
+    """BASELINE config 3: tsqr / tsqr_r at 1,048,576 x 128 float32 with both
+    leaves, then an ill-conditioned input that must take the fallback."""
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    m, n = N_TSQR
+    A = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (m, n), dtype=np.float32)).to(dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    result = {}
+    for leaf, orth_gate in (("householder", 4 * n * eps), ("cholqr2", 4 * m ** 0.5 * eps)):
+        cfg = ct.QRConfig(device="cuda", tsqr_leaf=leaf)
+        reset_counts(torch)
+        t0 = time.perf_counter()
+        Q, R = ct.tsqr(A, cfg)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        counts = read_counts()
+        chk = ct.check_qr_device(A, Q, R)
+        say(f"tsqr {m}x{n} f32 {leaf}: residual {chk.residual:.3e} (< {n * eps:.3e}), "
+            f"orthogonality {chk.orthogonality:.3e} (< {orth_gate:.3e}), tril(R) "
+            f"{chk.r_triangular:g}; {t_first:.3f} s first call, launches geqrt_batched "
+            f"{counts['geqrt_batched']}, chol_inv {counts['chol_inv']}, host syncs "
+            f"{counts['host_syncs']}")
+        if not (chk.residual < n * eps and chk.orthogonality < orth_gate
+                and chk.r_triangular == 0.0):
+            raise AssertionError(f"tsqr {leaf} fails its gates")
+        kernel = "geqrt_batched" if leaf == "householder" else "chol_inv"
+        if counts[kernel] == 0:
+            raise AssertionError(f"tsqr {leaf} launched no {kernel} kernel")
+        reset_counts(torch)
+        Rr = ct.tsqr_r(A, cfg)
+        counts_r = read_counts()
+        e_r = rel_err(Rr, R)
+        say(f"tsqr_r {leaf}: rel diff to tsqr's R {e_r:.2e} (< {TOL32:g}); launches "
+            f"geqrt_batched {counts_r['geqrt_batched']}, chol_inv {counts_r['chol_inv']}, "
+            f"host syncs {counts_r['host_syncs']}")
+        if not e_r < TOL32:
+            raise AssertionError(f"tsqr_r {leaf} disagrees with tsqr's R")
+        del Q, R, Rr
+        result[leaf] = (counts, cuda_time_ms(lambda: ct.tsqr(A, cfg), reps=5, warmup=1),
+                        cuda_time_ms(lambda: ct.tsqr_r(A, cfg), reps=5, warmup=1))
+    t_torch = cuda_time_ms(lambda: torch.linalg.qr(A), reps=5, warmup=1)
+    t_torch_r = cuda_time_ms(lambda: torch.linalg.qr(A, mode="r"), reps=5, warmup=1)
+    del A
+
+    mi, ni, cexp = N_TSQR_ILL
+    rng = np.random.default_rng(14)
+    U, _ = np.linalg.qr(rng.standard_normal((mi, ni)))
+    V, _ = np.linalg.qr(rng.standard_normal((ni, ni)))
+    Ai = torch.from_numpy(((U * np.logspace(0, -cexp, ni)) @ V.T).astype(np.float32)).to(dev)
+    reset_counts(torch)
+    Q, R = ct.tsqr(Ai, ct.QRConfig(device="cuda", tsqr_leaf="cholqr2"))
+    counts = read_counts()
+    chk = ct.check_qr_device(Ai, Q, R)
+    say(f"tsqr {mi}x{ni} f32 cholqr2, cond 1e{cexp}: residual {chk.residual:.3e}, orthogonality "
+        f"{chk.orthogonality:.3e} (< {4 * ni * eps:.3e}); fell back to the Householder tree: "
+        f"geqrt_batched launches {counts['geqrt_batched']}, chol_inv {counts['chol_inv']}, "
+        f"host syncs {counts['host_syncs']}")
+    if not (chk.ok and counts["geqrt_batched"] > 0):
+        raise AssertionError("ill-conditioned tsqr did not take the Householder fallback "
+                             "or fails its gates")
+    say(f"tsqr timings on {smi}:")
+    for leaf, (counts, t_q, t_r) in result.items():
+        say(f"  tsqr {m}x{n} f32 {leaf}: {t_q:.2f} ms (tsqr_r {t_r:.2f} ms), "
+            f"{counts['host_syncs']} host syncs")
+    say(f"  torch.linalg.qr reduced: {t_torch:.2f} ms; mode='r': {t_torch_r:.2f} ms")
+    return result["householder"][0]["geqrt_batched"]
+
+
+def phase_qr_batched(torch, np, ct, dev):
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    b, m, n = N_BATCHED
+    A = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (b, m, n), dtype=np.float32)).to(dev)
+    cfg = ct.QRConfig(device="cuda")
+    reset_counts(torch)
+    Q, R = ct.qr_batched(A, cfg)
+    counts = read_counts()
+    A64, Q64 = A.double(), Q.double()
+    resid = float(((A64 - Q64 @ R.double()).norm(dim=(1, 2)) / A64.norm(dim=(1, 2))).max())
+    orth = float((Q64.mT @ Q64 - torch.eye(n, dtype=torch.float64, device=dev))
+                 .norm(dim=(1, 2)).max())
+    eps = float(torch.finfo(torch.float32).eps)
+    tri = float(torch.tril(R, -1).abs().max())
+    pos = bool((torch.diagonal(R, 0, -2, -1) > 0).all())
+    del A64, Q64
+    t_b = cuda_time_ms(lambda: ct.qr_batched(A, cfg), reps=5, warmup=1)
+    t_t = cuda_time_ms(lambda: torch.linalg.qr(A), reps=5, warmup=1)
+    say(f"qr_batched {b} x {m}x{n} f32: max residual {resid:.3e} (< {n * eps:.3e}), max "
+        f"orthogonality {orth:.3e} (< {4 * n * eps:.3e}), tril(R) {tri:g}, diag(R) > 0 {pos}; "
+        f"chol_inv launches {counts['chol_inv']}, host syncs {counts['host_syncs']}; "
+        f"{t_b:.2f} ms vs batched torch.linalg.qr {t_t:.2f} ms")
+    if not (resid < n * eps and orth < 4 * n * eps and tri == 0.0 and pos
+            and counts["chol_inv"] > 0):
+        raise AssertionError("qr_batched fails its checks")
+
+
+def phase_decomp(torch, np, ct, dev):
+    """lq / rq / ql and qr_multiply in float64 on the card."""
+    m, n, p = N_DECOMP
+    cfg = ct.QRConfig(device="cuda", dtype=torch.float64)
+    rng = np.random.default_rng(16)
+    A = torch.from_numpy(rng.standard_normal((m, n))).to(dev)
+    eps = float(torch.finfo(torch.float64).eps)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    for name, M in (("lq", A.T.contiguous()), ("rq", A), ("ql", A)):
+        X, Y = getattr(ct, name)(M, cfg)
+        T, O = (Y, X) if name == "ql" else (X, Y)       # triangular, orthogonal factor
+        rows, cols = T.shape
+        if name == "rq":                                 # upper-trapezoidal R (m x k)
+            tri = float(torch.tril(T, cols - rows - 1).abs().max())
+        else:                                            # lower L
+            tri = float(torch.triu(T, 1 + max(cols - rows, 0) if name == "ql" else 1)
+                        .abs().max())
+        res = float((M - X @ Y).norm() / M.norm())
+        G = O.T @ O if name == "ql" else O @ O.T
+        orth = float((G - eye).norm())
+        say(f"{name} {tuple(M.shape)} f64: {tuple(X.shape)} @ {tuple(Y.shape)}, triangle "
+            f"{tri:g}, residual {res:.3e} (< {n * eps:.3e}), orthogonality {orth:.3e} "
+            f"(< {4 * n * eps:.3e})")
+        if not (tri == 0.0 and res < n * eps and orth < 4 * n * eps):
+            raise AssertionError(f"{name} fails its checks")
+    Q, _ = ct.qr(A, cfg)
+    for mode, transpose, shape in (("left", False, (n, p)), ("left", True, (m, p)),
+                                   ("right", False, (p, m)), ("right", True, (p, n))):
+        C = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+        out, _ = ct.qr_multiply(A, C, mode=mode, transpose=transpose, config=cfg)
+        Qop = Q.T if transpose else Q
+        want = Qop @ C if mode == "left" else C @ Qop
+        err = rel_err(out, want)
+        say(f"qr_multiply {mode} transpose={transpose} C {shape}: rel err vs Q from qr "
+            f"{err:.2e} (< {TOL64:g})")
+        if not err < TOL64:
+            raise AssertionError(f"qr_multiply {mode}/{transpose} disagrees with Q from qr")
+    torch.cuda.synchronize()
+    say(f"decomp phase: {time.perf_counter() - t0:.3f} s")
+
+
+def phase_update(torch, np, ct, dev, smi):
+    """Givens-chain updates of an 8192 x 1024 float32 thin QR, each checked
+    on the modified A, run with CUDA's sync debug mode set to raise (no
+    host sync in a chain), and timed beside a refactor."""
+    from cuda_qr_tpu_torch.models import scipy_compat as sc
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    m, n, k = N_UPDATE
+    rng = np.random.default_rng(17)
+    cfg = ct.QRConfig(device="cuda")
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    A = t(m, n)
+    Q, R = ct.qr(A, cfg)
+    u1, v1, U4, V4, row, col = t(m), t(n), t(m, 4), t(n, 4), t(n), t(m)
+    cases = (
+        ("qr_update rank 1", lambda: sc.qr_update(Q, R, u1, v1), A + torch.outer(u1, v1)),
+        ("qr_update rank 4", lambda: sc.qr_update(Q, R, U4, V4), A + U4 @ V4.T),
+        ("qr_insert row", lambda: sc.qr_insert(Q, R, row, k, which="row"),
+         torch.cat([A[:k], row[None], A[k:]])),
+        ("qr_insert col", lambda: sc.qr_insert(Q, R, col, k, which="col"),
+         torch.cat([A[:, :k], col[:, None], A[:, k:]], 1)),
+        ("qr_delete row", lambda: sc.qr_delete(Q, R, k, which="row"),
+         torch.cat([A[:k], A[k + 1:]])),
+        ("qr_delete col", lambda: sc.qr_delete(Q, R, k, which="col"),
+         torch.cat([A[:, :k], A[:, k + 1:]], 1)),
+    )
+    say(f"update timings on {smi}:")
+    for name, fn, A1 in cases:
+        reset_counts(torch)
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")   # any synchronizing op raises
+        try:
+            Q1, R1 = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = read_counts()["host_syncs"]
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        chk = ct.check_qr_device(A1, Q1, R1)
+        t_upd = cuda_time_ms(fn, reps=1, warmup=0)
+        t_ref = cuda_time_ms(lambda: ct.qr(A1, cfg), reps=2, warmup=1)
+        say(f"  {name}: residual {chk.residual:.3e}, orthogonality {chk.orthogonality:.3e}, "
+            f"ok={chk.ok}, host syncs {syncs}; {t_upd:.2f} ms ({t_first:.3f} s first call) "
+            f"vs refactor qr {tuple(A1.shape)} {t_ref:.2f} ms")
+        if not (chk.ok and syncs == 0):
+            raise AssertionError(f"{name} fails its gates or took a host sync")
+
+
 def gate(name, chk) -> None:
     say(f"{name}: residual {chk.residual:.3e} (< {chk.n * chk.eps:.3e}), "
         f"orthogonality {chk.orthogonality:.3e} (< {4 * chk.n * chk.eps:.3e}), "
@@ -282,6 +568,8 @@ def main() -> int:
     phase_build()
     chol = phase_chol(torch, np, dev)
     geqrt = phase_geqrt(torch, np, dev)
+    geqrt.update(phase_geqrt_batched(torch, np, dev))
+    phase_chol_stack(torch, np, ct, dev)
     select = phase_select(torch, np, dev)
 
     # ---- main path: 8192^2 float32 qr at DEFAULT_CONFIG, then geqrt 4096^2
@@ -359,6 +647,12 @@ def main() -> int:
     del Qt, Rt, A2
     phase_rank(torch, np, ct, cfg, dev)
 
+    # ---- this slice's paths: TSQR (BASELINE config 3), qr_batched, decomp, update
+    launches["geqrt_batched"] = phase_tsqr(torch, np, ct, dev, smi)
+    phase_qr_batched(torch, np, ct, dev)
+    phase_decomp(torch, np, ct, dev)
+    phase_update(torch, np, ct, dev, smi)
+
     # ---- timings (informational)
     flops = qr_flops(N_MAIN, N_MAIN)
     t_fac = cuda_time_ms(lambda: ct.qr_blocked(A, cfg), reps=3, warmup=1)
@@ -401,7 +695,8 @@ def main() -> int:
         {"name": "geqrt", "route": "cuda",
          "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
          "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
-         "launches": launches["geqrt"], **geqrt},
+         "launches": launches["geqrt"], "batched_launches": launches["geqrt_batched"],
+         **geqrt},
         {"name": "select_pivots", "route": "cuda",
          "source": "cuda_qr_tpu_torch/csrc/select_pivots.cu",
          "replaces": "cuda_qr_tpu/ops/pallas_select.py:40",

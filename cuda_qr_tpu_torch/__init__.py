@@ -1,6 +1,7 @@
 """cuda_qr_tpu_torch: the blocked-Householder QR of ``cuda_qr_tpu``, its
-column-pivoted QR and the solvers on both, in PyTorch, with hand-written
-CUDA kernels for an NVIDIA H100 (sm_90a).
+column-pivoted QR and the solvers on both, tall-skinny QR (TSQR), batched
+QR, the LQ/RQ/QL family and QR updating, in PyTorch, with hand-written CUDA
+kernels for an NVIDIA H100 (sm_90a).
 
 The JAX package ``cuda_qr_tpu`` is the reference; this package keeps its
 factor storage and conventions so the two compare piece by piece.  It
@@ -9,9 +10,14 @@ nvcc at first use on a CUDA tensor; CPU tensors take each kernel's plain
 PyTorch version.
 """
 
+from .models.batched import qr_batched
+from .models.decomp import lq, ql, qr_multiply, rq
 from .models.lstsq import LstsqResult, lstsq, solve
 from .models.qr import QRResult, qr, qr_factor, qr_pivoted
 from .models.rank import lstsq_rr, matrix_rank, null_space, pinv, slogdet
+from .models.tsqr import tsqr, tsqr_r
+from .models.update import (qr_col_delete, qr_col_insert, qr_rank1_update,
+                            qr_row_delete, qr_row_insert, qr_update)
 from .ops.blocked import PackedQR, extract_r, orgqr, ormqr, qr_blocked
 from .ops.householder import geqr2, larfb, larft, make_reflector, unpack_r, unpack_v
 from .utils.config import DEFAULT_CONFIG, MIXED_CONFIG, QRConfig
@@ -25,4 +31,7 @@ __all__ = [
     "extract_r", "geqr2", "larfb", "larft", "make_reflector", "unpack_r",
     "unpack_v", "QRConfig", "DEFAULT_CONFIG", "MIXED_CONFIG", "QRCheck",
     "check_qr", "check_qr_device", "QRError", "QRShapeError", "QRNumericalError",
+    "tsqr", "tsqr_r", "qr_batched", "lq", "rq", "ql", "qr_multiply", "qr_update",
+    "qr_rank1_update", "qr_row_insert", "qr_row_delete", "qr_col_insert",
+    "qr_col_delete",
 ]

@@ -22,10 +22,20 @@
 // in L2; there is no shared-memory residency requirement, so unlike the
 // TPU's 16384-row VMEM limit there is no tall-panel fallback.
 //
-// Design: one CTA of 512 threads; each thread owns rows d + tid + k*512 of
-// the current column; the w dot products of a column are accumulated in
-// registers (32 at a time), reduced by warp shuffles and one shared-memory
-// pass, so a column costs four barriers-separated reductions, not w.
+// Design: one CTA of 512 threads per panel; each thread owns rows
+// d + tid + k*512 of the current column; the w dot products of a column are
+// accumulated in registers (32 at a time), reduced by warp shuffles and one
+// shared-memory pass, so a column costs four barriers-separated reductions,
+// not w.
+//
+// Batch grid (cqt_geqrt_batched_*): blockIdx.x selects one of `batch`
+// independent panels of the same shape, stored back to back (panel b at
+// b*w*m in PT/P, b*w in tau, b*w*w in T).  This is the TSQR leaf and tree
+// step (cuda_qr_tpu/models/tsqr.py:30-40, a vmapped geqr2 + larft): one
+// launch factors every leaf of a level, where one launch per leaf would be
+// a thousand launches at 1M x 128.  The CTA body is unchanged; at the leaf
+// shape (1024 x 128 float) each CTA's panel (512 KB) no longer stays in L2
+// once 100+ CTAs run at once, so the batch streams from HBM.
 
 #include <cuda_runtime.h>
 
@@ -71,6 +81,11 @@ geqrt_kernel(const T* __restrict__ PT, T* __restrict__ P, T* __restrict__ tau,
   __shared__ T red[33];
   __shared__ T part[kWarps][kChunk];
   __shared__ T dots[kMaxW];
+  const size_t b = blockIdx.x;
+  PT += b * w * m;
+  P += b * w * m;
+  tau += b * w;
+  Tm += b * w * w;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -161,11 +176,11 @@ geqrt_kernel(const T* __restrict__ PT, T* __restrict__ P, T* __restrict__ tau,
 }
 
 template <typename T>
-int launch(const void* PT, void* P, void* tau, void* Tm, int m, int w, int off,
-           void* stream) {
-  if (w < 1 || w > kMaxW || off < 0 || off + w > m)
+int launch(const void* PT, void* P, void* tau, void* Tm, int batch, int m,
+           int w, int off, void* stream) {
+  if (batch < 1 || w < 1 || w > kMaxW || off < 0 || off + w > m)
     return static_cast<int>(cudaErrorInvalidValue);
-  geqrt_kernel<T><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  geqrt_kernel<T><<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(PT), static_cast<T*>(P), static_cast<T*>(tau),
       static_cast<T*>(Tm), m, w, off);
   return static_cast<int>(cudaGetLastError());
@@ -175,10 +190,22 @@ int launch(const void* PT, void* P, void* tau, void* Tm, int m, int w, int off,
 
 extern "C" int cqt_geqrt_f32(const void* PT, void* P, void* tau, void* Tm,
                              int m, int w, int off, void* stream) {
-  return launch<float>(PT, P, tau, Tm, m, w, off, stream);
+  return launch<float>(PT, P, tau, Tm, 1, m, w, off, stream);
 }
 
 extern "C" int cqt_geqrt_f64(const void* PT, void* P, void* tau, void* Tm,
                              int m, int w, int off, void* stream) {
-  return launch<double>(PT, P, tau, Tm, m, w, off, stream);
+  return launch<double>(PT, P, tau, Tm, 1, m, w, off, stream);
+}
+
+extern "C" int cqt_geqrt_batched_f32(const void* PT, void* P, void* tau,
+                                     void* Tm, int batch, int m, int w,
+                                     int off, void* stream) {
+  return launch<float>(PT, P, tau, Tm, batch, m, w, off, stream);
+}
+
+extern "C" int cqt_geqrt_batched_f64(const void* PT, void* P, void* tau,
+                                     void* Tm, int batch, int m, int w,
+                                     int off, void* stream) {
+  return launch<double>(PT, P, tau, Tm, batch, m, w, off, stream);
 }

@@ -50,22 +50,25 @@ def thin_qr_vjp(Q, R, dQ, dR):
     """Reverse rule for any thin QR, m >= n (the copyltu formula):
         M = R dR^T - dQ^T Q
         dA = (dQ + Q (tril(M,-1) + tril(M,-1)^T + diag(M))) R^{-T}
+    Depends only on the primal outputs, so every thin-QR algorithm of the
+    package (blocked Householder, TSQR, batched CholeskyQR) shares it.
+    Leading dimensions are a batch.
     """
-    M = R @ dR.T - dQ.T @ Q
+    M = R @ dR.mT - dQ.mT @ Q
     tri = torch.tril(M, -1)
-    copyltu = tri + tri.T + torch.diag(torch.diagonal(M))
+    copyltu = tri + tri.mT + torch.diag_embed(torch.diagonal(M, 0, -2, -1))
     rhs = dQ + Q @ copyltu
-    return torch.linalg.solve_triangular(R, rhs.T, upper=True).T
+    return torch.linalg.solve_triangular(R, rhs.mT, upper=True).mT
 
 
-class _ThinQR(torch.autograd.Function):
-    """Reduced-mode QR with the reference's custom VJP: the factorization's
-    loops are not differentiated through."""
+class ThinQRFunction(torch.autograd.Function):
+    """A thin QR ``factor(A, config) -> (Q, R)`` with the reference's custom
+    VJP (``thin_qr_vjp``): the factorization's loops and host decisions are
+    not differentiated through.  ``apply(A, config, factor)``."""
 
     @staticmethod
-    def forward(ctx, A, config):
-        res = qr_factor(A, config)
-        Q, R = res.Q, res.R
+    def forward(ctx, A, config, factor):
+        Q, R = factor(A, config)
         ctx.save_for_backward(Q, R)
         return Q, R
 
@@ -74,7 +77,12 @@ class _ThinQR(torch.autograd.Function):
         Q, R = ctx.saved_tensors
         dQ = torch.zeros_like(Q) if dQ is None else dQ
         dR = torch.zeros_like(R) if dR is None else dR
-        return thin_qr_vjp(Q, R, dQ, dR), None
+        return thin_qr_vjp(Q, R, dQ, dR), None, None
+
+
+def _thin_qr_factor(A, config):
+    res = qr_factor(A, config)
+    return res.Q, res.R
 
 
 def qr_pivoted(A, config: QRConfig = DEFAULT_CONFIG, rank: int | None = None,
@@ -141,7 +149,7 @@ def qr(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
     m, n = A.shape
     if m >= n:
         if mode == "reduced":
-            return _ThinQR.apply(A, config)
+            return ThinQRFunction.apply(A, config, _thin_qr_factor)
         res = qr_factor(A, config)
         if mode == "r":
             return res.R

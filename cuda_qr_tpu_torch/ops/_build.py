@@ -37,6 +37,9 @@ _SIGNATURES = {
     # panelT, packedT, tau, T, m, w, off, stream
     "cqt_geqrt_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "cqt_geqrt_f64": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # panelsT, packedT, tau, T, batch, m, w, off, stream
+    "cqt_geqrt_batched_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cqt_geqrt_batched_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # S, norms, S scratch, norms scratch, ord, l, cand, nb, stream
     "cqt_select_pivots_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }

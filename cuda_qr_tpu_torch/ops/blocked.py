@@ -48,8 +48,8 @@ def as_tensor(A, config: QRConfig) -> torch.Tensor:
     return torch.tensor(np.asarray(A), device=config.device)
 
 
-def _require_real(A: torch.Tensor) -> None:
-    if A.is_complex():
+def _require_real(*tensors: torch.Tensor) -> None:
+    if any(t.is_complex() for t in tensors):
         raise NotImplementedError(
             "complex QR is not ported yet (ROADMAP.md, Queue A: complex support)")
 

@@ -24,11 +24,12 @@ MAX_NB = 512
 
 def supported(shape, dtype) -> bool:
     """The reference's eligibility gate (``pallas_chol.supported``): square
-    float32 of side a multiple of 16 in [16, 512].  The kernel itself takes
-    any side up to 512 in float32 or float64; this gate only mirrors which
-    panels the reference sends to its kernel."""
-    nb = shape[0]
-    return dtype == torch.float32 and nb % _BB == 0 and 16 <= nb <= MAX_NB
+    float32 of side a multiple of 16 in [16, 512], one matrix or a stack.
+    The kernel itself takes any side up to 512 in float32 or float64; this
+    gate only mirrors which panels the reference sends to its kernel."""
+    nb = shape[-1]
+    return (dtype == torch.float32 and len(shape) in (2, 3) and shape[-2] == nb
+            and nb % _BB == 0 and 16 <= nb <= MAX_NB)
 
 
 def chol_with_inv_kernel(G: torch.Tensor):
@@ -37,10 +38,6 @@ def chol_with_inv_kernel(G: torch.Tensor):
     Non-PD input gives non-finite output, no raise.
     """
     if G.device.type == "cpu":
-        if G.dim() == 3:
-            pairs = [cholesky_with_inv(g) for g in G]
-            return (torch.stack([p[0] for p in pairs]),
-                    torch.stack([p[1] for p in pairs]))
         return cholesky_with_inv(G)
     if G.device.type != "cuda":
         raise ValueError(f"chol_with_inv_kernel: unsupported device {G.device}")

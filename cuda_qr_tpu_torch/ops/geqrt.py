@@ -11,6 +11,11 @@ design does about that.  The plain PyTorch version is ``geqr2`` + ``larft``
 launches the kernel or raises.  Around it, ``_geqrt_recursive`` halves the
 panel down to ``config.panel_base`` columns and joins the halves with GEMMs,
 as the reference does.
+
+``geqrt_batched`` factors a stack of equal panels in one launch of the
+kernel's batch grid: the TSQR leaves and tree nodes (``models/tsqr.py``),
+which the reference runs as a vmapped geqr2 + larft.  Its plain version,
+``geqrt_batched_plain``, is the same batch-aware geqr2 + larft.
 """
 
 from __future__ import annotations
@@ -23,11 +28,36 @@ from .householder import geqr2, larfb, larft, unpack_v
 MAX_W = 128
 
 
+def supported(shape, dtype) -> bool:
+    """Whether a panel (m x w) or a stack (L x m x w) with row offset 0 fits
+    the kernel: 1 <= w <= 128 and w <= m, float32 or float64."""
+    m, w = shape[-2:]
+    return dtype in (torch.float32, torch.float64) and 1 <= w <= min(MAX_W, m)
+
+
 def geqrt_base_plain(panel: torch.Tensor, off: int):
-    """geqr2 + larft on rows >= off: (packed, tau, T)."""
-    lo, tau = geqr2(panel[off:])
+    """geqr2 + larft on rows >= off: (packed, tau, T).  Leading dimensions
+    are a batch, reduced column by column all at once."""
+    lo, tau = geqr2(panel[..., off:, :])
     T = larft(unpack_v(lo), tau)
-    return torch.cat([panel[:off], lo], 0), tau, T
+    return torch.cat([panel[..., :off, :], lo], -2), tau, T
+
+
+# The plain version of both wrappers: one panel, or a stack of them.
+geqrt_batched_plain = geqrt_base_plain
+
+
+def _check_shape(name: str, m: int, w: int, off: int) -> None:
+    if not (1 <= w <= MAX_W and 0 <= off and off + w <= m):
+        raise ValueError(f"{name}: need 1 <= w <= {MAX_W} and off + w <= m, "
+                         f"got m={m}, w={w}, off={off}")
+
+
+def _check_device(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: float32/float64 only, got {t.dtype}")
 
 
 def geqrt_base(panel: torch.Tensor, off: int):
@@ -37,15 +67,10 @@ def geqrt_base(panel: torch.Tensor, off: int):
     returned unchanged.
     """
     m, w = panel.shape
-    if not (1 <= w <= MAX_W and 0 <= off and off + w <= m):
-        raise ValueError(f"geqrt_base: need 1 <= w <= {MAX_W} and "
-                         f"off + w <= m, got m={m}, w={w}, off={off}")
+    _check_shape("geqrt_base", m, w, off)
     if panel.device.type == "cpu":
         return geqrt_base_plain(panel, off)
-    if panel.device.type != "cuda":
-        raise ValueError(f"geqrt_base: unsupported device {panel.device}")
-    if panel.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"geqrt_base: float32/float64 only, got {panel.dtype}")
+    _check_device("geqrt_base", panel)
     panelT = panel.t().contiguous()      # each panel column contiguous
     packedT = torch.empty_like(panelT)
     tau = torch.empty(w, dtype=panel.dtype, device=panel.device)
@@ -61,6 +86,39 @@ def geqrt_base(panel: torch.Tensor, off: int):
 
 
 geqrt_base.launches = 0
+
+
+def geqrt_batched(panels: torch.Tensor, off: int):
+    """Factor rows >= off of each of L panels (L x m x w, w <= 128) in one
+    launch: (packed (L x m x w), tau (L x w), T (L x w x w)).
+
+    The kernel reads each panel column-contiguous, so the wrapper makes a
+    transposed copy of the stack (the size of the stack) and returns a
+    transposed view of the kernel's output.
+    """
+    L, m, w = panels.shape
+    _check_shape("geqrt_batched", m, w, off)
+    if panels.device.type == "cpu":
+        return geqrt_batched_plain(panels, off)
+    _check_device("geqrt_batched", panels)
+    panelsT = panels.transpose(1, 2).contiguous()
+    packedT = torch.empty_like(panelsT)
+    tau = torch.empty((L, w), dtype=panels.dtype, device=panels.device)
+    T = torch.empty((L, w, w), dtype=panels.dtype, device=panels.device)
+    if L == 0:
+        return packedT.transpose(1, 2), tau, T
+    lib = _build.load()
+    fn = (lib.cqt_geqrt_batched_f32 if panels.dtype == torch.float32
+          else lib.cqt_geqrt_batched_f64)
+    with torch.cuda.device(panels.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(fn(panelsT.data_ptr(), packedT.data_ptr(), tau.data_ptr(),
+                        T.data_ptr(), L, m, w, off, stream), "geqrt_batched")
+    geqrt_batched.launches += 1
+    return packedT.transpose(1, 2), tau, T
+
+
+geqrt_batched.launches = 0
 
 
 def _geqrt_recursive(panel: torch.Tensor, off: int, config):

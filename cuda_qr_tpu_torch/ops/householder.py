@@ -20,18 +20,36 @@ from __future__ import annotations
 import torch
 
 
+def vecmat(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """v^T M over leading batch dims: v (..., k), M (..., k, n) -> (..., n).
+
+    The unbatched case stays a 1-D product, so its rounding is that of the
+    2-D code."""
+    if v.dim() == 1 and M.dim() == 2:
+        return v @ M
+    return (v.unsqueeze(-2) @ M).squeeze(-2)
+
+
+def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M v over leading batch dims: M (..., m, k), v (..., k) -> (..., m)."""
+    if v.dim() == 1 and M.dim() == 2:
+        return M @ v
+    return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+
 def make_reflector(col: torch.Tensor, d: int):
-    """Householder reflector for rows >= d of ``col`` (m,).
+    """Householder reflector for rows >= d of ``col`` (..., m).
 
     Returns (v, tau, beta): full-length v with v[d] == 1 and zeros above d,
-    0-d tensors tau and beta (the new diagonal entry)."""
-    x0 = col[d]
-    tail = col[d + 1:]
-    scale = col[d:].abs().max()
+    tau and beta (the new diagonal entry) of the leading shape (0-d for one
+    column)."""
+    x0 = col[..., d]
+    tail = col[..., d + 1:]
+    scale = col[..., d:].abs().amax(-1)
     s = torch.where(scale > 0, scale, torch.ones_like(scale))
-    ts = tail / s
+    ts = tail / s[..., None]
     x0s = x0 / s
-    norm = torch.sqrt(x0s * x0s + torch.sum(ts * ts)) * s
+    norm = torch.sqrt(x0s * x0s + torch.sum(ts * ts, -1)) * s
     one = torch.ones_like(x0)
     sign = torch.where(x0 < 0, -one, one)
     u = x0 + sign * norm
@@ -41,47 +59,49 @@ def make_reflector(col: torch.Tensor, d: int):
     tau = torch.where(degenerate, torch.zeros_like(x0), sign * u / safe_norm)
     beta = torch.where(degenerate, x0, -sign * norm)
     v = torch.zeros_like(col)
-    v[d] = 1
-    v[d + 1:] = torch.where(degenerate, torch.zeros_like(tail), tail / safe_u)
+    v[..., d] = 1
+    v[..., d + 1:] = torch.where(degenerate[..., None], torch.zeros_like(tail),
+                                 tail / safe_u[..., None])
     return v, tau, beta
 
 
 def geqr2(A: torch.Tensor, row_offset: int = 0):
-    """Unblocked Householder QR of rows >= row_offset of A (m x n).
+    """Unblocked Householder QR of rows >= row_offset of A (..., m, n).
 
     Column j is reduced over rows >= row_offset + j; rows above row_offset
     are untouched.  Returns (packed, tau): R on/above the shifted diagonal,
-    reflector tails below, one tau per column.  A is not modified.
+    reflector tails below, one tau per column.  A is not modified.  Leading
+    dimensions are a batch, reduced column by column all at once.
     """
     A = A.clone()
-    m, n = A.shape
-    tau = torch.zeros(n, dtype=A.dtype, device=A.device)
+    m, n = A.shape[-2:]
+    tau = torch.zeros(A.shape[:-2] + (n,), dtype=A.dtype, device=A.device)
     for j in range(n):
         d = row_offset + j
         if d >= m:
             break   # dead column: tau = 0 / H = I, as the zero-norm guard gives
-        v, tj, beta = make_reflector(A[:, j], d)
-        vl = v[d:]
+        v, tj, beta = make_reflector(A[..., :, j], d)
+        vl = v[..., d:]
         if j + 1 < n:
-            w = tj * (vl @ A[d:, j + 1:])
-            A[d:, j + 1:] -= torch.outer(vl, w)
-        A[d, j] = beta
-        A[d + 1:, j] = vl[1:]
-        tau[j] = tj
+            w = tj[..., None] * vecmat(vl, A[..., d:, j + 1:])
+            A[..., d:, j + 1:] -= vl[..., :, None] * w[..., None, :]
+        A[..., d, j] = beta
+        A[..., d + 1:, j] = vl[..., 1:]
+        tau[..., j] = tj
     return A, tau
 
 
 def unpack_v(packed: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
     """Full V (unit diagonal at row c + row_offset, zeros above) from packed
-    storage."""
-    m, n = packed.shape
+    storage (..., m, n)."""
+    m, n = packed.shape[-2:]
     r = torch.arange(m, device=packed.device)[:, None]
     d = torch.arange(n, device=packed.device)[None, :] + row_offset
     return torch.where(r > d, packed, (r == d).to(packed.dtype))
 
 
 def unpack_r(packed: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
-    m, n = packed.shape
+    m, n = packed.shape[-2:]
     r = torch.arange(m, device=packed.device)[:, None]
     c = torch.arange(n, device=packed.device)[None, :]
     return torch.where(r <= c + row_offset, packed, torch.zeros_like(packed))
@@ -91,22 +111,22 @@ def larft(V: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     """Forward compact-WY T: Q = I - V T V^T, T upper triangular.
 
     T[:j, j] = -tau_j T[:j, :j] (V[:, :j]^T v_j), T[j, j] = tau_j, with the
-    Gram matrix V^T V formed once."""
-    n = V.shape[1]
-    G = V.T @ V
-    T = torch.zeros((n, n), dtype=V.dtype, device=V.device)
+    Gram matrix V^T V formed once.  V (..., m, n), tau (..., n)."""
+    n = V.shape[-1]
+    G = V.mT @ V
+    T = torch.zeros(V.shape[:-2] + (n, n), dtype=V.dtype, device=V.device)
     for j in range(n):
         if j:
-            T[:j, j] = -tau[j] * (T[:j, :j] @ G[:j, j])
-        T[j, j] = tau[j]
+            T[..., :j, j] = -tau[..., j, None] * matvec(T[..., :j, :j], G[..., :j, j])
+        T[..., j, j] = tau[..., j]
     return T
 
 
 def larfb(B: torch.Tensor, V: torch.Tensor, T: torch.Tensor,
           transpose: bool = True) -> torch.Tensor:
-    """Q^T B (transpose=True) or Q B for Q = I - V T V^T."""
-    W = V.T @ B
-    W = (T.T if transpose else T) @ W
+    """Q^T B (transpose=True) or Q B for Q = I - V T V^T (batch-aware)."""
+    W = V.mT @ B
+    W = (T.mT if transpose else T) @ W
     return B - V @ W
 
 

@@ -4,7 +4,8 @@ Counterpart of ``cuda_qr_tpu/ops/smalllinalg.py``: triangular inversion by
 block doubling, Cholesky and unpivoted LU by 2-way recursion (each fused with
 the inverses the recursion needs anyway), and a Newton-Schulz inverse.
 ``cholesky_with_inv`` is the plain version of the chol_inv kernel
-(``ops/chol_kernel.py``).  A non-PD input gives NaN/Inf, no raise: callers
+(``ops/chol_kernel.py``).  Every routine takes leading batch dimensions
+(the reference's ``jax.vmap``); a 2-D input runs the same ops as before.  A non-PD input gives NaN/Inf, no raise: callers
 branch on finiteness.
 
 Data-dependent branches.  The reference decides them on the device
@@ -16,6 +17,8 @@ single place that takes one, and ``host_syncs`` counts them.
 from __future__ import annotations
 
 import torch
+
+from .householder import vecmat
 
 _BASE = 16
 
@@ -35,88 +38,97 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+def _zeros(like: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """Zeros of ``like``'s leading batch shape, dtype and device."""
+    return torch.zeros(like.shape[:-2] + (rows, cols), dtype=like.dtype,
+                       device=like.device)
+
+
+def _block(A, B, C, D) -> torch.Tensor:
+    """[[A, B], [C, D]] over the last two dimensions."""
+    return torch.cat([torch.cat([A, B], -1), torch.cat([C, D], -1)], -2)
+
+
 def _inv_upper_base(U: torch.Tensor) -> torch.Tensor:
     """Back-substitution inverse of a small upper-triangular block."""
-    n = U.shape[0]
+    n = U.shape[-1]
     X = torch.zeros_like(U)
     eye = _eye(n, U)
     for j in range(n - 1, -1, -1):
-        X[j] = (eye[j] - U[j, j + 1:] @ X[j + 1:]) / U[j, j]
+        X[..., j, :] = ((eye[j] - vecmat(U[..., j, j + 1:], X[..., j + 1:, :]))
+                        / U[..., j, j, None])
     return X
 
 
 def inv_upper(U: torch.Tensor) -> torch.Tensor:
-    """Inverse of upper-triangular U.
+    """Inverse of upper-triangular U (..., n, n).
 
     Power-of-two sizes: batched block doubling, level s inverting all n/2s
     diagonal 2s-blocks at once, inv([[A, B], [0, C]]) = [[Ai, -Ai B Ci],
     [0, Ci]].  Other sizes: 2-way recursion with a back-substitution base.
     """
-    n = U.shape[0]
+    n = U.shape[-1]
     if n & (n - 1):
         return _inv_upper_rec(U)
-    M = (1.0 / torch.diagonal(U)).reshape(n, 1, 1)
+    lead = U.shape[:-2]
+    M = (1.0 / torch.diagonal(U, 0, -2, -1)).reshape(lead + (n, 1, 1))
     s = 1
     while s < n:
         nblk = n // (2 * s)
-        view = U.reshape(nblk, 2 * s, nblk, 2 * s)
-        idx = torch.arange(nblk, device=U.device)
-        dblk = view[idx, :, idx, :]                    # (nblk, 2s, 2s)
-        B = dblk[:, :s, s:]
-        Ai, Ci = M[0::2], M[1::2]
+        view = U.reshape(lead + (nblk, 2 * s, nblk, 2 * s))
+        dblk = torch.diagonal(view, 0, -4, -2).movedim(-1, -3)   # (..., nblk, 2s, 2s)
+        B = dblk[..., :s, s:]
+        Ai, Ci = M[..., 0::2, :, :], M[..., 1::2, :, :]
         top = -(Ai @ B @ Ci)
-        z = torch.zeros((nblk, s, s), dtype=U.dtype, device=U.device)
-        M = torch.cat([torch.cat([Ai, top], 2), torch.cat([z, Ci], 2)], 1)
+        M = _block(Ai, top, torch.zeros_like(Ai), Ci)
         s *= 2
-    return M[0]
+    return M[..., 0, :, :]
 
 
 def _inv_upper_rec(U: torch.Tensor) -> torch.Tensor:
-    n = U.shape[0]
+    n = U.shape[-1]
     if n <= _BASE:
         return _inv_upper_base(U)
     h = n // 2
-    Ai = _inv_upper_rec(U[:h, :h])
-    Ci = _inv_upper_rec(U[h:, h:])
-    top = -(Ai @ U[:h, h:] @ Ci)
-    z = torch.zeros((n - h, h), dtype=U.dtype, device=U.device)
-    return torch.cat([torch.cat([Ai, top], 1), torch.cat([z, Ci], 1)], 0)
+    Ai = _inv_upper_rec(U[..., :h, :h])
+    Ci = _inv_upper_rec(U[..., h:, h:])
+    top = -(Ai @ U[..., :h, h:] @ Ci)
+    return _block(Ai, top, _zeros(U, n - h, h), Ci)
 
 
 def inv_lower(L: torch.Tensor) -> torch.Tensor:
     """Inverse of lower-triangular L via the upper routine on L^T."""
-    return inv_upper(L.T.contiguous()).T
+    return inv_upper(L.mT.contiguous()).mT
 
 
 def _chol_base(G: torch.Tensor) -> torch.Tensor:
     """Column-by-column base Cholesky (n <= _BASE)."""
-    n = G.shape[0]
+    n = G.shape[-1]
     G = G.clone()
     L = torch.zeros_like(G)
     for j in range(n):
-        col = G[j:, j] / torch.sqrt(G[j, j])
-        L[j:, j] = col
-        G[j:, j:] -= torch.outer(col, col)
+        col = G[..., j:, j] / torch.sqrt(G[..., j, j, None])
+        L[..., j:, j] = col
+        G[..., j:, j:] -= col[..., :, None] * col[..., None, :]
     return L
 
 
 def cholesky_with_inv(G: torch.Tensor):
-    """(L, L^{-1}) of SPD G in one 2-way recursion:
-        inv([[L1, 0], [L21, L2]]) = [[L1i, 0], [-L2i L21 L1i, L2i]]."""
-    n = G.shape[0]
+    """(L, L^{-1}) of SPD G (..., n, n) in one 2-way recursion:
+        inv([[L1, 0], [L21, L2]]) = [[L1i, 0], [-L2i L21 L1i, L2i]].
+    Leading dimensions are a batch (the reference vmaps the 2-D recursion)."""
+    n = G.shape[-1]
     if n <= _BASE:
         L = _chol_base(G)
         return L, inv_lower(L)
     h = n // 2
-    L1, L1i = cholesky_with_inv(G[:h, :h])
-    L21 = G[h:, :h] @ L1i.T
-    S = G[h:, h:] - L21 @ L21.T
+    L1, L1i = cholesky_with_inv(G[..., :h, :h])
+    L21 = G[..., h:, :h] @ L1i.mT
+    S = G[..., h:, h:] - L21 @ L21.mT
     L2, L2i = cholesky_with_inv(S)
     bot = -(L2i @ L21 @ L1i)
-    z = torch.zeros((h, n - h), dtype=G.dtype, device=G.device)
-    L = torch.cat([torch.cat([L1, z], 1), torch.cat([L21, L2], 1)], 0)
-    Li = torch.cat([torch.cat([L1i, z], 1), torch.cat([bot, L2i], 1)], 0)
-    return L, Li
+    z = _zeros(G, h, n - h)
+    return _block(L1, z, L21, L2), _block(L1i, z, bot, L2i)
 
 
 def newton_inverse(M: torch.Tensor, tol: float | None = None, max_iters: int = 48):
@@ -183,8 +195,9 @@ def lu_with_inv(Y: torch.Tensor):
 
 
 def chol_with_inv_auto(G: torch.Tensor, config=None):
-    """cholesky_with_inv, on the chol_inv kernel when the config allows it
-    and G is eligible (the reference's routing, ``smalllinalg.py:148-162``)."""
+    """cholesky_with_inv of G (n x n) or a stack (b x n x n), on the chol_inv
+    kernel's batch grid when the config allows it and G is eligible (the
+    reference's routing, ``smalllinalg.py:148-162``)."""
     from .chol_kernel import chol_with_inv_kernel, supported
     if (config is not None and config.use_kernels and config.use_chol_kernel
             and supported(G.shape, G.dtype)):

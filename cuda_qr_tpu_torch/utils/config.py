@@ -4,8 +4,7 @@ Counterpart of ``cuda_qr_tpu/utils/config.py``: one frozen dataclass of the
 knobs the blocked factorization reads.  Knobs that existed only to bound
 XLA/Mosaic compile size or the TPU's VMEM (``driver``, ``scan_stages``,
 ``stage_schedule``, ``interpret``, ``max_vmem_panel_rows``) have no
-counterpart, nor do the TSQR knobs (``block_rows``, ``tsqr_leaf``), whose
-module is not ported yet.
+counterpart.
 
 Precision.  The reference's ``jax.lax.Precision`` becomes a string:
   "highest": float32 GEMMs in full float32 (TF32 off) -- Precision.HIGHEST;
@@ -24,6 +23,7 @@ from typing import Optional
 import torch
 
 PRECISIONS = ("highest", "tf32")
+TSQR_LEAVES = ("householder", "cholqr2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +54,10 @@ class QRConfig:
         kernel where it is eligible (float32, nb a multiple of 16, <= 512).
       use_select_kernel: run the QRCP pivot selection on the select_pivots
         kernel where it is eligible (``ops/select_kernel.supported``).
+      block_rows: rows per TSQR leaf (at least 2n are used).
+      tsqr_leaf: TSQR leaf factorization, "householder" (unconditionally
+        stable) or "cholqr2" (two-pass CholeskyQR2 with a Householder-tree
+        fallback when its certificates fail).
       device: where numpy input is placed; tensor input stays on its device.
     """
 
@@ -69,6 +73,8 @@ class QRConfig:
     factor_lookahead: int = 4
     use_chol_kernel: bool = True
     use_select_kernel: bool = True
+    block_rows: int = 1024
+    tsqr_leaf: str = "householder"
     device: str = "cpu"
 
     def __post_init__(self):
@@ -78,6 +84,8 @@ class QRConfig:
                 raise ValueError(f"{name}={value!r}; expected one of {PRECISIONS}")
         if self.panel_method not in ("cholqr2_bk", "cholqr2_hr", "geqrt", "geqr2"):
             raise ValueError(f"unknown panel_method {self.panel_method!r}")
+        if self.tsqr_leaf not in TSQR_LEAVES:
+            raise ValueError(f"tsqr_leaf={self.tsqr_leaf!r}; expected one of {TSQR_LEAVES}")
 
     def resolved_trailing_precision(self) -> str:
         return self.trailing_precision or self.precision

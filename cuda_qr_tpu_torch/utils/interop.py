@@ -47,9 +47,9 @@ def config_from_reference(cfg, device: str = "cpu") -> QRConfig:
     Carried over: panel_width, panel_base, dtype, precision,
     trailing_precision, orgqr_precision, use_pallas (as use_kernels),
     panel_method, apply_aggregate, factor_lookahead, use_chol_kernel,
-    use_select_kernel.
+    use_select_kernel, block_rows, tsqr_leaf.
     Ignored (no counterpart): driver, scan_stages, stage_schedule,
-    interpret, max_vmem_panel_rows, block_rows, tsqr_leaf.
+    interpret, max_vmem_panel_rows.
     """
     dtype_name = np.dtype(cfg.dtype).name
     if dtype_name not in _DTYPES:
@@ -67,5 +67,7 @@ def config_from_reference(cfg, device: str = "cpu") -> QRConfig:
         factor_lookahead=cfg.factor_lookahead,
         use_chol_kernel=cfg.use_chol_kernel,
         use_select_kernel=cfg.use_select_kernel,
+        block_rows=cfg.block_rows,
+        tsqr_leaf=cfg.tsqr_leaf,
         device=device,
     )

@@ -19,10 +19,11 @@ import torch
 
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
-from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_base_plain
+from cuda_qr_tpu_torch.ops.geqrt import (geqrt_base, geqrt_base_plain, geqrt_batched,
+                                        geqrt_batched_plain)
 from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
                                                  selection_margin)
-from cuda_qr_tpu_torch.ops.smalllinalg import cholesky_with_inv
+from cuda_qr_tpu_torch.ops.smalllinalg import chol_with_inv_auto, cholesky_with_inv
 
 pytestmark = pytest.mark.cuda
 TOLS = {torch.float32: 1e-4, torch.float64: 1e-10}
@@ -137,3 +138,77 @@ def test_qr_pivoted_on_the_card(dev):
     assert select_pivots_kernel.launches == before + 768 // cfg.panel_width
     assert torch.equal(torch.sort(piv).values, torch.arange(768, device=dev))
     assert ct.check_qr_device(A[:, piv], Q, R).ok
+
+
+@pytest.mark.parametrize("L,m,w,off,dtype", [(64, 256, 128, 0, torch.float32),
+                                             (8, 2048, 77, 3, torch.float64),
+                                             (33, 1024, 32, 0, torch.float32)])
+def test_geqrt_batched_kernel_matches_plain(dev, L, m, w, off, dtype):
+    P = torch.from_numpy(np.random.default_rng(L).standard_normal((L, m, w))).to(dev, dtype)
+    P[1] = 0
+    P[2, :, 5] = 0
+    before = geqrt_batched.launches
+    got = geqrt_batched(P, off)
+    want = geqrt_batched_plain(P, off)
+    assert geqrt_batched.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and rel(a, b) < TOLS[dtype]
+    assert torch.equal(got[0][:, :off], P[:, :off])
+
+
+def test_chol_stack_through_auto_launches_once(dev):
+    B = torch.from_numpy(np.random.default_rng(3).standard_normal((256, 64, 128))).to(dev)
+    G = (B @ B.mT / 128).float()
+    before = chol_with_inv_kernel.launches
+    L, Li = chol_with_inv_auto(G, ct.QRConfig(device="cuda"))
+    assert chol_with_inv_kernel.launches == before + 1
+    Lp, Lip = cholesky_with_inv(G)
+    assert rel(L, Lp) < 1e-4 and rel(Li, Lip) < 1e-4
+
+
+@pytest.mark.parametrize("leaf", ["householder", "cholqr2"])
+def test_tsqr_on_the_card(dev, leaf):
+    A = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (65536, 128), dtype=np.float32)).to(dev)
+    cfg = ct.QRConfig(device="cuda", tsqr_leaf=leaf)
+    before = (geqrt_batched.launches, chol_with_inv_kernel.launches)
+    Q, R = ct.tsqr(A, cfg)
+    launched = (geqrt_batched.launches - before[0], chol_with_inv_kernel.launches - before[1])
+    chk = ct.check_qr_device(A, Q, R)
+    assert chk.residual_ok
+    if leaf == "householder":
+        assert launched[0] == 7 and chk.orthogonality_ok      # 64 leaves, 6 levels
+    else:
+        # the direct path's own gate, 4 sqrt(m) eps: the Gram's rounding floor
+        assert launched[1] >= 1 and chk.orthogonality < 4 * 65536 ** 0.5 * chk.eps
+    Rr = ct.tsqr_r(A, cfg)
+    assert rel(Rr, R) < 1e-4
+
+
+def test_qr_batched_on_the_card(dev):
+    A = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (512, 256, 64), dtype=np.float32)).to(dev)
+    before = chol_with_inv_kernel.launches
+    Q, R = ct.qr_batched(A, ct.QRConfig(device="cuda"))
+    assert chol_with_inv_kernel.launches - before == 3          # one per round
+    assert (torch.diagonal(R, 0, -2, -1) > 0).all()
+    for b in (0, 511):
+        assert ct.check_qr_device(A[b], Q[b], R[b]).ok
+
+
+def test_update_chains_take_no_host_sync(dev):
+    """The Givens chains keep every coefficient on the card: with sync debug
+    mode set to error, any synchronizing operation in a chain raises."""
+    rng = np.random.default_rng(17)
+    A = torch.from_numpy(rng.standard_normal((512, 64), dtype=np.float32)).to(dev)
+    Q, R = ct.qr(A, ct.QRConfig(device="cuda"))
+    u, v = torch.randn(512, device=dev), torch.randn(64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [ct.qr_rank1_update(Q, R, u, v), ct.qr_row_insert(Q, R, v, 7),
+                ct.qr_row_delete(Q, R, 7), ct.qr_col_insert(Q, R, u, 7),
+                ct.qr_col_delete(Q, R, 7)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ct.check_qr_device(A + torch.outer(u, v), *outs[0]).ok

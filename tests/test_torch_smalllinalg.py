@@ -78,3 +78,38 @@ def test_chol_with_inv_auto_routes_cpu_to_plain(rng):
     rL, rLi = port.cholesky_with_inv(G)
     assert torch.equal(L, rL) and torch.equal(Li, rLi)
     assert chol_with_inv_kernel.launches == before   # CPU: no kernel launch
+
+
+@pytest.mark.parametrize("n", [8, 24, 32, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_batched_cholesky_with_inv_matches_2d(rng, n, dtype):
+    """A stack (and a 4-D stack) through the batched plain recursion gives
+    each matrix's 2-D result up to summation order."""
+    B = rng.standard_normal((2, 3, n, 2 * n))
+    G = torch.from_numpy(B @ np.swapaxes(B, -1, -2) / (2 * n)).to(dtype)
+    L, Li = port.cholesky_with_inv(G)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for i in range(2):
+        for j in range(3):
+            L2, Li2 = port.cholesky_with_inv(G[i, j])
+            assert float((L[i, j] - L2).abs().max()) <= tol
+            assert float((Li[i, j] - Li2).abs().max()) <= tol * 10
+    U = torch.triu(G) + 4 * torch.eye(n, dtype=dtype)
+    close_b = port.inv_upper(U[0])
+    for j in range(3):
+        assert float((close_b[j] - port.inv_upper(U[0, j])).abs().max()) <= tol
+
+
+def test_chol_with_inv_auto_takes_a_stack(rng):
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel, supported
+    from cuda_qr_tpu_torch.utils.config import QRConfig
+    B = rng.standard_normal((5, 32, 64)).astype(np.float32)
+    G = T(B @ np.swapaxes(B, -1, -2) / 64)
+    assert supported(G.shape, G.dtype) and supported(G.shape[1:], G.dtype)
+    assert not supported((5, 32, 16), G.dtype)
+    before = chol_with_inv_kernel.launches
+    L, Li = port.chol_with_inv_auto(G, QRConfig())
+    assert chol_with_inv_kernel.launches == before
+    rL, rLi = ref.cholesky_with_inv(jnp.asarray(B[2] @ B[2].T / 64))
+    close(L[2], rL, 1e-5)
+    close(Li[2], rLi, 1e-5)
