@@ -13,7 +13,14 @@ rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
 the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
 ``qr_multiply`` in float64, and the QR updates on an 8192 x 1024 thin QR),
 checks the results against the residual and orthogonality gates and known
-answers, and prints timings beside the card's name and power limit.  Every phase raises on
+answers, and prints timings beside the card's name and power limit.  The
+main path factors a numpy array with no config: the entry points place it
+on the card by default.  Each kernel is timed beside its bound (the larger
+of its float32 operations over the FP32 peak and its bytes over HBM's rate)
+and, where one exists, the PyTorch call that computes the same function
+(``library_ms``; a yardstick only, the port never calls it); the geqrt
+lines say which kernel body (shared-memory sub-panels or L2 streaming) each
+shape took.  Every phase raises on
 failure, so any failure exits non-zero; it also fails on a machine without
 a CUDA device.
 
@@ -40,6 +47,8 @@ SELECT_TILES = ((160, 512, 128, 5), (64, 128, 32, 1), (288, 1024, 256, 0))
 MIN_GAP = 1e-5  # "well separated": float32 rounding moves a downdated norm ~1e-7
 TOL32 = 1e-4    # kernel vs plain, float32: other summation order; L^-1 x cond(G)
 TOL64 = 1e-10
+FP32_PEAK = 67e12   # FLOP/s, H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
+HBM_PEAK = 3.35e12  # bytes/s, H100 SXM HBM3
 # geqrt batch grid (L, m, w, off, float64?, zero panels): the TSQR leaf shape
 # at 1M x 128 (first), a tree-node-like stack, an odd width with an offset
 GEQRT_BATCHED = ((1024, 1024, 128, 0, False, False), (64, 256, 128, 0, False, False),
@@ -64,6 +73,32 @@ def abs_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: float32 operations over the FP32
+    peak or bytes (inputs read once, outputs written once) over HBM's rate,
+    whichever is larger."""
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes"}
+
+
+def chol_bound(b: int, nb: int) -> dict:
+    """Cholesky (nb^3/3) plus triangular inverse (nb^3/3); read G, write L, L^-1."""
+    return bound(b * 2 * nb ** 3 / 3, b * 3 * nb * nb * 4)
+
+
+def geqrt_bound(b: int, m: int, w: int) -> dict:
+    """geqr2 (2mw^2 - 2w^3/3) plus larft (w^2 (m - w/3)); read the panel,
+    write the packed panel, tau and T."""
+    return bound(b * (3 * m * w * w - w ** 3), b * (2 * m * w + w + w * w) * 4)
+
+
+def select_bound(l: int, cand: int, nb: int) -> dict:
+    """nb greedy steps, each a projection and a rank-1 update of the tile
+    (4 l cand); read the tile and the norms, write the order."""
+    return bound(4 * l * cand * nb, (l * cand + 2 * cand) * 4)
+
+
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
@@ -77,11 +112,16 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Build every kernel library from this checkout (one nvcc per source, in
+    parallel) and print what ptxas reports for each kernel."""
     from cuda_qr_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    path = _build.load()._name
-    say(f"build: nvcc {_build.build_seconds:.1f} s, load {time.perf_counter() - t0:.1f} s -> "
-        f"{Path(path).relative_to(HERE)}")
+    paths = _build.load().paths
+    say(f"build: nvcc {_build.build_seconds:.1f} s (parallel), load "
+        f"{time.perf_counter() - t0:.1f} s -> "
+        f"{', '.join(str(p.relative_to(HERE)) for p in paths.values())}")
+    for src, log in _build.build_log.items():
+        say(f"ptxas {src}:\n{log}")
 
 
 def phase_chol(torch, np, dev):
@@ -96,7 +136,7 @@ def phase_chol(torch, np, dev):
         return torch.from_numpy(G).to(dev, dtype)
 
     out = {}
-    for dtype, tol, nbs in ((torch.float32, TOL32, (16, 128, 256, 512)),
+    for dtype, tol, nbs in ((torch.float32, TOL32, (16, 32, 48, 128, 160, 192, 256, 512)),
                             (torch.float64, TOL64, (128,))):
         for nb in nbs:
             G = spd(nb, dtype)
@@ -114,6 +154,9 @@ def phase_chol(torch, np, dev):
                 out["max_abs_err"] = max(abs_err(L, Lp), abs_err(Li, Lip))
                 out["ms"] = cuda_time_ms(lambda: chol_with_inv_kernel(G), reps=50)
                 out["plain_ms"] = cuda_time_ms(lambda: cholesky_with_inv(G), reps=10)
+                out["library_ms"] = cuda_time_ms(lambda: chol_library(torch, G), reps=50)
+                out["cholesky_ex_ms"] = cuda_time_ms(lambda: torch.linalg.cholesky_ex(G), reps=50)
+                out.update(chol_bound(1, nb))
     Gs = spd(128, torch.float32, (3,))
     L, Li = chol_with_inv_kernel(Gs)
     for b in range(3):
@@ -124,12 +167,21 @@ def phase_chol(torch, np, dev):
     if torch.isfinite(L).all():
         raise AssertionError("chol_inv: non-PD input gave finite output")
     say(f"chol_inv: stack of 3 ok, non-PD -> non-finite ok; nb=128 f32 kernel "
-        f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms")
+        f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, library (cholesky_ex + "
+        f"solve_triangular) {out['library_ms']:.4f} ms (cholesky_ex alone "
+        f"{out['cholesky_ex_ms']:.4f} ms), bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
 
+def chol_library(torch, G):
+    """The PyTorch yardstick of B1: no single call returns L and L^-1."""
+    L, _ = torch.linalg.cholesky_ex(G)
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device).expand_as(G)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
 def phase_geqrt(torch, np, dev):
-    from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_base_plain
+    from cuda_qr_tpu_torch.ops.geqrt import body, geqrt_base, geqrt_base_plain, plan
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     rng = np.random.default_rng(2)
     out = {}
@@ -150,15 +202,20 @@ def phase_geqrt(torch, np, dev):
         torch.cuda.synchronize()
         errs = (rel_err(pk, pp), rel_err(tau, taup), rel_err(T, Tp))
         finite = bool(torch.isfinite(pk).all() and torch.isfinite(T).all())
-        say(f"geqrt {str(dtype)[6:]} m={m} w={w} off={off}{' zero cols' if zero else ''}: "
-            f"rel err packed {errs[0]:.2e}, tau {errs[1]:.2e}, T {errs[2]:.2e} (tol {tol:g})")
+        say(f"geqrt {str(dtype)[6:]} m={m} w={w} off={off}{' zero cols' if zero else ''} "
+            f"({body(m, w, off, dtype)} body, kb={plan(m, w, off, dtype).kb}): rel err packed "
+            f"{errs[0]:.2e}, tau {errs[1]:.2e}, T {errs[2]:.2e} (tol {tol:g})")
         if not (finite and max(errs) < tol and torch.equal(pk[:off], P[:off])):
             raise AssertionError(f"geqrt disagrees with its plain version at {(m, w, off)}")
         if dtype == torch.float32 and (m, w, off) == (8192, 32, 0):
             out["max_abs_err"] = max(abs_err(pk, pp), abs_err(tau, taup), abs_err(T, Tp))
             out["ms"] = cuda_time_ms(lambda: geqrt_base(P, 0), reps=20)
             out["plain_ms"] = cuda_time_ms(lambda: geqrt_base_plain(P, 0), reps=5)
-    say(f"geqrt: 8192x32 f32 kernel {out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms")
+            out["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P), reps=20)
+            out.update(geqrt_bound(1, m, w))
+    say(f"geqrt: 8192x32 f32 kernel {out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, "
+        f"torch.geqrf {out['library_ms']:.4f} ms (computes less: no T), bound "
+        f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
     return out
 
 
@@ -265,11 +322,13 @@ def phase_rank(torch, np, ct, cfg, dev):
 
 
 def phase_geqrt_batched(torch, np, dev):
-    """The geqrt kernel's batch grid against its plain version."""
-    from cuda_qr_tpu_torch.ops.geqrt import geqrt_batched, geqrt_batched_plain
+    """The geqrt kernel's batch grid against its plain version; at the TSQR
+    leaf stack, the node stack and one node it is timed beside torch.geqrf
+    (which computes less: no T)."""
+    from cuda_qr_tpu_torch.ops.geqrt import body, geqrt_batched, geqrt_batched_plain, plan
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     rng = np.random.default_rng(6)
-    out = {"batched_max_abs_err": 0.0}
+    out = {}
     for L, m, w, off, f64, zero in GEQRT_BATCHED:
         dtype, tol = (torch.float64, TOL64) if f64 else (torch.float32, TOL32)
         P = torch.from_numpy(rng.standard_normal((L, m, w), dtype=np.float32)).to(dev, dtype)
@@ -282,22 +341,36 @@ def phase_geqrt_batched(torch, np, dev):
         errs = (rel_err(pk, pp), rel_err(tau, taup), rel_err(T, Tp))
         finite = bool(torch.isfinite(pk).all() and torch.isfinite(T).all())
         say(f"geqrt_batched {str(dtype)[6:]} {L} x {m}x{w} off={off}"
-            f"{' zero panel' if zero else ''}: rel err packed {errs[0]:.2e}, tau {errs[1]:.2e}, "
-            f"T {errs[2]:.2e} (tol {tol:g})")
-        if not (finite and max(errs) < tol and torch.equal(pk[:, :off], P[:, :off])):
+            f"{' zero panel' if zero else ''} ({body(m, w, off, dtype)} body, "
+            f"kb={plan(m, w, off, dtype).kb}): rel err packed {errs[0]:.2e}, "
+            f"tau {errs[1]:.2e}, T {errs[2]:.2e} (tol {tol:g})")
+        if not (finite and max(errs) < tol and torch.equal(pk[:, :off], P[:, :off])
+                and pk.is_contiguous()):
             raise AssertionError(f"geqrt_batched disagrees with its plain version at "
                                  f"{(L, m, w, off)}")
         if zero and not bool((tau[5] == 0).all()):
             raise AssertionError("geqrt_batched: a zero panel gave a nonzero tau")
-        if (L, m, w, off) == GEQRT_BATCHED[0][:4]:
-            out["batched_max_abs_err"] = max(abs_err(pk, pp), abs_err(tau, taup), abs_err(T, Tp))
-            out["batched_ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0), reps=5, warmup=1)
-            out["batched_plain_ms"] = cuda_time_ms(lambda: geqrt_batched_plain(P, 0),
-                                                   reps=2, warmup=1)
+        if (L, m, w, off) == GEQRT_BATCHED[0][:4]:          # the TSQR leaves
+            out["max_abs_err"] = max(abs_err(pk, pp), abs_err(tau, taup), abs_err(T, Tp))
+            out["ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0), reps=5, warmup=1)
+            out["plain_ms"] = cuda_time_ms(lambda: geqrt_batched_plain(P, 0), reps=2, warmup=1)
+            out["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P), reps=2, warmup=1)
+            out.update(geqrt_bound(L, m, w))
+        if (L, m, w, off) == GEQRT_BATCHED[1][:4]:          # a tree level, and one node
+            P1 = P[:1].contiguous()
+            out["node_stack_ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0), reps=20)
+            out["node_stack_library_ms"] = cuda_time_ms(lambda: torch.geqrf(P), reps=5)
+            out["node_ms"] = cuda_time_ms(lambda: geqrt_batched(P1, 0), reps=20)
+            out["node_library_ms"] = cuda_time_ms(lambda: torch.geqrf(P1[0]), reps=20)
+            out["node_bound_ms"] = geqrt_bound(1, m, w)["bound_ms"]
         del P, pk, pp, T, Tp
-    L, m, w = GEQRT_BATCHED[0][:3]
-    say(f"geqrt_batched: {L} x {m}x{w} f32 kernel {out['batched_ms']:.4f} ms vs plain "
-        f"{out['batched_plain_ms']:.4f} ms")
+    (L, m, w), (Ln, mn, wn) = GEQRT_BATCHED[0][:3], GEQRT_BATCHED[1][:3]
+    say(f"geqrt_batched: {L} x {m}x{w} f32 kernel {out['ms']:.4f} ms vs plain "
+        f"{out['plain_ms']:.4f} ms, torch.geqrf {out['library_ms']:.4f} ms (no T), bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    say(f"geqrt_batched: {Ln} x {mn}x{wn} f32 kernel {out['node_stack_ms']:.4f} ms, torch.geqrf "
+        f"{out['node_stack_library_ms']:.4f} ms; one {mn}x{wn} node {out['node_ms']:.4f} ms, "
+        f"torch.geqrf {out['node_library_ms']:.4f} ms, bound {out['node_bound_ms']:.6f} ms")
     return out
 
 
@@ -310,7 +383,7 @@ def phase_chol_stack(torch, np, ct, dev):
     b, n = CHOL_STACK
     B = torch.from_numpy(np.random.default_rng(7).standard_normal((b, n, 2 * n))).to(dev)
     G = (B @ B.mT / (2 * n)).float()
-    cfg = ct.QRConfig(device="cuda")
+    cfg = ct.DEFAULT_CONFIG
     before = chol_with_inv_kernel.launches
     L, Li = chol_with_inv_auto(G, cfg)
     launched = chol_with_inv_kernel.launches - before
@@ -319,11 +392,16 @@ def phase_chol_stack(torch, np, ct, dev):
     eL, eLi = rel_err(L, Lp), rel_err(Li, Lip)
     t_k = cuda_time_ms(lambda: chol_with_inv_auto(G, cfg), reps=10)
     t_p = cuda_time_ms(lambda: cholesky_with_inv(G), reps=3)
+    t_l = cuda_time_ms(lambda: chol_library(torch, G), reps=10)
+    t_c = cuda_time_ms(lambda: torch.linalg.cholesky_ex(G), reps=10)
+    bnd = chol_bound(b, n)["bound_ms"]
     say(f"chol_inv stack {b} x {n}x{n} f32 via chol_with_inv_auto: {launched} launch, rel err "
         f"L {eL:.2e}, L^-1 {eLi:.2e} (tol {TOL32:g}); kernel {t_k:.4f} ms vs batched plain "
-        f"{t_p:.4f} ms")
+        f"{t_p:.4f} ms, library (cholesky_ex + solve_triangular) {t_l:.4f} ms (cholesky_ex "
+        f"alone {t_c:.4f} ms), bound {bnd:.4f} ms")
     if not (launched == 1 and eL < TOL32 and eLi < TOL32):
         raise AssertionError("chol_inv stack disagrees with the batched plain recursion")
+    return {"stack_ms": t_k, "stack_plain_ms": t_p, "stack_library_ms": t_l, "stack_bound_ms": bnd}
 
 
 def counters():
@@ -357,7 +435,7 @@ def phase_tsqr(torch, np, ct, dev, smi):
     eps = float(torch.finfo(torch.float32).eps)
     result = {}
     for leaf, orth_gate in (("householder", 4 * n * eps), ("cholqr2", 4 * m ** 0.5 * eps)):
-        cfg = ct.QRConfig(device="cuda", tsqr_leaf=leaf)
+        cfg = ct.QRConfig(tsqr_leaf=leaf)
         reset_counts(torch)
         t0 = time.perf_counter()
         Q, R = ct.tsqr(A, cfg)
@@ -376,6 +454,9 @@ def phase_tsqr(torch, np, ct, dev, smi):
         kernel = "geqrt_batched" if leaf == "householder" else "chol_inv"
         if counts[kernel] == 0:
             raise AssertionError(f"tsqr {leaf} launched no {kernel} kernel")
+        if leaf == "householder" and counts[kernel] != 11:    # leaves + 10 tree levels
+            raise AssertionError(f"tsqr householder launched geqrt_batched "
+                                 f"{counts[kernel]} times, expected 11")
         reset_counts(torch)
         Rr = ct.tsqr_r(A, cfg)
         counts_r = read_counts()
@@ -398,7 +479,7 @@ def phase_tsqr(torch, np, ct, dev, smi):
     V, _ = np.linalg.qr(rng.standard_normal((ni, ni)))
     Ai = torch.from_numpy(((U * np.logspace(0, -cexp, ni)) @ V.T).astype(np.float32)).to(dev)
     reset_counts(torch)
-    Q, R = ct.tsqr(Ai, ct.QRConfig(device="cuda", tsqr_leaf="cholqr2"))
+    Q, R = ct.tsqr(Ai, ct.QRConfig(tsqr_leaf="cholqr2"))
     counts = read_counts()
     chk = ct.check_qr_device(Ai, Q, R)
     say(f"tsqr {mi}x{ni} f32 cholqr2, cond 1e{cexp}: residual {chk.residual:.3e}, orthogonality "
@@ -421,7 +502,7 @@ def phase_qr_batched(torch, np, ct, dev):
     b, m, n = N_BATCHED
     A = torch.from_numpy(np.random.default_rng(15).standard_normal(
         (b, m, n), dtype=np.float32)).to(dev)
-    cfg = ct.QRConfig(device="cuda")
+    cfg = ct.DEFAULT_CONFIG
     reset_counts(torch)
     Q, R = ct.qr_batched(A, cfg)
     counts = read_counts()
@@ -447,7 +528,7 @@ def phase_qr_batched(torch, np, ct, dev):
 def phase_decomp(torch, np, ct, dev):
     """lq / rq / ql and qr_multiply in float64 on the card."""
     m, n, p = N_DECOMP
-    cfg = ct.QRConfig(device="cuda", dtype=torch.float64)
+    cfg = ct.QRConfig(dtype=torch.float64)
     rng = np.random.default_rng(16)
     A = torch.from_numpy(rng.standard_normal((m, n))).to(dev)
     eps = float(torch.finfo(torch.float64).eps)
@@ -494,7 +575,7 @@ def phase_update(torch, np, ct, dev, smi):
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     m, n, k = N_UPDATE
     rng = np.random.default_rng(17)
-    cfg = ct.QRConfig(device="cuda")
+    cfg = ct.DEFAULT_CONFIG
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
@@ -568,14 +649,17 @@ def main() -> int:
     phase_build()
     chol = phase_chol(torch, np, dev)
     geqrt = phase_geqrt(torch, np, dev)
-    geqrt.update(phase_geqrt_batched(torch, np, dev))
-    phase_chol_stack(torch, np, ct, dev)
+    geqrt_b = phase_geqrt_batched(torch, np, dev)
+    chol.update(phase_chol_stack(torch, np, ct, dev))
     select = phase_select(torch, np, dev)
 
-    # ---- main path: 8192^2 float32 qr at DEFAULT_CONFIG, then geqrt 4096^2
-    cfg = ct.DEFAULT_CONFIG.replace(device="cuda")
-    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
-        (N_MAIN, N_MAIN), dtype=np.float32)).to(dev)
+    # ---- main path: 8192^2 float32 qr of a numpy array at DEFAULT_CONFIG (the
+    # card is the default device), then geqrt 4096^2
+    cfg = ct.DEFAULT_CONFIG
+    if cfg.device != "cuda":
+        raise AssertionError(f"DEFAULT_CONFIG.device is {cfg.device!r}, not the card")
+    A_np = np.random.default_rng(12).standard_normal((N_MAIN, N_MAIN), dtype=np.float32)
+    A = torch.from_numpy(A_np).to(dev)
     A4 = torch.from_numpy(np.random.default_rng(13).standard_normal(
         (N_GEQRT, N_GEQRT), dtype=np.float32)).to(dev)
     gcfg = cfg.replace(panel_method="geqrt")
@@ -584,9 +668,13 @@ def main() -> int:
     geqrt_base.launches = 0
     smalllinalg.host_syncs = 0
     t0 = time.perf_counter()
-    Q, R = ct.qr(A, cfg)
+    Q, R = ct.qr(A_np)
     torch.cuda.synchronize()
     t_main = time.perf_counter() - t0
+    del A_np
+    if not (Q.device.type == "cuda" and R.device.type == "cuda"):
+        raise AssertionError(f"ct.qr of numpy input at DEFAULT_CONFIG left Q on {Q.device}, "
+                             f"R on {R.device}")
     chol_main, syncs_main = chol_with_inv_kernel.launches, smalllinalg.host_syncs
     t0 = time.perf_counter()
     fac4 = ct.qr_blocked(A4, gcfg)
@@ -595,8 +683,9 @@ def main() -> int:
     t_geqrt = time.perf_counter() - t0
     launches = {"chol_inv": chol_with_inv_kernel.launches,
                 "geqrt": geqrt_base.launches}
-    say(f"main path: qr {N_MAIN}^2 f32 {cfg.panel_method} nb={cfg.panel_width} "
-        f"lookahead={cfg.factor_lookahead}: {t_main:.3f} s first call, "
+    say(f"main path: qr of numpy {N_MAIN}^2 f32 at DEFAULT_CONFIG -> Q, R on {Q.device}; "
+        f"{cfg.panel_method} nb={cfg.panel_width} "
+        f"lookahead={cfg.factor_lookahead}: {t_main:.3f} s first call (with the copy), "
         f"chol_inv launches {chol_main}, host syncs {syncs_main}")
     gate(f"qr {N_MAIN}^2 f32", ct.check_qr_device(A, Q, R))
     if chol_main < N_MAIN // cfg.panel_width:
@@ -665,7 +754,7 @@ def main() -> int:
         return ct.orgqr(f, N_MAIN, N_MAIN, cfg), ct.extract_r(f, N_MAIN)
 
     t_qr = cuda_time_ms(factor_and_q, reps=3, warmup=1)
-    mixed = ct.MIXED_CONFIG.replace(device="cuda")
+    mixed = ct.MIXED_CONFIG
     t_mixed = cuda_time_ms(lambda: ct.qr_blocked(A, mixed), reps=3, warmup=1)
     fm = ct.qr_blocked(A, mixed)
     chk_m = ct.check_qr_device(A, ct.orgqr(fm, N_MAIN, N_MAIN, mixed),
@@ -695,12 +784,16 @@ def main() -> int:
         {"name": "geqrt", "route": "cuda",
          "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
          "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
-         "launches": launches["geqrt"], "batched_launches": launches["geqrt_batched"],
-         **geqrt},
+         "launches": launches["geqrt"], **geqrt},
+        {"name": "geqrt_batched", "route": "cuda",
+         "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
+         "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
+         "launches": launches["geqrt_batched"], **geqrt_b},
         {"name": "select_pivots", "route": "cuda",
          "source": "cuda_qr_tpu_torch/csrc/select_pivots.cu",
          "replaces": "cuda_qr_tpu/ops/pallas_select.py:40",
-         "launches": launches["select_pivots"], **select},
+         "launches": launches["select_pivots"], **select,
+         **select_bound(*SELECT_TILES[0][:3]), "library_ms": None},
     ]
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

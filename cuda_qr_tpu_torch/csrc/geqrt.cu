@@ -1,41 +1,54 @@
-// Column-by-column Householder factorization of one narrow panel (geqrt).
+// Householder factorization of narrow panels (geqrt): one CTA per panel.
 //
 // Replaces the TPU kernel cuda_qr_tpu/ops/geqrt.py:_geqrt_kernel (called
 // through _geqrt_pallas inside the recursive panel factorization), itself
 // the successor of the reference's panelHouseholderKernel (qr.cu:60-333).
-// For rows >= off of an m x w panel it writes the packed V/R panel, tau (w)
-// and the compact-WY T (w x w, row-major, upper triangular) with the
-// conventions of cuda_qr_tpu/ops/householder.py: scaled norm, sign/u/tau/
-// beta with the zero-column guard, v[d] = 1 implicit, T column j =
-// -tau_j T[:j, :j] (V^T v_j) with T[j][j] = tau_j.
+// For rows >= off of an m x w panel (w <= 128) it writes the packed V/R
+// panel, tau (w) and the compact-WY T (w x w, row-major, upper triangular)
+// with the conventions of cuda_qr_tpu/ops/householder.py: scaled norm with
+// a NaN-propagating max, sign/u/tau/beta with the zero-column guard,
+// v[d] = 1 implicit, T column j = -tau_j T[:j, :j] (V^T v_j) with
+// T[j][j] = tau_j; rows above off are copied unchanged.
 //
-// Input layout: the panel TRANSPOSED and contiguous (w x m), so that each
-// panel column is a contiguous row and every per-column pass coalesces.
-// The wrapper makes that copy (1 MB at 8192 x 32 float); it replaces the
-// TPU kernel's lane-transposed layout.
+// Layout: the panel as it is, row-major (rows of w values; the input's row
+// stride lda may exceed w, so a column slice of a wider matrix is read in
+// place).  The output is contiguous m x w.  Batch grid (cqt_geqrt_batched_*):
+// blockIdx.x selects one of `batch` panels stored back to back; it carries
+// the TSQR leaves and each tree level (cuda_qr_tpu/models/tsqr.py:30-40).
 //
-// What bounds it on an H100: latency.  Per column the kernel runs two block
-// reductions (max|x|, then the scaled sum of squares), one fused
-// multi-reduction of the w dot products V^T v (for T) and A_c^T v (for the
-// update), and a rank-1 update: w dependent steps of a few passes over the
-// m - off live rows, all from one SM.  The panel (1 MB at 8192 x 32) stays
-// in L2; there is no shared-memory residency requirement, so unlike the
-// TPU's 16384-row VMEM limit there is no tall-panel fallback.
+// What bounds it on an H100: at the TSQR leaf stack (1024 panels of
+// 1024 x 128 float) 49 GFLOP and 1.1 GB, 0.74 ms of FP32 FMA; one 256 x 128
+// node alone is far below a launch and bound by its 128 dependent column
+// steps on one SM.  The first design (PR 1 / PR 3) kept every column step
+// in L2/HBM: per column two block reductions, four 32-wide chunks of dot
+// products (~700 shuffles, 8 barriers) and a rank-1 update, each re-reading
+// the whole trailing panel.  A 512 KB leaf fits no SM, and 132 of them in
+// flight overflow the 50 MB L2, so every leaf streamed ~64 MB from HBM.
+// It also read a transposed copy that the wrapper made.
 //
-// Design: one CTA of 512 threads per panel; each thread owns rows
-// d + tid + k*512 of the current column; the w dot products of a column are
-// accumulated in registers (32 at a time), reduced by warp shuffles and one
-// shared-memory pass, so a column costs four barriers-separated reductions,
-// not w.
-//
-// Batch grid (cqt_geqrt_batched_*): blockIdx.x selects one of `batch`
-// independent panels of the same shape, stored back to back (panel b at
-// b*w*m in PT/P, b*w in tau, b*w*w in T).  This is the TSQR leaf and tree
-// step (cuda_qr_tpu/models/tsqr.py:30-40, a vmapped geqr2 + larft): one
-// launch factors every leaf of a level, where one launch per leaf would be
-// a thousand launches at 1M x 128.  The CTA body is unchanged; at the leaf
-// shape (1024 x 128 float) each CTA's panel (512 KB) no longer stays in L2
-// once 100+ CTAs run at once, so the batch streams from HBM.
+// This design (the "sub-panel body"; wrapper: ops/geqrt.py, whose `plan`
+// picks kb, residency and row slices from the shape alone):
+//   * kb <= 32 columns at a time (a sub-panel) are factored in shared
+//     memory, rows >= off + c0, row stride kb + 1; where the whole panel
+//     fits (a 256 x 128 float tree node: 132 KB) it stays there, row stride
+//     w + 1, and only the result goes back;
+//   * column steps with the rows spread over the 512 threads: per column,
+//     ONE block reduction (two barriers) yields the scale, the norm, tau,
+//     beta, every dot product of the update and a column of the Gram
+//     V_s^T V_s; each thread then updates its own rows.  The first design
+//     took ~700 shuffles and 8 barriers per column;
+//   * T_s from that Gram by one warp in registers (lane i owns row i of the
+//     recurrence, so no barrier);
+//   * one pass over the panel's other columns computes both V_s^T A_trail
+//     (for the block update A_trail -= V_s T_s^T V_s^T A_trail) and
+//     V_s^T V_prev (for joining T as _geqrt_recursive joins halves:
+//     T[:c0, c0:] = -T[:c0, :c0] V_prev^T V_s T_s); so the trailing panel is
+//     read and written once per kb columns, not once per column; a thread
+//     keeps 8 rows of loads in flight, and tall panels split the rows into
+//     slices whose partial products are summed afterwards.
+// Panels too tall for a 4-column sub-panel (float: m - off > ~11k rows)
+// take the first design's streaming body (kb = 0), reading the row-major
+// panel in L2.
 
 #include <cuda_runtime.h>
 
@@ -43,7 +56,7 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 32;      // dot products accumulated per pass
+constexpr int kChunk = 32;      // streaming body: dot products per pass
 constexpr int kMaxW = 128;
 
 template <typename T>
@@ -52,23 +65,412 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (a != a || b != b) ? a + b : (a > b ? a : b);
 }
 
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ------------------------------------------------------------------------
+// Sub-panel body
+// ------------------------------------------------------------------------
+
+constexpr int kKb = 32;         // widest sub-panel: one warp's lanes
+constexpr int kLd = kKb + 1;    // row stride of the small kb x kb buffers
+constexpr int kRedWords = 600;  // RowRed (the column steps' scratch), in words of T
+constexpr int kBatch = 8;       // rows of loads a thread keeps in flight
+
+// Smallest normal number: at or above it, 1 / s is finite and a multiply
+// replaces a division by s.
+template <typename T> __device__ __forceinline__ T min_normal();
+template <> __device__ __forceinline__ float min_normal<float>() { return 1.17549435e-38f; }
+template <> __device__ __forceinline__ double min_normal<double>() {
+  return 2.2250738585072014e-308;
+}
+
+// Sign, u, tau and beta of a column with leading entry x0, scaled maximum s
+// and scaled sum of squares ssq; v = x / safe_u below the diagonal.
+template <typename T>
+struct Refl {
+  T tau, beta, safe_u;
+  bool degen;
+  __device__ Refl(T x0, T s, T ssq) {
+    const T norm = sqrt(ssq) * s;
+    const T sign = x0 < T(0) ? T(-1) : T(1);
+    const T u = x0 + sign * norm;
+    degen = norm <= T(0);
+    safe_u = degen ? T(1) : u;
+    tau = degen ? T(0) : sign * u / norm;
+    beta = degen ? x0 : -sign * norm;
+  }
+};
+
+// Shared scratch of the column steps: per-warp partials and the step's
+// coefficients.
+template <typename T>
+struct RowRed {
+  T w[kWarps][kKb];      // per warp: w_c = sum of x_r a_rc over its rows r > j
+  T mx[kWarps], ssq[kWarps];
+  T f[kKb];              // f_c = tau_j (v_j . a_c), the update coefficients
+  T beta, safe_u;
+  int degen, rcp;
+};
+
+static_assert(sizeof(RowRed<double>) <= kRedWords * sizeof(double), "kRedWords");
+static_assert(sizeof(RowRed<float>) <= kRedWords * sizeof(float), "kRedWords");
+
+// The column steps of a sub-panel (rows x kbs in V, row stride ldp), rows
+// spread over the threads: thread t owns local rows t, t + 512, ...  Per
+// step j, each thread takes max |x| and the sum of squares scaled by it on
+// its rows of the pivot column j; lane c of each warp takes, over the warp's
+// rows, the partial dot of column c > j with column j (for the update) or
+// of column c < j - 1 with v_{j-1} (the Gram entry Y[c][j-1] for T).  One
+// block reduction (two barriers) gives the scale, the norm (per-thread
+// scales combined as LAPACK's nrm2 does), tau, beta, every update
+// coefficient and a column of the Gram; then each thread writes its rows of
+// v_j and updates its rows of the later columns.  Step kbs only finishes
+// the Gram.
+template <typename T>
+__device__ void column_steps(T* V, int ldp, int rows, int kbs, T* tau_s, T* Ys,
+                             RowRed<T>* red) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int j = 0; j <= kbs; ++j) {
+    __syncwarp();                                      // the last step's row writes
+    const bool pivot = j < kbs;
+    const int r0 = j + ((tid - j) & (kThreads - 1));   // first own row >= j
+    T mx = T(0), ssq = T(0);
+    if (pivot) {
+      for (int r = r0; r < rows; r += kThreads) mx = nan_max(mx, T(fabs(V[r * ldp + j])));
+      const bool fast = mx >= min_normal<T>();         // 1 / mx is finite
+      const T rmx = fast ? T(1) / mx : T(0);
+      for (int r = r0; r < rows; r += kThreads) {
+        const T x = V[r * ldp + j];
+        T xs;
+        if (fast)
+          xs = x * rmx;
+        else
+          xs = mx > T(0) ? x / mx : x * T(0);           // x * 0: NaN stays NaN
+        ssq += xs * xs;
+      }
+    }
+    const T wmx = warp_max(mx);
+    const T wssq = warp_sum(mx > T(0) ? ssq * (mx / wmx) * (mx / wmx) : T(0));
+    // lane c: c > j dots with column j over rows > j; c < j - 1 dots with
+    // column j - 1 over rows > j - 1
+    const bool upd = pivot && lane > j && lane < kbs, gram = lane + 1 < j;
+    T acc0 = T(0), acc1 = T(0);
+    if (upd || gram) {
+      const int piv = upd ? j : j - 1;
+      const T* Vp = V + piv;
+      const T* Vc = V + lane;
+      for (int base = warp * 32; base < rows; base += kThreads) {
+        const int hi = base + 32 < rows ? base + 32 : rows;
+        int r = base > piv ? base : piv + 1;
+        for (; r + 1 < hi; r += 2) {
+          acc0 += Vp[r * ldp] * Vc[r * ldp];
+          acc1 += Vp[(r + 1) * ldp] * Vc[(r + 1) * ldp];
+        }
+        if (r < hi) acc0 += Vp[r * ldp] * Vc[r * ldp];
+      }
+    }
+    red->w[warp][lane] = acc0 + acc1;
+    if (lane == 0) {
+      red->mx[warp] = wmx;
+      red->ssq[warp] = wssq;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      T part = T(0);
+      for (int k = 0; k < kWarps; ++k) part += red->w[k][lane];
+      if (gram) Ys[lane * kLd + j - 1] = V[(j - 1) * ldp + lane] + part;   // v_{j-1}[j-1] = 1
+      if (pivot) {
+        // the warps' scales and scaled sums, combined across lanes
+        const T m = lane < kWarps ? red->mx[lane] : T(0);
+        const T sm = warp_max(m);
+        T q = m > T(0) ? red->ssq[lane] * (m / sm) * (m / sm) : T(0);
+        q = warp_sum(q);
+        if (!(sm == sm)) q = sm;                       // NaN spreads
+        const T sc = sm > T(0) ? sm : T(1);
+        const Refl<T> h(V[j * ldp + j], sc, q);
+        if (upd) red->f[lane] = h.tau * (V[j * ldp + lane] + (h.degen ? T(0) : part / h.safe_u));
+        if (lane == 0) {
+          tau_s[j] = h.tau;
+          red->beta = h.beta;
+          red->safe_u = h.safe_u;
+          red->degen = h.degen;
+          red->rcp = sc >= min_normal<T>();
+        }
+      }
+    }
+    __syncthreads();
+    if (!pivot) break;
+    const T safe_u = red->safe_u;
+    const T ru = T(1) / safe_u;
+    const bool degen = red->degen, rcp = red->rcp;
+    const T* __restrict__ f = red->f;
+    for (int r = r0; r < rows; r += kThreads) {
+      T* __restrict__ Vr = V + r * ldp;
+      T v;
+      if (r == j) {
+        v = T(1);
+        Vr[j] = red->beta;
+      } else {
+        const T x = Vr[j];
+        v = degen ? T(0) : (rcp ? x * ru : x / safe_u);
+        Vr[j] = v;
+      }
+#pragma unroll 4
+      for (int c = j + 1; c < kbs; ++c) Vr[c] -= f[c] * v;
+    }
+  }
+}
+
+// resident: the whole panel (rows >= off, all w columns) stays in shared
+// memory, row stride w + 1, and the sub-panel is a window of it; otherwise
+// only the sub-panel is held (row stride kb + 1) and the other columns are
+// read and written in global memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+geqrt_subpanel_kernel(const T* __restrict__ A, int lda, T* P, T* __restrict__ tau,
+                      T* __restrict__ Tm, int m, int w, int off, int kb, int resident,
+                      int nslices) {
+  // P is read back after it is written: no __restrict__ on it.
+  extern __shared__ unsigned char smem_raw[];
+  const size_t b = blockIdx.x;
+  A += b * static_cast<size_t>(m) * lda;
+  P += b * static_cast<size_t>(m) * w;
+  tau += b * w;
+  Tm += b * w * w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int prows = m - off;
+  const int ldp = resident ? w + 1 : kb + 1;
+  T* Ps = reinterpret_cast<T*>(smem_raw);              // prows x ldp
+  T* Ys = Ps + static_cast<size_t>(prows) * ldp;       // kKb x kLd, Y[c][j] = v_c . v_j
+  T* Ts = Ys + kKb * kLd;                              // kKb x kLd, T_s (zeros below)
+  T* Z = Ts + kKb * kLd;                               // nslices x kb x w
+  T* tau_s = Z + nslices * kb * w;                     // kKb
+  auto* red = reinterpret_cast<RowRed<T>*>(tau_s + kKb); // kRedWords
+
+  for (int e = tid; e < off * w; e += kThreads) P[e] = A[(e / w) * lda + e % w];
+  for (int e = tid; e < w * w; e += kThreads) Tm[e] = T(0);
+  if (resident)
+    for (int e = tid; e < prows * w; e += kThreads)
+      Ps[(e / w) * ldp + e % w] = A[static_cast<size_t>(off + e / w) * lda + e % w];
+
+  for (int c0 = 0; c0 < w; c0 += kb) {
+    const int kbs = w - c0 < kb ? w - c0 : kb;
+    const int r0 = off + c0;                           // global row of local row 0
+    const int rows = m - r0;
+    // the other columns as they stand: rows r0 .. m, stride ld_o
+    const int ld_o = resident ? ldp : (c0 == 0 ? lda : w);
+    const T* src = resident ? Ps + static_cast<size_t>(c0) * ldp
+                            : (c0 == 0 ? A : P) + static_cast<size_t>(r0) * ld_o;
+    T* dst = resident ? Ps + static_cast<size_t>(c0) * ldp : P + static_cast<size_t>(r0) * w;
+    const int ld_d = resident ? ldp : w;
+    T* V = resident ? Ps + static_cast<size_t>(c0) * ldp + c0 : Ps;
+    __syncthreads();                                   // writes of the last step
+    if (!resident) {
+      for (int e = tid; e < rows * kbs; e += kThreads)
+        V[(e / kbs) * ldp + e % kbs] = src[static_cast<size_t>(e / kbs) * ld_o + c0 + e % kbs];
+      __syncthreads();
+    }
+
+    // ---- column steps ----
+    column_steps(V, ldp, rows, kbs, tau_s, Ys, red);
+    __syncthreads();
+
+    // ---- packed write-back, then V made explicit in place (unit diagonal,
+    // zeros above); resident panels write only the R triangle now ----
+    for (int e = tid; e < rows * kbs; e += kThreads) {
+      const int r = e / kbs, i = e % kbs;
+      T* x = V + r * ldp + i;
+      const bool tri = r <= i;
+      if (!resident || tri) P[static_cast<size_t>(r0 + r) * w + c0 + i] = *x;
+      if (tri) *x = r == i ? T(1) : T(0);
+    }
+    if (tid < kbs) tau[c0 + tid] = tau_s[tid];
+    // T_s by warp 0, lane i its row: T[i][j] = -tau_j sum_{k<j} T[i][k] Y[k][j]
+    if (warp == 0) {
+      T trow[kKb];
+#pragma unroll
+      for (int k = 0; k < kKb; ++k) trow[k] = k == lane && k < kbs ? tau_s[k] : T(0);
+#pragma unroll
+      for (int j = 1; j < kKb; ++j) {
+        if (j >= kbs) break;
+        T t = T(0);
+#pragma unroll
+        for (int k = 0; k < j; ++k) t += trow[k] * Ys[k * kLd + j];
+        if (j > lane) trow[j] = -tau_s[j] * t;
+      }
+#pragma unroll
+      for (int k = 0; k < kKb; ++k) {
+        Ts[lane * kLd + k] = trow[k];
+        if (lane < kbs && k >= lane && k < kbs) Tm[(c0 + lane) * w + c0 + k] = trow[k];
+      }
+    }
+    __syncthreads();
+    if (kbs == w) break;
+
+    // ---- one pass over the other columns o: Z[i][o] = v_i . A[:, o].  A
+    // thread takes 8 reflectors and two columns (o, o + half), so each V
+    // load feeds two FMAs, and keeps kBatch rows of loads in flight; rows
+    // are split into `slices` partial sums (added in the next phase) ----
+    const int others = w - kbs;
+    const int groups = (kbs + 7) / 8;
+    const int half = (others + 1) / 2;
+    int slices = kThreads / (half * groups);
+    slices = slices < 1 ? 1 : (slices > nslices ? nslices : slices);
+    const int span = (rows + slices - 1) / slices;
+    for (int t = tid; t < half * groups * slices; t += kThreads) {
+      const int oi = t % half, i0 = (t / half) % groups * 8, sl = t / (half * groups);
+      const bool two = oi + half < others;
+      const int o0 = oi < c0 ? oi : oi + kbs;
+      const int o1 = oi + half < c0 ? oi + half : oi + half + kbs;
+      const int r_lo = sl * span > i0 ? sl * span : i0;
+      const int r_hi = (sl + 1) * span < rows ? (sl + 1) * span : rows;
+      T acc0[8], acc1[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc0[q] = acc1[q] = T(0);
+      for (int rb = r_lo; rb < r_hi; rb += kBatch) {
+        T a0[kBatch], a1[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const bool in = rb + u < r_hi;
+          const size_t at = static_cast<size_t>(rb + u) * ld_o;
+          a0[u] = in ? src[at + o0] : T(0);
+          a1[u] = in && two ? src[at + o1] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const T* vr = V + (rb + u < r_hi ? rb + u : r_lo) * ldp + i0;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (i0 + q < kbs) {
+              const T v = vr[q];
+              acc0[q] += v * a0[u];
+              acc1[q] += v * a1[u];
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (i0 + q < kbs) {
+          Z[(sl * kb + i0 + q) * w + o0] = acc0[q];
+          if (two) Z[(sl * kb + i0 + q) * w + o1] = acc1[q];
+        }
+      }
+    }
+    __syncthreads();
+    // Z[:, o] <- T_s^T Z[:, o]: for o < c0 that is (V_prev^T V_s T_s)^T
+    if (tid < others) {
+      const int o = tid < c0 ? tid : tid + kbs;
+      T z[kKb];
+#pragma unroll
+      for (int i = 0; i < kKb; ++i) {
+        z[i] = T(0);
+        for (int sl = 0; sl < slices; ++sl) z[i] += i < kbs ? Z[(sl * kb + i) * w + o] : T(0);
+      }
+#pragma unroll
+      for (int j = kKb - 1; j >= 0; --j) {
+        T t = T(0);
+#pragma unroll
+        for (int i = 0; i <= j; ++i) t += Ts[i * kLd + j] * z[i];
+        z[j] = t;                                      // z[i < j] still the inputs
+      }
+#pragma unroll
+      for (int i = 0; i < kKb; ++i)
+        if (i < kbs) Z[i * w + o] = z[i];
+    }
+    __syncthreads();
+    // T[:c0, c0:c0+kbs] = -T[:c0, :c0] K with K[q][j] = Z[j][q]
+    for (int e = tid; e < c0 * kbs; e += kThreads) {
+      const int p = e / kbs, j = e % kbs;
+      T t = T(0);
+      for (int q = p; q < c0; ++q) t += Tm[p * w + q] * Z[j * w + q];
+      Tm[p * w + c0 + j] = -t;
+    }
+    // trailing update A_t -= V_s Z_t, columns c0 + kbs .. w, two columns a
+    // thread (c, c + half) so that each V load feeds two FMAs
+    const int wt = w - c0 - kbs;
+    if (wt > 0) {
+      const int half = (wt + 1) / 2;
+      const int rsl = kThreads / half;                 // row slices of the update
+      if (tid < rsl * half) {
+        const int c = c0 + kbs + tid % half, c2 = c + half;
+        const bool two = c2 < w;
+        T z0[kKb], z1[kKb];
+#pragma unroll
+        for (int i = 0; i < kKb; ++i) {
+          z0[i] = i < kbs ? Z[i * w + c] : T(0);
+          z1[i] = i < kbs && two ? Z[i * w + c2] : T(0);
+        }
+        // rows tid / half + k * rsl, kUpd of them loaded before any store
+        // (src and dst may be the same buffer)
+        constexpr int kUpd = kBatch / 2;
+        for (int rb = tid / half; rb < rows; rb += kUpd * rsl) {
+          T a0[kUpd], a1[kUpd];
+#pragma unroll
+          for (int u = 0; u < kUpd; ++u) {
+            const int r = rb + u * rsl;
+            a0[u] = r < rows ? src[static_cast<size_t>(r) * ld_o + c] : T(0);
+            a1[u] = r < rows && two ? src[static_cast<size_t>(r) * ld_o + c2] : T(0);
+          }
+#pragma unroll
+          for (int u = 0; u < kUpd; ++u) {
+            const int r = rb + u * rsl;
+            if (r >= rows) break;
+            const T* vr = V + r * ldp;
+#pragma unroll
+            for (int i = 0; i < kKb; ++i) {
+              if (kbs == kKb || i < kbs) {
+                const T v = vr[i];
+                a0[u] -= v * z0[i];
+                a1[u] -= v * z1[i];
+              }
+            }
+            dst[static_cast<size_t>(r) * ld_d + c] = a0[u];
+            if (two) dst[static_cast<size_t>(r) * ld_d + c2] = a1[u];
+          }
+        }
+      }
+    }
+  }
+  if (resident) {
+    // the whole panel, but for the R triangles written above
+    __syncthreads();
+    for (int e = tid; e < prows * w; e += kThreads) {
+      const int r = e / w, c = e % w;
+      const int cs = (c / kb) * kb;
+      if (cs <= r && r <= c) continue;
+      P[static_cast<size_t>(off + r) * w + c] = Ps[r * ldp + c];
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// Streaming body (kb = 0): the panel stays in L2, column steps read it there
+// ------------------------------------------------------------------------
+
 template <typename T, bool kMax>
 __device__ T block_reduce(T v, T* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) {
-    const T u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMax ? nan_max(v, u) : v + u;
-  }
-  if (lane == 0) red[warp] = v;
+  v = kMax ? warp_max(v) : warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (warp == 0) {
-    v = lane < kWarps ? red[lane] : T(0);  // 0 is the identity of both
-    for (int o = 16; o > 0; o >>= 1) {
-      const T u = __shfl_xor_sync(0xffffffffu, v, o);
-      v = kMax ? nan_max(v, u) : v + u;
-    }
-    if (lane == 0) red[32] = v;
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < kWarps ? red[threadIdx.x] : T(0);  // 0: identity of both
+    v = kMax ? warp_max(v) : warp_sum(v);
+    if (threadIdx.x == 0) red[32] = v;
   }
   __syncthreads();
   return red[32];
@@ -76,44 +478,43 @@ __device__ T block_reduce(T v, T* red) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-geqrt_kernel(const T* __restrict__ PT, T* __restrict__ P, T* __restrict__ tau,
-             T* __restrict__ Tm, int m, int w, int off) {
+geqrt_stream_kernel(const T* __restrict__ A, int lda, T* __restrict__ P,
+                    T* __restrict__ tau, T* __restrict__ Tm, int m, int w, int off) {
   __shared__ T red[33];
   __shared__ T part[kWarps][kChunk];
   __shared__ T dots[kMaxW];
   const size_t b = blockIdx.x;
-  PT += b * w * m;
-  P += b * w * m;
+  A += b * static_cast<size_t>(m) * lda;
+  P += b * static_cast<size_t>(m) * w;
   tau += b * w;
   Tm += b * w * w;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const size_t panel = static_cast<size_t>(w) * m;
 
-  for (size_t e = tid; e < panel; e += kThreads) P[e] = PT[e];
+  for (size_t e = tid; e < static_cast<size_t>(m) * w; e += kThreads)
+    P[e] = A[(e / w) * lda + e % w];
   for (int e = tid; e < w * w; e += kThreads) Tm[e] = T(0);
   __syncthreads();
 
   for (int j = 0; j < w; ++j) {
     const int d = off + j;
-    T* pj = P + static_cast<size_t>(j) * m;
-    const T x0 = pj[d];   // read by all before the owner of row d rewrites it
+    T* pj = P + j;                                   // column j, stride w
+    const T x0 = pj[static_cast<size_t>(d) * w];
 
-    // 1. scaled norm of x = pj[d:]
     T a = T(0);
-    for (int r = d + tid; r < m; r += kThreads) a = nan_max(a, T(fabs(pj[r])));
+    for (int r = d + tid; r < m; r += kThreads)
+      a = nan_max(a, T(fabs(pj[static_cast<size_t>(r) * w])));
     a = block_reduce<T, true>(a, red);
     const T s = a > T(0) ? a : T(1);
     T q = T(0);
     for (int r = d + tid; r < m; r += kThreads) {
-      const T xs = pj[r] / s;
+      const T xs = pj[static_cast<size_t>(r) * w] / s;
       q += xs * xs;
     }
     q = block_reduce<T, false>(q, red);
     const T norm = sqrt(q) * s;
 
-    // 2. sign / u / tau / beta with the zero-column guard
     const T sign = x0 < T(0) ? T(-1) : T(1);
     const T u = x0 + sign * norm;
     const bool degen = norm <= T(0);
@@ -121,26 +522,25 @@ geqrt_kernel(const T* __restrict__ PT, T* __restrict__ P, T* __restrict__ tau,
     const T tj = degen ? T(0) : sign * u / norm;
     const T beta = degen ? x0 : -sign * norm;
 
-    // 3. packed write-back of column j: beta at d, v's tail below
-    for (int r = d + tid; r < m; r += kThreads)
-      pj[r] = (r == d) ? beta : (degen ? T(0) : pj[r] / safe_u);
+    for (int r = d + tid; r < m; r += kThreads) {
+      T& x = pj[static_cast<size_t>(r) * w];
+      x = (r == d) ? beta : (degen ? T(0) : x / safe_u);
+    }
 
-    // 4. dots[i] = P_i . v over rows >= d, for every panel column i
-    //    (i < j: V^T v for T; i > j: A^T v for the update)
+    // dots[i] = P_i . v over rows >= d, for every column i
     for (int c0 = 0; c0 < w; c0 += kChunk) {
       T acc[kChunk];
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) acc[i] = T(0);
       for (int r = d + tid; r < m; r += kThreads) {
-        const T v = (r == d) ? T(1) : pj[r];
+        const T* row = P + static_cast<size_t>(r) * w;
+        const T v = (r == d) ? T(1) : row[j];
 #pragma unroll
         for (int i = 0; i < kChunk; ++i)
-          if (c0 + i < w) acc[i] += P[static_cast<size_t>(c0 + i) * m + r] * v;
+          if (c0 + i < w) acc[i] += row[c0 + i] * v;
       }
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i)
-        for (int o = 16; o > 0; o >>= 1)
-          acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+      for (int i = 0; i < kChunk; ++i) acc[i] = warp_sum(acc[i]);
       if (lane == 0) {
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) part[warp][i] = acc[i];
@@ -154,7 +554,6 @@ geqrt_kernel(const T* __restrict__ PT, T* __restrict__ P, T* __restrict__ tau,
       __syncthreads();
     }
 
-    // 5. T column j: T[:j, j] = -tau_j T[:j, :j] dots[:j], T[j][j] = tau_j
     for (int i = tid; i < j; i += kThreads) {
       T t = T(0);
       for (int k = i; k < j; ++k) t += Tm[i * w + k] * dots[k];
@@ -165,47 +564,54 @@ geqrt_kernel(const T* __restrict__ PT, T* __restrict__ P, T* __restrict__ tau,
       tau[j] = tj;
     }
 
-    // 6. rank-1 update of the later columns: A_c -= (tau_j dots[c]) v
     for (int r = d + tid; r < m; r += kThreads) {
-      const T v = (r == d) ? T(1) : pj[r];
-      for (int c = j + 1; c < w; ++c)
-        P[static_cast<size_t>(c) * m + r] -= (tj * dots[c]) * v;
+      T* row = P + static_cast<size_t>(r) * w;
+      const T v = (r == d) ? T(1) : row[j];
+      for (int c = j + 1; c < w; ++c) row[c] -= (tj * dots[c]) * v;
     }
     __syncthreads();
   }
 }
 
 template <typename T>
-int launch(const void* PT, void* P, void* tau, void* Tm, int batch, int m,
-           int w, int off, void* stream) {
-  if (batch < 1 || w < 1 || w > kMaxW || off < 0 || off + w > m)
+int launch(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int m, int w,
+           int off, int kb, int resident, int nslices, void* stream) {
+  if (batch < 1 || w < 1 || w > kMaxW || off < 0 || off + w > m || lda < w || kb < 0
+      || kb > kKb || kb > w || (kb > 0 && nslices < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  geqrt_kernel<T><<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(PT), static_cast<T*>(P), static_cast<T*>(tau),
-      static_cast<T*>(Tm), m, w, off);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (kb == 0) {
+    geqrt_stream_kernel<T><<<batch, kThreads, 0, st>>>(
+        static_cast<const T*>(A), lda, static_cast<T*>(P), static_cast<T*>(tau),
+        static_cast<T*>(Tm), m, w, off);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t ldp = resident ? w + 1 : kb + 1;
+  const size_t bytes = sizeof(T) * ((m - off) * ldp + 2 * kKb * kLd
+                                    + static_cast<size_t>(nslices) * kb * w + kKb + kRedWords);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(geqrt_subpanel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(bytes));
+  geqrt_subpanel_kernel<T><<<batch, kThreads, bytes, st>>>(
+      static_cast<const T*>(A), lda, static_cast<T*>(P), static_cast<T*>(tau),
+      static_cast<T*>(Tm), m, w, off, kb, resident, nslices);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int cqt_geqrt_f32(const void* PT, void* P, void* tau, void* Tm,
-                             int m, int w, int off, void* stream) {
-  return launch<float>(PT, P, tau, Tm, 1, m, w, off, stream);
+extern "C" int cqt_geqrt_batched_f32(const void* A, int lda, void* P, void* tau, void* Tm,
+                                     int batch, int m, int w, int off, int kb, int resident,
+                                     int nslices, void* stream) {
+  return launch<float>(A, lda, P, tau, Tm, batch, m, w, off, kb, resident, nslices, stream);
 }
 
-extern "C" int cqt_geqrt_f64(const void* PT, void* P, void* tau, void* Tm,
-                             int m, int w, int off, void* stream) {
-  return launch<double>(PT, P, tau, Tm, 1, m, w, off, stream);
+extern "C" int cqt_geqrt_batched_f64(const void* A, int lda, void* P, void* tau, void* Tm,
+                                     int batch, int m, int w, int off, int kb, int resident,
+                                     int nslices, void* stream) {
+  return launch<double>(A, lda, P, tau, Tm, batch, m, w, off, kb, resident, nslices, stream);
 }
 
-extern "C" int cqt_geqrt_batched_f32(const void* PT, void* P, void* tau,
-                                     void* Tm, int batch, int m, int w,
-                                     int off, void* stream) {
-  return launch<float>(PT, P, tau, Tm, batch, m, w, off, stream);
-}
-
-extern "C" int cqt_geqrt_batched_f64(const void* PT, void* P, void* tau,
-                                     void* Tm, int batch, int m, int w,
-                                     int off, void* stream) {
-  return launch<double>(PT, P, tau, Tm, batch, m, w, off, stream);
-}

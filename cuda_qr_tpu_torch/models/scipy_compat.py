@@ -8,7 +8,8 @@ Differences from scipy, stated rather than hidden:
     returns them; scipy's square-Q modes are not supported;
   * ``overwrite_*`` / ``check_finite`` flags are accepted and ignored
     (inputs are never modified; non-finite inputs propagate NaNs);
-  * tensors stay on their device; numpy input becomes CPU tensors.
+  * tensors stay on their device; numpy input goes to
+    ``DEFAULT_CONFIG.device`` (the card).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.config import DEFAULT_CONFIG
 from .update import qr_col_delete, qr_col_insert, qr_row_delete, qr_row_insert
 from .update import qr_update as _qr_update_k
 
@@ -23,7 +25,9 @@ __all__ = ["qr_update", "qr_insert", "qr_delete"]
 
 
 def _t(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(np.asarray(x), device=DEFAULT_CONFIG.device)
 
 
 def qr_update(Q, R, u, v, overwrite_qruv=False, check_finite=True):

@@ -16,9 +16,16 @@ as the reference does.
 kernel's batch grid: the TSQR leaves and tree nodes (``models/tsqr.py``),
 which the reference runs as a vmapped geqr2 + larft.  Its plain version,
 ``geqrt_batched_plain``, is the same batch-aware geqr2 + larft.
+
+The kernel reads each panel as it lies (row-major) and writes contiguous
+outputs.  ``plan`` decides from the shape alone, before the launch, how it
+runs: the sub-panel width, whether the whole panel stays in shared memory,
+and when the panel is too tall for either, the streaming body.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +33,11 @@ from . import _build
 from .householder import geqr2, larfb, larft, unpack_v
 
 MAX_W = 128
+KB = 32                   # widest sub-panel: one warp's lanes
+MIN_KB = 4                # narrowest shared-memory sub-panel
+MAX_SLICES = 16           # row slices of the other-column products
+RED_WORDS = 600           # the column steps' reduction scratch
+SMEM_BUDGET = 232_448     # shared memory one CTA may use on an H100 (227 KB)
 
 
 def supported(shape, dtype) -> bool:
@@ -60,29 +72,85 @@ def _check_device(name: str, t: torch.Tensor) -> None:
         raise TypeError(f"{name}: float32/float64 only, got {t.dtype}")
 
 
+class Plan(NamedTuple):
+    """The kernel's shape plan for one panel shape (see ``plan``)."""
+    kb: int          # sub-panel width; 0: the streaming body
+    resident: bool   # the whole panel in shared memory
+    slices: int      # row slices of the other-column products (partial sums)
+
+
+def plan(m: int, w: int, off: int, dtype) -> Plan:
+    """The kernel's plan for rows >= off of an m x w panel.
+
+    kb is the sub-panel width, at most 32 (one warp's lanes): min(w, 32),
+    then 16, 8, 4.  resident: the whole panel stays in shared memory (row
+    stride w + 1), tried first; else only the sub-panel (row stride
+    kb + 1).  Beside it the kernel keeps the Gram and T_s (2 x 32 x 33),
+    tau (32), the column steps' reduction scratch (600 words) and the other
+    columns' products (kb x w) once per row slice,
+    up to 16 slices as the rest of the 227 KB allows.  kb = 0 when not even
+    a 4-column sub-panel fits: the streaming body.
+    """
+    size = 8 if dtype == torch.float64 else 4
+    rows = m - off
+
+    def room(kb: int, ldp: int) -> int:
+        """Row slices that fit beside a sub-panel of stride ldp (0: none)."""
+        free = SMEM_BUDGET // size - rows * ldp - 2 * KB * (KB + 1) - KB - RED_WORDS
+        return max(0, min(MAX_SLICES, free // (kb * w)))
+
+    top = min(w, KB)
+    if room(top, w + 1):
+        return Plan(top, True, room(top, w + 1))
+    for kb in (top, *(k for k in (16, 8, MIN_KB) if k < top)):
+        if room(kb, kb + 1):
+            return Plan(kb, False, room(kb, kb + 1))
+    return Plan(0, False, 0)
+
+
+def body(m: int, w: int, off: int, dtype) -> str:
+    """Which kernel body a panel shape takes: "resident" (the whole panel in
+    shared memory), "subpanel" (one sub-panel at a time) or "stream"."""
+    p = plan(m, w, off, dtype)
+    return "resident" if p.resident else ("subpanel" if p.kb else "stream")
+
+
+def _launch(name: str, A: torch.Tensor, lda: int, off: int):
+    """One launch over a stack A (L panels of m x w, row stride lda, panel
+    stride m * lda): (packed (L, m, w) contiguous, tau (L, w), T (L, w, w))."""
+    L, m, w = A.shape
+    packed = torch.empty((L, m, w), dtype=A.dtype, device=A.device)
+    tau = torch.empty((L, w), dtype=A.dtype, device=A.device)
+    T = torch.empty((L, w, w), dtype=A.dtype, device=A.device)
+    if L == 0:
+        return packed, tau, T
+    lib = _build.load()
+    fn = lib.cqt_geqrt_batched_f32 if A.dtype == torch.float32 else lib.cqt_geqrt_batched_f64
+    p = plan(m, w, off, A.dtype)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(fn(A.data_ptr(), lda, packed.data_ptr(), tau.data_ptr(), T.data_ptr(),
+                        L, m, w, off, p.kb, int(p.resident), p.slices, stream), name)
+    return packed, tau, T
+
+
 def geqrt_base(panel: torch.Tensor, off: int):
     """Factor rows >= off of an m x w panel (w <= 128, off + w <= m).
 
     Returns (packed (m x w), tau (w,), T (w x w)); rows above ``off`` are
-    returned unchanged.
+    returned unchanged.  A column slice of a wider row-major matrix is read
+    in place (its row stride goes to the kernel).
     """
     m, w = panel.shape
     _check_shape("geqrt_base", m, w, off)
     if panel.device.type == "cpu":
         return geqrt_base_plain(panel, off)
     _check_device("geqrt_base", panel)
-    panelT = panel.t().contiguous()      # each panel column contiguous
-    packedT = torch.empty_like(panelT)
-    tau = torch.empty(w, dtype=panel.dtype, device=panel.device)
-    T = torch.empty((w, w), dtype=panel.dtype, device=panel.device)
-    lib = _build.load()
-    fn = lib.cqt_geqrt_f32 if panel.dtype == torch.float32 else lib.cqt_geqrt_f64
-    with torch.cuda.device(panel.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(panelT.data_ptr(), packedT.data_ptr(), tau.data_ptr(),
-                        T.data_ptr(), m, w, off, stream), "geqrt")
+    if panel.stride(1) != 1 or panel.stride(0) < w:
+        panel = panel.contiguous()
+    packed, tau, T = _launch("geqrt", panel[None], panel.stride(0), off)
     geqrt_base.launches += 1
-    return packedT.t(), tau, T
+    return packed[0], tau[0], T[0]
 
 
 geqrt_base.launches = 0
@@ -90,32 +158,15 @@ geqrt_base.launches = 0
 
 def geqrt_batched(panels: torch.Tensor, off: int):
     """Factor rows >= off of each of L panels (L x m x w, w <= 128) in one
-    launch: (packed (L x m x w), tau (L x w), T (L x w x w)).
-
-    The kernel reads each panel column-contiguous, so the wrapper makes a
-    transposed copy of the stack (the size of the stack) and returns a
-    transposed view of the kernel's output.
-    """
+    launch: (packed (L x m x w), tau (L x w), T (L x w x w)), all contiguous."""
     L, m, w = panels.shape
     _check_shape("geqrt_batched", m, w, off)
     if panels.device.type == "cpu":
         return geqrt_batched_plain(panels, off)
     _check_device("geqrt_batched", panels)
-    panelsT = panels.transpose(1, 2).contiguous()
-    packedT = torch.empty_like(panelsT)
-    tau = torch.empty((L, w), dtype=panels.dtype, device=panels.device)
-    T = torch.empty((L, w, w), dtype=panels.dtype, device=panels.device)
-    if L == 0:
-        return packedT.transpose(1, 2), tau, T
-    lib = _build.load()
-    fn = (lib.cqt_geqrt_batched_f32 if panels.dtype == torch.float32
-          else lib.cqt_geqrt_batched_f64)
-    with torch.cuda.device(panels.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _build.check(fn(panelsT.data_ptr(), packedT.data_ptr(), tau.data_ptr(),
-                        T.data_ptr(), L, m, w, off, stream), "geqrt_batched")
+    out = _launch("geqrt_batched", panels.contiguous(), w, off)
     geqrt_batched.launches += 1
-    return packedT.transpose(1, 2), tau, T
+    return out
 
 
 geqrt_batched.launches = 0

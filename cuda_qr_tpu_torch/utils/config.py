@@ -58,7 +58,10 @@ class QRConfig:
       tsqr_leaf: TSQR leaf factorization, "householder" (unconditionally
         stable) or "cholqr2" (two-pass CholeskyQR2 with a Householder-tree
         fallback when its certificates fail).
-      device: where numpy input is placed; tensor input stays on its device.
+      device: where numpy input is placed, the card unless the caller asks
+        for "cpu"; tensor input stays on its device.  Without a card, numpy
+        input under the default raises torch's own error: nothing falls back
+        to the host.
     """
 
     panel_width: int = 128
@@ -75,7 +78,7 @@ class QRConfig:
     use_select_kernel: bool = True
     block_rows: int = 1024
     tsqr_leaf: str = "householder"
-    device: str = "cpu"
+    device: str = "cuda"
 
     def __post_init__(self):
         for name in ("precision", "trailing_precision", "orgqr_precision"):

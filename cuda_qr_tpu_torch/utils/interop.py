@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.blocked import PackedQR
-from .config import QRConfig
+from .config import DEFAULT_CONFIG, QRConfig
 
 # jax.lax.Precision name -> this package's precision string.  DEFAULT and
 # HIGH are the reduced-precision MXU modes; their nearest counterpart on the
@@ -24,7 +24,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
 
 
-def packed_from_numpy(packed, taus, Ts, VJs, device="cpu") -> PackedQR:
+def packed_from_numpy(packed, taus, Ts, VJs, device: str = DEFAULT_CONFIG.device) -> PackedQR:
     """PackedQR of tensors on ``device`` from four numpy-convertible arrays."""
     def t(x):
         return torch.tensor(np.asarray(x), device=device)
@@ -41,7 +41,7 @@ def _precision(p):
         raise ValueError(f"no counterpart for precision {p!r}") from None
 
 
-def config_from_reference(cfg, device: str = "cpu") -> QRConfig:
+def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
     """This package's QRConfig from a ``cuda_qr_tpu.QRConfig``.
 
     Carried over: panel_width, panel_base, dtype, precision,

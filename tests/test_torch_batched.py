@@ -19,6 +19,7 @@ from cuda_qr_tpu_torch.models import batched as port
 from cuda_qr_tpu_torch.ops import smalllinalg
 
 TOLS = {np.float64: 1e-10, np.float32: 1e-4}
+CPU = ct.QRConfig(device="cpu")
 
 
 def close(a, b, tol, scale=1.0):
@@ -42,7 +43,7 @@ def check_stack(Q, R, A, tol):
 @pytest.mark.parametrize("shape", [(4, 32, 8), (7, 65, 17), (2, 3, 128, 24)])
 def test_matches_reference(shape, dtype):
     A = np.random.default_rng(5).standard_normal(shape).astype(dtype)
-    Q, R = ct.qr_batched(A)
+    Q, R = ct.qr_batched(A, CPU)
     rQ, rR = ref_qr_batched(jnp.asarray(A))
     assert Q.dtype == torch.from_numpy(A).dtype
     close(Q, rQ, TOLS[dtype])
@@ -52,9 +53,9 @@ def test_matches_reference(shape, dtype):
 
 def test_mode_r_matches_reference():
     A = np.random.default_rng(5).standard_normal((5, 40, 12)).astype(np.float32)
-    R = ct.qr_batched(A, mode="r")
+    R = ct.qr_batched(A, CPU, mode="r")
     close(R, ref_qr_batched(jnp.asarray(A), mode="r"), 1e-4, np.abs(A).max())
-    _, Rf = ct.qr_batched(A)
+    _, Rf = ct.qr_batched(A, CPU)
     assert torch.equal(R, Rf)
 
 
@@ -76,7 +77,7 @@ def test_round_three_only_when_needed(monkeypatch, dtype, cond_exp, rounds):
     real = port._chol_round
     monkeypatch.setattr(port, "_chol_round", lambda X, c: calls.append(1) or real(X, c))
     before = smalllinalg.host_syncs
-    Q, R = ct.qr_batched(A)
+    Q, R = ct.qr_batched(A, CPU)
     assert smalllinalg.host_syncs - before == 1
     assert len(calls) == rounds - 1
     rQ, rR = ref_qr_batched(jnp.asarray(A))
@@ -97,7 +98,7 @@ def test_gradient_matches_reference():
 
     g_ref = np.asarray(jax.grad(loss_ref)(jnp.asarray(A)))
     At = torch.from_numpy(A).requires_grad_(True)
-    Q, R = ct.qr_batched(At)
+    Q, R = ct.qr_batched(At, CPU)
     ((Q * torch.from_numpy(W1)).sum() + (R * torch.from_numpy(W2)).sum()).backward()
     close(At.grad, g_ref, 1e-10, np.abs(g_ref).max())
 
@@ -117,7 +118,7 @@ def test_batched_thin_qr_vjp_matches_2d():
 def test_rank_deficient_element_gives_nan():
     A = np.random.default_rng(5).standard_normal((2, 24, 6)).astype(np.float32)
     A[1, :, 3] = A[1, :, 2]
-    Q, R = ct.qr_batched(A)
+    Q, R = ct.qr_batched(A, CPU)
     rQ, _ = ref_qr_batched(jnp.asarray(A))
     assert torch.isfinite(Q[0]).all()
     assert np.linalg.norm(Q[0].numpy() @ R[0].numpy() - A[0]) < 1e-4 * np.linalg.norm(A[0])
@@ -127,10 +128,10 @@ def test_rank_deficient_element_gives_nan():
 
 def test_error_paths():
     with pytest.raises(ct.QRShapeError):
-        ct.qr_batched(np.ones(4))
+        ct.qr_batched(np.ones(4), CPU)
     with pytest.raises(ct.QRShapeError):
-        ct.qr_batched(np.ones((2, 3, 5)))
+        ct.qr_batched(np.ones((2, 3, 5)), CPU)
     with pytest.raises(ct.QRShapeError):
-        ct.qr_batched(np.ones((2, 5, 3)), mode="complete")
+        ct.qr_batched(np.ones((2, 5, 3)), CPU, mode="complete")
     with pytest.raises(ct.QRShapeError):
         ct.qr_batched(torch.ones((2, 5, 3), dtype=torch.complex64))

@@ -29,7 +29,7 @@ def factor_both(A, rcfg):
     m, n = A.shape
     rfac = ref.qr_blocked(jnp.asarray(A), rcfg)
     rQ, rR = ref.orgqr(rfac, m, n, rcfg), ref.extract_r(rfac, n)
-    cfg = config_from_reference(rcfg)
+    cfg = config_from_reference(rcfg, device="cpu")
     fac = qr_blocked(A, cfg)
     return (rfac, np.asarray(rQ), np.asarray(rR)), (fac, orgqr(fac, m, n, cfg),
                                                      extract_r(fac, n)), cfg
@@ -68,8 +68,8 @@ def test_carried_factors_give_reference_orgqr_ormqr(rng):
     B = rng.standard_normal((m, 7))
     rcfg = ref_config(jnp.float64, "cholqr2_bk")
     rfac = ref.qr_blocked(jnp.asarray(A), rcfg)
-    fac = packed_from_numpy(*(np.asarray(x) for x in rfac))
-    cfg = config_from_reference(rcfg)
+    fac = packed_from_numpy(*(np.asarray(x) for x in rfac), device="cpu")
+    cfg = config_from_reference(rcfg, device="cpu")
     np.testing.assert_allclose(orgqr(fac, m, n, cfg).numpy(),
                                np.asarray(ref.orgqr(rfac, m, n, rcfg)), atol=1e-12)
     np.testing.assert_array_equal(extract_r(fac, n).numpy(),
@@ -85,7 +85,7 @@ def test_grouping_does_not_change_the_result(rng, lookahead, aggregate):
     """Lookahead groups and orgqr aggregation of any size (including ones
     that do not divide the panel count) are the same operator."""
     A = torch.from_numpy(rng.standard_normal((160, 160)))
-    base = QRConfig(dtype=torch.float64, panel_width=32)
+    base = QRConfig(dtype=torch.float64, panel_width=32, device="cpu")
     cfg = base.replace(factor_lookahead=lookahead, apply_aggregate=aggregate)
     f0, f1 = qr_blocked(A, base), qr_blocked(A, cfg)
     assert torch.allclose(f0.packed, f1.packed, atol=1e-12)
@@ -104,7 +104,7 @@ def test_config_from_reference():
 
 def test_bf16_storage(rng):
     A = rng.standard_normal((128, 64)).astype(np.float32)
-    cfg = QRConfig(dtype=torch.bfloat16, panel_width=32)
+    cfg = QRConfig(dtype=torch.bfloat16, panel_width=32, device="cpu")
     fac = qr_blocked(A, cfg)
     assert fac.packed.dtype == torch.bfloat16 and fac.Ts.dtype == torch.float32
     Q, R = orgqr(fac, 128, 64, cfg), extract_r(fac, 64)
@@ -115,11 +115,11 @@ def test_bf16_storage(rng):
 def test_input_is_not_modified_and_stays_on_its_device(rng):
     A = torch.from_numpy(rng.standard_normal((64, 64)))
     A0 = A.clone()
-    fac = qr_blocked(A, QRConfig(dtype=torch.float64, panel_width=32))
+    fac = qr_blocked(A, QRConfig(dtype=torch.float64, panel_width=32, device="cpu"))
     assert torch.equal(A, A0) and fac.packed.device == A.device
 
 
 def test_wide_input_raises():
     from cuda_qr_tpu_torch import QRShapeError
     with pytest.raises(QRShapeError):
-        qr_blocked(np.zeros((8, 16)))
+        qr_blocked(np.zeros((8, 16)), QRConfig(device="cpu"))

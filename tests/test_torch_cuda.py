@@ -40,10 +40,14 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("nb,dtype", [(16, torch.float32), (100, torch.float32),
-                                      (128, torch.float32), (512, torch.float32),
+@pytest.mark.parametrize("nb,dtype", [(16, torch.float32), (32, torch.float32),
+                                      (48, torch.float32), (100, torch.float32),
+                                      (128, torch.float32), (160, torch.float32),
+                                      (192, torch.float32), (512, torch.float32),
                                       (128, torch.float64), (300, torch.float64)])
 def test_chol_inv_kernel_matches_plain(dev, nb, dtype):
+    """Block edges (32, 48, 100), the largest float32 side held in shared
+    memory (160), the first past it (192) and the largest side (512)."""
     rng = np.random.default_rng(nb)
     B = rng.standard_normal((nb, nb))
     G = torch.from_numpy(B @ B.T + nb * np.eye(nb)).to(dev, dtype)
@@ -53,6 +57,18 @@ def test_chol_inv_kernel_matches_plain(dev, nb, dtype):
     assert chol_with_inv_kernel.launches == before + 1
     assert rel(L, Lp) < TOLS[dtype] and rel(Li, Lip) < TOLS[dtype]
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Li, 1), torch.zeros_like(Li))
+    eye = torch.eye(nb, dtype=torch.float64, device=dev)
+    assert float((L.double() @ Li.double() - eye).abs().max()) < TOLS[dtype]
+
+
+@pytest.mark.parametrize("b,nb", [(4096, 64), (300, 128), (5, 40)])
+def test_chol_inv_kernel_stack_matches_plain(dev, b, nb):
+    B = torch.from_numpy(np.random.default_rng(b).standard_normal((b, nb, 2 * nb))).to(dev)
+    G = (B @ B.mT / (2 * nb)).float()
+    L, Li = chol_with_inv_kernel(G)
+    Lp, Lip = cholesky_with_inv(G)
+    assert rel(L, Lp) < 1e-4 and rel(Li, Lip) < 1e-4
 
 
 def test_chol_inv_kernel_non_pd_and_rejects(dev):
@@ -66,9 +82,13 @@ def test_chol_inv_kernel_non_pd_and_rejects(dev):
 
 @pytest.mark.parametrize("m,w,off,dtype", [(256, 32, 0, torch.float32),
                                            (4096, 32, 40, torch.float32),
+                                           (8192, 32, 0, torch.float32),
+                                           (8192, 32, 40, torch.float64),
                                            (1000, 77, 3, torch.float32),
                                            (2048, 32, 0, torch.float64)])
 def test_geqrt_kernel_matches_plain(dev, m, w, off, dtype):
+    """Both bodies (8192 x 32 float64 at off 40 streams), a zero column,
+    and the rows above off bit-equal to the input."""
     P = torch.from_numpy(np.random.default_rng(m).standard_normal((m, w))).to(dev, dtype)
     P[:, 2] = 0
     before = geqrt_base.launches
@@ -77,6 +97,15 @@ def test_geqrt_kernel_matches_plain(dev, m, w, off, dtype):
     assert geqrt_base.launches == before + 1
     for a, b in zip(got, want):
         assert torch.isfinite(a).all() and rel(a, b) < TOLS[dtype]
+    assert torch.equal(got[0][:off], P[:off]) and float(got[1][2]) == 0.0
+
+
+def test_geqrt_kernel_reads_a_column_slice_in_place(dev):
+    A = torch.from_numpy(np.random.default_rng(3).standard_normal((600, 96))).to(dev)
+    got = geqrt_base(A[:, 32:64], 5)
+    want = geqrt_base_plain(A[:, 32:64].contiguous(), 5)
+    for a, b in zip(got, want):
+        assert rel(a, b) < TOLS[torch.float64]
 
 
 @pytest.mark.parametrize("method", ["cholqr2_bk", "cholqr2_hr", "geqrt"])
@@ -141,9 +170,19 @@ def test_qr_pivoted_on_the_card(dev):
 
 
 @pytest.mark.parametrize("L,m,w,off,dtype", [(64, 256, 128, 0, torch.float32),
+                                             (1024, 1024, 128, 0, torch.float32),
                                              (8, 2048, 77, 3, torch.float64),
-                                             (33, 1024, 32, 0, torch.float32)])
+                                             (33, 1024, 32, 0, torch.float32),
+                                             (4, 397, 128, 0, torch.float32),
+                                             (4, 398, 128, 0, torch.float32),
+                                             (4, 1553, 128, 0, torch.float32),
+                                             (4, 1554, 128, 0, torch.float32),
+                                             (6, 256, 128, 9, torch.float64)])
 def test_geqrt_batched_kernel_matches_plain(dev, L, m, w, off, dtype):
+    """The TSQR leaf and node stacks, w = 77 (not a multiple of kb = 8), the
+    edge of the resident panel (m = 397 / 398) and of the sub-panel width
+    (kb 32 -> 16 between m = 1553 and 1554), a zero panel (tau = 0) and a
+    zero column."""
     P = torch.from_numpy(np.random.default_rng(L).standard_normal((L, m, w))).to(dev, dtype)
     P[1] = 0
     P[2, :, 5] = 0
@@ -152,8 +191,9 @@ def test_geqrt_batched_kernel_matches_plain(dev, L, m, w, off, dtype):
     want = geqrt_batched_plain(P, off)
     assert geqrt_batched.launches == before + 1
     for a, b in zip(got, want):
-        assert torch.isfinite(a).all() and rel(a, b) < TOLS[dtype]
+        assert a.is_contiguous() and torch.isfinite(a).all() and rel(a, b) < TOLS[dtype]
     assert torch.equal(got[0][:, :off], P[:, :off])
+    assert float(got[1][1].abs().max()) == 0.0 and float(got[1][2, 5]) == 0.0
 
 
 def test_chol_stack_through_auto_launches_once(dev):

@@ -18,7 +18,7 @@ import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
 RCFG = ref.QRConfig(panel_width=16, dtype=jnp.float64, use_pallas=False, scan_stages=1)
-CFG = config_from_reference(RCFG)
+CFG = config_from_reference(RCFG, device="cpu")
 SHAPES = [(48, 48), (96, 40), (40, 96), (130, 50)]
 
 
@@ -60,7 +60,7 @@ def test_other_modes_match_reference(rng, name, mode, shape):
 
 def test_triangular_and_orthogonal_float32(rng):
     rcfg = RCFG.replace(dtype=jnp.float32)
-    cfg = config_from_reference(rcfg)
+    cfg = config_from_reference(rcfg, device="cpu")
     A = rng.standard_normal((130, 50)).astype(np.float32)
     for name, lower in (("lq", True), ("rq", False), ("ql", True)):
         got = getattr(ct, name)(A, config=cfg)

@@ -129,3 +129,64 @@ def test_batched_gate_and_non_cpu_tensor():
     assert not port.supported((2, 64, 16), torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported device"):
         port.geqrt_batched(torch.empty((2, 64, 16), device="meta"), 0)
+
+
+@pytest.mark.parametrize("m,w,off,dtype,kb,resident,body", [
+    (1024, 128, 0, torch.float32, 32, False, "subpanel"),  # TSQR leaf: four sub-panels
+    (256, 128, 0, torch.float32, 32, True, "resident"),    # TSQR node: held whole
+    (256, 128, 0, torch.float64, 32, False, "subpanel"),   # float64 does not fit whole
+    (397, 128, 0, torch.float32, 32, True, "resident"),    # the last m held whole ...
+    (398, 128, 0, torch.float32, 32, False, "subpanel"),   # ... and the first not
+    (1553, 128, 0, torch.float32, 32, False, "subpanel"),  # the last m at kb = 32 ...
+    (1554, 128, 0, torch.float32, 16, False, "subpanel"),  # ... and the first at kb = 16
+    (8192, 32, 0, torch.float32, 4, False, "subpanel"),    # the tallest width that fits
+    (8192, 32, 40, torch.float64, 0, False, "stream"),     # too tall: streaming body
+    (2048, 77, 3, torch.float64, 8, False, "subpanel"),    # w not a multiple of kb
+    (64, 20, 0, torch.float32, 20, True, "resident"),      # w < 32: one sub-panel of w
+])
+def test_plan_at_the_edges(m, w, off, dtype, kb, resident, body):
+    p = port.plan(m, w, off, dtype)
+    assert (p.kb, p.resident) == (kb, resident) and port.body(m, w, off, dtype) == body
+    assert (p.slices >= 1) == (kb > 0)
+
+
+def layout_words(rows, w, kb, ldp, slices):
+    """The kernel's shared-memory layout (csrc/geqrt.cu), in elements."""
+    return rows * ldp + 2 * port.KB * (port.KB + 1) + slices * kb * w + port.KB + port.RED_WORDS
+
+
+@pytest.mark.parametrize("dtype,size", [(torch.float32, 4), (torch.float64, 8)])
+def test_plan_is_the_widest_that_fits(dtype, size):
+    """Over a grid of shapes: the chosen layout fits the budget with its
+    slices (one more slice would not, unless at the cap), residency is taken
+    whenever it fits, and every wider sub-panel does not fit."""
+    for m in (16, 100, 256, 397, 398, 1000, 1553, 1554, 3000, 5000, 8192, 12000, 20000):
+        for w in (1, 3, 4, 16, 31, 32, 33, 64, 77, 100, 128):
+            for off in (0, 5):
+                if off + w > m:
+                    continue
+                rows, top = m - off, min(w, port.KB)
+                p = port.plan(m, w, off, dtype)
+                fits = [size * layout_words(rows, w, k, ldp, 1) <= port.SMEM_BUDGET
+                        for k, ldp in [(top, w + 1)]
+                        + [(k, k + 1) for k in (top, 16, 8, 4) if k <= top]]
+                if p.resident:
+                    assert fits[0] and p.kb == top
+                else:
+                    assert not fits[0]
+                if p.kb:
+                    ldp = w + 1 if p.resident else p.kb + 1
+                    assert size * layout_words(rows, w, p.kb, ldp, p.slices) <= port.SMEM_BUDGET
+                    assert (p.slices == port.MAX_SLICES or size * layout_words(
+                        rows, w, p.kb, ldp, p.slices + 1) > port.SMEM_BUDGET)
+                    assert p.kb in (top, 16, 8, 4) and p.kb <= top
+                    assert not p.resident or p.kb == top
+                else:
+                    assert not any(fits)
+
+
+def test_batched_returns_contiguous_stack(rng):
+    P = torch.from_numpy(rng.standard_normal((3, 48, 16)))
+    packed, tau, T = port.geqrt_batched(P, 0)
+    assert packed.is_contiguous() and tau.is_contiguous() and T.is_contiguous()
+    assert packed.shape == (3, 48, 16) and T.shape == (3, 16, 16)

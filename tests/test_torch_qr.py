@@ -21,7 +21,7 @@ import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.utils.config import matmul_precision
 
 RCFG = ref.QRConfig(dtype=jnp.float64, panel_width=32, scan_stages=1)
-CFG = ct.QRConfig(dtype=torch.float64, panel_width=32)
+CFG = ct.QRConfig(dtype=torch.float64, panel_width=32, device="cpu")
 TOL = 1e-10
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -100,8 +100,12 @@ def test_complex_input_raises_not_implemented():
 
 
 def test_numpy_input_goes_to_config_device_and_dtype(rng):
-    Q, R = ct.qr(rng.standard_normal((64, 32)).astype(np.float32))
-    assert Q.device.type == "cpu" and Q.dtype == torch.float32
+    """Numpy input goes to the card by default; device="cpu" keeps it on
+    the host."""
+    assert ct.QRConfig().device == "cuda" and ct.DEFAULT_CONFIG.device == "cuda"
+    A = rng.standard_normal((64, 32)).astype(np.float32)
+    Q, R = ct.qr(A, ct.QRConfig(device="cpu"))
+    assert Q.device.type == "cpu" and R.device.type == "cpu" and Q.dtype == torch.float32
 
 
 def test_matmul_precision_sets_and_restores():
@@ -112,7 +116,7 @@ def test_matmul_precision_sets_and_restores():
             assert flags.allow_tf32 is True
             raise RuntimeError
     assert flags.allow_tf32 == saved
-    ct.qr(np.eye(64, dtype=np.float32), ct.MIXED_CONFIG.replace(panel_width=32))
+    ct.qr(np.eye(64, dtype=np.float32), ct.MIXED_CONFIG.replace(panel_width=32, device="cpu"))
     assert flags.allow_tf32 == saved
 
 

@@ -50,9 +50,9 @@ def both(A, nb, num_panels=None):
     """
     m = A.shape[0]
     rcfg = ref_config(nb)
-    cfg = config_from_reference(rcfg)
+    cfg = config_from_reference(rcfg, device="cpu")
     rf, rj, rR12 = rq.qrcp_blocked(jnp.asarray(A), rcfg, num_panels=num_panels)
-    rf = packed_from_numpy(*(np.asarray(x) for x in rf))
+    rf = packed_from_numpy(*(np.asarray(x) for x in rf), device="cpu")
     kb = rf.packed.shape[1]
     rQ = orgqr(rf, m, kb, cfg).numpy()
     rR = np.concatenate([extract_r(rf, kb).numpy(), np.asarray(rR12)], 1)
@@ -123,7 +123,7 @@ def test_qr_pivoted_truncated_matches_reference(rng):
     m, n, nb, rank = 130, 70, 16, 40
     A = rng.standard_normal((m, n)).astype(np.float32)
     rQ, rR, rp = ref.qr_pivoted(A, ref_config(nb), rank=rank)
-    Q, R, piv = qr_pivoted(A, config_from_reference(ref_config(nb)), rank=rank,
+    Q, R, piv = qr_pivoted(A, config_from_reference(ref_config(nb), device="cpu"), rank=rank,
                            omega=ref_omega(m, nb))
     assert Q.shape == (m, rank) and R.shape == (rank, n) and piv.shape == (n,)
     np.testing.assert_array_equal(piv.numpy(), np.asarray(rp))
@@ -140,7 +140,7 @@ def test_default_sketch_is_seeded_and_rank_revealing(rng):
     V, _ = np.linalg.qr(rng.standard_normal((n, n)))
     s = 0.8 ** np.arange(n)
     A = ((U * s) @ V.T).astype(np.float32)
-    cfg = QRConfig(panel_width=16)
+    cfg = QRConfig(panel_width=16, device="cpu")
     Q, R, piv = qr_pivoted(A, cfg)
     Q2, R2, piv2 = qr_pivoted(torch.from_numpy(A), cfg)
     assert torch.equal(piv, piv2) and torch.equal(R, R2)
@@ -151,7 +151,7 @@ def test_default_sketch_is_seeded_and_rank_revealing(rng):
 
 def test_select_kernel_switch_and_no_launch_on_cpu(rng):
     A = rng.standard_normal((160, 128)).astype(np.float32)
-    cfg = QRConfig(panel_width=32)
+    cfg = QRConfig(panel_width=32, device="cpu")
     before = select_pivots_kernel.launches
     on = qr_pivoted(A, cfg)
     off = qr_pivoted(A, cfg.replace(use_select_kernel=False))
@@ -163,7 +163,7 @@ def test_select_kernel_switch_and_no_launch_on_cpu(rng):
 def test_input_not_modified_and_bf16_storage(rng):
     A = torch.from_numpy(rng.standard_normal((96, 64)).astype(np.float32))
     A0 = A.clone()
-    Q, R, piv = qr_pivoted(A, QRConfig(panel_width=16, dtype=torch.bfloat16))
+    Q, R, piv = qr_pivoted(A, QRConfig(panel_width=16, dtype=torch.bfloat16, device="cpu"))
     assert torch.equal(A, A0)
     assert sorted(piv.tolist()) == list(range(64))
     chk = check_qr(A[:, piv], Q.float(), R.float())
@@ -171,16 +171,15 @@ def test_input_not_modified_and_bf16_storage(rng):
 
 
 def test_wide_and_bad_rank_raise(rng):
+    cfg = QRConfig(panel_width=16, device="cpu")
     with pytest.raises(QRShapeError):
-        qr_pivoted(rng.standard_normal((16, 32)).astype(np.float32), QRConfig(panel_width=16))
+        qr_pivoted(rng.standard_normal((16, 32)).astype(np.float32), cfg)
     with pytest.raises(QRShapeError):
-        qr_pivoted(rng.standard_normal((32, 16)).astype(np.float32), QRConfig(panel_width=16),
-                   rank=17)
+        qr_pivoted(rng.standard_normal((32, 16)).astype(np.float32), cfg, rank=17)
     with pytest.raises(QRShapeError):
-        pq.qrcp_blocked(np.zeros((32, 16), np.float32), QRConfig(panel_width=16),
-                        omega=np.zeros((3, 32), np.float32))
+        pq.qrcp_blocked(np.zeros((32, 16), np.float32), cfg, omega=np.zeros((3, 32), np.float32))
 
 
 def test_complex_raises():
     with pytest.raises(NotImplementedError):
-        qr_pivoted(np.ones((8, 4), np.complex64), QRConfig(panel_width=4))
+        qr_pivoted(np.ones((8, 4), np.complex64), QRConfig(panel_width=4, device="cpu"))

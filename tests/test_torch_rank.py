@@ -24,9 +24,9 @@ from cuda_qr_tpu_torch import (QRShapeError, lstsq, lstsq_rr, matrix_rank, null_
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
 RCFG = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)
-CFG = config_from_reference(RCFG)
+CFG = config_from_reference(RCFG, device="cpu")
 RCFG64 = RefConfig(panel_width=16, dtype=jnp.float64, use_pallas=False)
-CFG64 = config_from_reference(RCFG64)
+CFG64 = config_from_reference(RCFG64, device="cpu")
 
 
 def rank_deficient(rng, m, n, r):

@@ -29,7 +29,7 @@ def configs(dtype, **kw):
     """The reference's config (plain path) and the port's counterpart, with
     the kernel wrappers enabled (on the CPU they take the plain versions)."""
     rcfg = RefConfig(dtype=jnp.dtype(dtype), use_pallas=False, **kw)
-    return rcfg, config_from_reference(rcfg).replace(use_kernels=True)
+    return rcfg, config_from_reference(rcfg, device="cpu").replace(use_kernels=True)
 
 
 def close(a, b, tol, scale=1.0):
@@ -215,9 +215,9 @@ def test_error_paths():
 
 def test_config_round_trips_tsqr_fields():
     rcfg = RefConfig(tsqr_leaf="cholqr2", block_rows=256)
-    cfg = config_from_reference(rcfg)
+    cfg = config_from_reference(rcfg, device="cpu")
     assert (cfg.tsqr_leaf, cfg.block_rows) == ("cholqr2", 256)
-    default = config_from_reference(RefConfig())
+    default = config_from_reference(RefConfig(), device="cpu")
     assert (default.tsqr_leaf, default.block_rows) == ("householder", 1024)
     assert (default.tsqr_leaf, default.block_rows) == (ct.QRConfig().tsqr_leaf,
                                                        ct.QRConfig().block_rows)

@@ -162,7 +162,7 @@ def test_scipy_insert_delete(rng, which, p):
         u = rng.standard_normal((30, p))
         A1 = np.insert(A, [4] * p, u, 1)
     uu = u[0] if (p == 1 and which == "row") else (u[:, 0] if p == 1 else u)
-    got = sc.qr_insert(Q, R, uu, 4, which=which)
+    got = sc.qr_insert(T(Q), T(R), T(np.asarray(uu)), 4, which=which)
     agree(got, ref_sc.qr_insert(Q, R, uu, 4, which=which), A1, np.float64)
     got = sc.qr_delete(got[0], got[1], 4, p=p, which=which)
     agree(got, ref_sc.qr_delete(*ref_sc.qr_insert(Q, R, uu, 4, which=which), 4, p=p,
@@ -175,14 +175,24 @@ def test_scipy_update(rng, rank):
     Q, R = factors(A, np.float64)
     u = rng.standard_normal((20, rank)).squeeze()
     v = rng.standard_normal((6, rank)).squeeze()
-    got = sc.qr_update(Q, R, u, v, overwrite_qruv=True, check_finite=False)
+    got = sc.qr_update(T(Q), T(R), T(u), T(v), overwrite_qruv=True, check_finite=False)
     A1 = A + (np.outer(u, v) if rank == 1 else u @ v.T)
     agree(got, ref_sc.qr_update(Q, R, u, v), A1, np.float64)
+
+
+def test_scipy_numpy_input_goes_to_default_device(monkeypatch):
+    """Numpy input to the scipy surface goes to DEFAULT_CONFIG.device (the
+    card unless changed); a tensor stays where it is."""
+    assert ct.DEFAULT_CONFIG.device == "cuda"
+    monkeypatch.setattr(sc, "DEFAULT_CONFIG", ct.QRConfig(device="meta"))
+    assert sc._t(np.ones(3)).device.type == "meta"
+    x = torch.ones(3)
+    assert sc._t(x) is x
 
 
 def test_scipy_which_rejected(rng):
     Q, R = factors(rng.standard_normal((10, 4)), np.float64)
     with pytest.raises(ValueError):
-        sc.qr_insert(Q, R, np.ones(4), 0, which="diag")
+        sc.qr_insert(T(Q), T(R), T(np.ones(4)), 0, which="diag")
     with pytest.raises(ValueError):
-        sc.qr_delete(Q, R, 0, which="diag")
+        sc.qr_delete(T(Q), T(R), 0, which="diag")
