@@ -20,7 +20,9 @@ of its float32 operations over the FP32 peak and its bytes over HBM's rate)
 and, where one exists, the PyTorch call that computes the same function
 (``library_ms``; a yardstick only, the port never calls it); the geqrt
 lines say which kernel body (shared-memory sub-panels or L2 streaming) each
-shape took.  Every phase raises on
+shape took.  The pivot selection (B3, a thread block cluster) is checked
+on ties, a tie across the cluster's CTAs and a NaN, and timed on every tile
+shape.  Every phase raises on
 failure, so any failure exits non-zero; it also fails on a machine without
 a CUDA device.
 
@@ -220,47 +222,68 @@ def phase_geqrt(torch, np, dev):
 
 
 def phase_select(torch, np, dev):
+    """B3 (an 8-CTA thread block cluster) against its plain version on
+    every SELECT_TILES shape; on the first shape also with ties, ineligible
+    columns, a tie across the cluster's CTAs and a NaN; then each shape
+    timed."""
     from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
                                                      selection_margin)
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
-    out = {"max_abs_err": 0}
+    out = {"max_abs_err": 0, "body": "cluster", "cluster": 8, "shapes": []}
     for l, cand, nb, seed in SELECT_TILES:
         S = torch.from_numpy(np.random.default_rng(seed).standard_normal(
             (l, cand), dtype=np.float32)).to(dev)
         norms = (S.double() ** 2).sum(0).float()
-        tiles = [("gaussian", S, norms)]
-        if (l, cand, nb) == SELECT_TILES[0][:3]:
+        tiles = [("gaussian", S, norms, nb)]        # (name, tile, norms, steps before a stop)
+        first = (l, cand, nb) == SELECT_TILES[0][:3]
+        if first:
             T = S.clone()
             T[:, [40, 300]] = T[:, [7, 7]]          # duplicates of column 7
             T[:, [3, 200, 511]] = 0                 # zero columns
             tn = (T.double() ** 2).sum(0).float()
             inactive = tn.clone()
             inactive[::3] = -1                      # ineligible columns
-            tiles += [("duplicate+zero", T, tn), ("inactive", T, inactive)]
-        for name, T, tn in tiles:
-            gap = selection_margin(T, tn, nb)
+            X = S.clone()                           # the largest column thrice, across CTAs
+            X[:, [63, 64, 500]] = 2 * S[:, [int(torch.argmax(norms))]]
+            N = S.clone()
+            N[17, 200] = float("nan")               # column 200's norm is NaN from step 1 on
+            tiles += [("duplicate+zero", T, tn, nb), ("inactive", T, inactive, nb),
+                      ("cross-CTA tie", X, (X.double() ** 2).sum(0).float(), nb),
+                      ("NaN at step 1", N, norms, 1)]
+        for name, T, tn, k in tiles:
+            gap = selection_margin(T, tn, k)
+            if gap < MIN_GAP:
+                raise AssertionError(f"select tile {name} {(l, cand, nb)} is not well separated")
+            want = select_pivots_plain(T, tn, nb)
+            if k < nb:                              # the kernel stops where a norm is NaN
+                want = torch.where((want >= 0) & (want < k), want, -1)
             T0 = T.clone()
             got = select_pivots_kernel(T, tn, nb)
-            want = select_pivots_plain(T, tn, nb)
             torch.cuda.synchronize()
             same = bool(torch.equal(got, want))
             picks = torch.sort(got[got >= 0]).values
             say(f"select_pivots l={l} cand={cand} nb={nb} {name}: min gap {gap:.2e} "
                 f"(>= {MIN_GAP:g}), ord identical {same}")
-            if gap < MIN_GAP:
-                raise AssertionError(f"select tile {name} {(l, cand, nb)} is not well separated")
-            if not (same and torch.equal(T, T0) and torch.equal(
-                    picks, torch.arange(nb, dtype=torch.int32, device=dev))):
+            if not (same and torch.equal(T.view(torch.int32), T0.view(torch.int32))):
                 raise AssertionError(f"select_pivots disagrees with its plain version "
                                      f"at {(l, cand, nb)} on the {name} tile")
+            if not torch.equal(picks, torch.arange(k, dtype=torch.int32, device=dev)):
+                raise AssertionError(f"select_pivots picked {picks.numel()} columns of "
+                                     f"{(l, cand, nb)} {name}, expected {k}")
             if name == "inactive" and not bool((got[::3] == -1).all()):
                 raise AssertionError("select_pivots picked an ineligible column")
             out["max_abs_err"] = max(out["max_abs_err"], int((got - want).abs().max()))
-        if (l, cand, nb) == SELECT_TILES[0][:3]:
-            out["ms"] = cuda_time_ms(lambda: select_pivots_kernel(S, norms, nb), reps=20)
+        ms = cuda_time_ms(lambda: select_pivots_kernel(S, norms, nb), reps=20)
+        rec = {"l": l, "cand": cand, "nb": nb, "ms": ms, "us_per_step": ms * 1e3 / nb,
+               **select_bound(l, cand, nb)}
+        line = (f"select_pivots: {l}x{cand} nb={nb} cluster of 8: {ms:.4f} ms "
+                f"({rec['us_per_step']:.2f} us/step), bound {rec['bound_ms']:.6f} ms")
+        if first:
+            out.update(ms=ms, us_per_step=rec["us_per_step"])
             out["plain_ms"] = cuda_time_ms(lambda: select_pivots_plain(S, norms, nb), reps=3)
-    say(f"select_pivots: 160x512 nb=128 kernel {out['ms']:.4f} ms vs plain "
-        f"{out['plain_ms']:.4f} ms")
+            line += f", plain {out['plain_ms']:.4f} ms"
+        say(line)
+        out["shapes"].append(rec)
     return out
 
 

@@ -45,8 +45,8 @@ _SIGNATURES = {
         "cqt_geqrt_batched_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "select_pivots.cu": {
-        # S, norms, S scratch, norms scratch, ord, l, cand, nb, stream
-        "cqt_select_pivots_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # S, norms, ord, l, cand, nb, stream
+        "cqt_select_pivots_f32": [_P, _P, _P, _I, _I, _I, _P],
     },
 }
 

@@ -14,7 +14,10 @@
 
 As in ``ops/blocked.py``, the reference's fori_loop is a Python loop and
 its masked full-width updates work on exact-width slices (rows >= j0,
-columns >= j0 + nb): the same operator.  The loop takes no host sync of its
+columns >= j0 + nb): the same operator.  Every GEMM runs at
+``config.precision``, the trailing update included, as in the reference
+(``cuda_qr_tpu/ops/qrcp.py:194-196``): ``trailing_precision`` is not read, so
+MIXED_CONFIG factors with pivots exactly as DEFAULT_CONFIG does.  The loop takes no host sync of its
 own; the panel factorization's ``host_decision``s are the only ones.
 
 The reference draws Omega with ``jax.random``, which this package cannot
@@ -165,8 +168,10 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
         rest = Ap[j0:, j1:]
         if not rest.shape[1]:
             continue
-        # Trailing update (I - V T V^T)^T on rows >= j0, columns >= j0 + nb.
-        with matmul_precision(config.resolved_trailing_precision()):
+        # Trailing update (I - V T V^T)^T on rows >= j0, columns >= j0 + nb,
+        # at ``precision`` as in the reference (``trailing_precision`` is
+        # qr_blocked's knob; the reference's QRCP does not read it).
+        with matmul_precision(config.precision):
             V, Tc = panel_v(packed, 0, VJ), T.to(cdt)
             rest -= V @ (Tc.T @ (V.T @ rest))
         if sdt != cdt:

@@ -3,13 +3,15 @@
 Replaces cuda_qr_tpu/ops/pallas_select.py (``_select_kernel`` through
 ``select_pivots_pallas``), which runs on every block step of the pivoted
 factorization (``ops/qrcp.py``).  The CUDA source is
-``csrc/select_pivots.cu``; its note says what bounds it on an H100 and what
+``csrc/select_pivots.cu``: a thread block cluster of 8 CTAs that holds the
+tile in its shared memory; its note says what bounds it on an H100 and what
 the design does about that.  The plain PyTorch version,
 ``select_pivots_plain``, is the reference's jnp loop
 (``cuda_qr_tpu/ops/qrcp.py:86-104``).
 
 ``select_pivots_kernel`` takes the plain version only for a CPU tensor; a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises, and a cluster the card cannot
+place raises too.
 """
 
 from __future__ import annotations
@@ -19,6 +21,14 @@ import torch
 from . import _build
 
 MAX_TILE_BYTES = 4 * 1024 * 1024
+# The kernel's tiles: every one QRCP makes (l = nb + 32, cand = 4 nb, nb <= 256).
+MAX_ROWS, MAX_CAND, CAND_STEP = 288, 1024, 64
+
+
+def in_kernel_range(l: int, cand: int) -> bool:
+    """Whether the kernel takes an l x cand tile: l <= 288 and cand <= 1024
+    a multiple of 64 (eight CTAs of cand/8 columns, a multiple of 8)."""
+    return 1 <= l <= MAX_ROWS and CAND_STEP <= cand <= MAX_CAND and cand % CAND_STEP == 0
 
 
 def supported(l: int, cand: int, nb: int, dtype) -> bool:
@@ -96,18 +106,17 @@ def select_pivots_kernel(S: torch.Tensor, norms: torch.Tensor, nb: int) -> torch
     if not (S.is_contiguous() and norms.is_contiguous()):
         raise ValueError("select_pivots_kernel: S and norms must be contiguous")
     l, cand = S.shape
-    if not 1 <= nb <= cand or l * cand * 4 > MAX_TILE_BYTES:
-        raise ValueError(f"select_pivots_kernel: need 1 <= nb <= cand and a tile of at most "
-                         f"{MAX_TILE_BYTES} bytes, got l={l}, cand={cand}, nb={nb}")
-    Sw = torch.empty_like(S)
-    nw = torch.empty_like(norms)
+    if not (1 <= nb <= cand and in_kernel_range(l, cand)):
+        raise ValueError(f"select_pivots_kernel: need 1 <= nb <= cand, l <= {MAX_ROWS} and "
+                         f"cand <= {MAX_CAND} a multiple of {CAND_STEP}, got l={l}, "
+                         f"cand={cand}, nb={nb}")
     order = torch.empty(cand, dtype=torch.int32, device=S.device)
     lib = _build.load()
     with torch.cuda.device(S.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.cqt_select_pivots_f32(S.data_ptr(), norms.data_ptr(), Sw.data_ptr(),
-                                               nw.data_ptr(), order.data_ptr(), l, cand, nb,
-                                               stream), "select_pivots")
+        _build.check(lib.cqt_select_pivots_f32(S.data_ptr(), norms.data_ptr(),
+                                               order.data_ptr(), l, cand, nb, stream),
+                     "select_pivots")
     select_pivots_kernel.launches += 1
     return order
 

@@ -38,7 +38,10 @@ class QRConfig:
         float32 panels).
       precision: GEMM precision of the panel factorization.
       trailing_precision / orgqr_precision: precision overrides for the
-        trailing update and for orgqr/ormqr (None = follow ``precision``).
+        trailing update of ``qr_blocked`` (and the two full-height GEMMs of
+        TSQR's direct cholqr2 path) and for orgqr/ormqr (None = follow
+        ``precision``).  The pivoted factorization runs every GEMM at
+        ``precision``, as the reference's does.
       use_kernels: False forces the plain ``geqr2`` panel path whatever
         ``panel_method`` says (the reference's ``use_pallas`` escape hatch,
         ``cuda_qr_tpu/ops/blocked.py:84``).
@@ -118,7 +121,8 @@ def matmul_precision(precision: str):
 
 DEFAULT_CONFIG = QRConfig()
 
-# Trailing-update GEMMs in TF32, panels and orgqr in full float32: the
+# qr_blocked's trailing-update GEMMs in TF32, panels and orgqr in full
+# float32 (QRCP stays at ``precision`` throughout): the
 # counterpart of the reference's MIXED_CONFIG (trailing bf16x3).  orgqr stays
 # full precision for the reference's reason: every panel application adds a
 # rounded term directly into Q.  Whether TF32 keeps the n*eps residual gate

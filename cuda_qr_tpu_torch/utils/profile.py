@@ -3,10 +3,14 @@
     python -m cuda_qr_tpu_torch.utils.profile [--out DIR]
 
 Profiles, after a warm-up call each, one 8192^2 float32 ``qr_blocked`` at
-DEFAULT_CONFIG and one 1,048,576 x 128 float32 Householder ``tsqr``: the
+DEFAULT_CONFIG, one 1,048,576 x 128 float32 Householder ``tsqr`` and one
+8192^2 float32 pivoted ``qrcp_blocked`` at DEFAULT_CONFIG: the
 call's window on the host clock (ending in a synchronize), the device busy
 time (the union of the CUDA events' intervals), the busy share, the host
-syncs, and the device time and count of each kernel, largest first.  Prints
+syncs, and the device time and count of each kernel, largest first.  The
+trace must hold one event for every launch the port's kernel wrappers
+counted in the call (chol_inv, geqrt, select_pivots); a call whose trace
+lost one fails.  Prints
 one summary line per call and writes the full tables as JSON to
 ``DIR/profile.json`` (default ``chiprun_out``).  Fails without a card.
 """
@@ -25,6 +29,17 @@ import torch
 
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops import smalllinalg
+from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
+from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
+from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
+
+# The port's kernels: the names their device events carry, and the wrappers
+# whose launch counters they answer to.
+COUNTED = {"chol_inv": (("chol_inv_kernel",), (chol_with_inv_kernel,)),
+           "geqrt": (("geqrt_subpanel_kernel", "geqrt_stream_kernel"),
+                     (geqrt_base, geqrt_batched)),
+           "select_pivots": (("select_cluster_kernel",), (select_pivots_kernel,))}
 
 
 def _busy_us(intervals) -> float:
@@ -39,10 +54,14 @@ def _busy_us(intervals) -> float:
 
 
 def profile(fn) -> dict:
-    """One profiled call of ``fn`` (after one warm-up call)."""
+    """One profiled call of ``fn`` (after one warm-up call); raises if the
+    trace lacks an event for a kernel launch that a wrapper counted."""
     fn()
     torch.cuda.synchronize()
     smalllinalg.host_syncs = 0
+    for _, wrappers in COUNTED.values():
+        for w in wrappers:
+            w.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -59,10 +78,19 @@ def profile(fn) -> dict:
         sums[ev.name] += end - start
         counts[ev.name] += 1
     busy_ms = _busy_us(intervals) / 1e3
+    launches = {}
+    for kernel, (names, wrappers) in COUNTED.items():
+        counted = sum(w.launches for w in wrappers)
+        traced = sum(c for k, c in counts.items() if any(n in k for n in names))
+        if traced != counted:
+            raise RuntimeError(f"profile: {traced} {kernel} events in the trace for "
+                               f"{counted} launches counted")
+        launches[kernel] = counted
     kernels = sorted(({"name": k, "ms": v / 1e3, "count": counts[k]} for k, v in sums.items()),
                      key=lambda r: -r["ms"])
     return {"window_ms": window_ms, "busy_ms": busy_ms, "busy_share": busy_ms / window_ms,
-            "device_events": len(intervals), "host_syncs": syncs, "kernels": kernels}
+            "device_events": len(intervals), "host_syncs": syncs, "launches": launches,
+            "kernels": kernels}
 
 
 def main() -> int:
@@ -80,16 +108,22 @@ def main() -> int:
     T = torch.from_numpy(np.random.default_rng(14).standard_normal(
         (1 << 20, 128), dtype=np.float32)).to(dev)
     runs = {"qr_blocked 8192^2 f32 DEFAULT_CONFIG": lambda: ct.qr_blocked(A),
-            "tsqr 1048576x128 f32 householder": lambda: ct.tsqr(T)}
+            "tsqr 1048576x128 f32 householder": lambda: ct.tsqr(T),
+            "qrcp_blocked 8192^2 f32 DEFAULT_CONFIG": lambda: qrcp_blocked(A)}
     out = {"device": smi}
     for name, fn in runs.items():
         rec = profile(fn)
         out[name] = rec
         top = ", ".join(f"{k['name'][:48]} {k['ms']:.3f} ms x{k['count']}"
                         for k in rec["kernels"][:6])
+        b3 = [k for k in rec["kernels"] if COUNTED["select_pivots"][0][0] in k["name"]]
+        b3_ms = sum(k["ms"] for k in b3)
+        b3_line = (f"; B3 (select_pivots) {b3_ms:.3f} ms x{sum(k['count'] for k in b3)}, "
+                   f"{100 * b3_ms / rec['busy_ms']:.1f} % of busy") if b3 else ""
         print(f"{name}: window {rec['window_ms']:.2f} ms, device busy {rec['busy_ms']:.2f} ms "
               f"({100 * rec['busy_share']:.1f} %), {rec['device_events']} device events, "
-              f"{rec['host_syncs']} host syncs; top: {top}", flush=True)
+              f"{rec['host_syncs']} host syncs, launches {rec['launches']} (each traced)"
+              f"{b3_line}; top: {top}", flush=True)
     path = Path(args.out)
     path.mkdir(parents=True, exist_ok=True)
     (path / "profile.json").write_text(json.dumps(out, indent=1))

@@ -21,6 +21,7 @@ import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import (geqrt_base, geqrt_base_plain, geqrt_batched,
                                         geqrt_batched_plain)
+from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
                                                  selection_margin)
 from cuda_qr_tpu_torch.ops.smalllinalg import chol_with_inv_auto, cholesky_with_inv
@@ -121,12 +122,20 @@ def test_qr_on_the_card(dev, method):
     assert ct.check_qr(A, Q, R).ok
 
 
-@pytest.mark.parametrize("l,cand,nb,seed", [(160, 512, 128, 5), (64, 128, 32, 1),
-                                            (288, 1024, 256, 0)])
-def test_select_kernel_matches_plain(dev, l, cand, nb, seed):
+def gaussian_tile(dev, l, cand, seed):
     S = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (l, cand), dtype=np.float32)).to(dev)
-    norms = (S.double() ** 2).sum(0).float()
+    return S, (S.double() ** 2).sum(0).float()
+
+
+@pytest.mark.parametrize("l,cand,nb,seed", [(160, 512, 128, 5), (64, 128, 32, 1),
+                                            (288, 1024, 256, 0), (224, 768, 192, 4),
+                                            (32, 64, 16, 2)])
+def test_select_kernel_matches_plain(dev, l, cand, nb, seed):
+    """chip_smoke's tiles and two more, so that every row count a lane
+    holds (R = 4, 12, 20, 28, 36) and the narrowest slice (64 columns, 8 a
+    CTA) run."""
+    S, norms = gaussian_tile(dev, l, cand, seed)
     S0 = S.clone()
     assert selection_margin(S, norms, nb) >= 1e-5
     before = select_pivots_kernel.launches
@@ -136,6 +145,45 @@ def test_select_kernel_matches_plain(dev, l, cand, nb, seed):
     assert torch.equal(S, S0)
     assert torch.equal(torch.sort(got[got >= 0]).values,
                        torch.arange(nb, dtype=torch.int32, device=dev))
+
+
+def test_select_kernel_tie_across_ctas(dev):
+    """Three copies of the largest column at 63, 64 (the first columns of
+    ranks 0 and 1 of the cluster's 64-column slices) and 500 (rank 7): the
+    lowest global index wins."""
+    S, norms = gaussian_tile(dev, 160, 512, 5)
+    S[:, [63, 64, 500]] = 2 * S[:, [int(torch.argmax(norms))]]
+    norms = (S.double() ** 2).sum(0).float()
+    assert selection_margin(S, norms, 128) >= 1e-5
+    got = select_pivots_kernel(S, norms, 128)
+    assert torch.equal(got, select_pivots_plain(S, norms, 128))
+    assert int(got[63]) == 0 and int(got[64]) == -1 and int(got[500]) == -1
+
+
+def test_select_kernel_stops_at_a_nan_norm(dev):
+    """A NaN in column 200 of S turns its norm NaN after step 0's
+    downdate: step 0 agrees with the plain version, and from step k = 1 on
+    nothing is picked, as the reference's Pallas kernel does (the plain
+    version, the reference's jnp loop, picks the NaN column)."""
+    S, norms = gaussian_tile(dev, 160, 512, 5)
+    S[17, 200] = float("nan")
+    k = 1
+    assert selection_margin(S, norms, k) >= 1e-5
+    got = select_pivots_kernel(S, norms, 128)
+    want = select_pivots_plain(S, norms, 128)
+    assert torch.equal(got, torch.where((want >= 0) & (want < k), want, -1))
+    assert int((got >= 0).sum()) == k
+
+
+@pytest.mark.parametrize("l,cand", [(1024, 1024), (512, 1024), (296, 512), (160, 96)])
+def test_select_kernel_rejects_tiles_out_of_range(dev, l, cand):
+    """Tiles the reference's gate admits but QRCP never makes raise rather
+    than take the plain version."""
+    S, norms = gaussian_tile(dev, l, cand, 0)
+    before = select_pivots_kernel.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        select_pivots_kernel(S, norms, 8)
+    assert select_pivots_kernel.launches == before
 
 
 def test_select_kernel_ties_and_rejects(dev):
@@ -156,6 +204,20 @@ def test_select_kernel_ties_and_rejects(dev):
     with pytest.raises(ValueError):
         big = torch.zeros((2048, 1024), device=dev)
         select_pivots_kernel(big, big[0].contiguous(), 8)
+
+
+def test_qrcp_mixed_config_equals_default(dev):
+    """QRCP runs every GEMM at ``precision``, as the reference does, so
+    MIXED_CONFIG (trailing TF32 in qr_blocked) gives the same pivots and the
+    same packed factors as DEFAULT_CONFIG: nothing in the panel reads the
+    trailing precision."""
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1024, 768), dtype=np.float32)).to(dev)
+    fd, jd, _ = qrcp_blocked(A, ct.DEFAULT_CONFIG)
+    fm, jm, _ = qrcp_blocked(A, ct.MIXED_CONFIG)
+    assert torch.equal(jd, jm)
+    for a, b in zip(fd, fm):
+        assert torch.equal(a, b)
 
 
 def test_qr_pivoted_on_the_card(dev):

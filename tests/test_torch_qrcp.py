@@ -20,7 +20,8 @@ import torch
 
 import cuda_qr_tpu as ref
 from cuda_qr_tpu.ops import qrcp as rq
-from cuda_qr_tpu_torch import QRConfig, QRShapeError, check_qr, extract_r, orgqr, qr_pivoted
+from cuda_qr_tpu_torch import (MIXED_CONFIG, QRConfig, QRShapeError, check_qr, extract_r,
+                               orgqr, qr_pivoted)
 from cuda_qr_tpu_torch.ops import qrcp as pq
 from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
 from cuda_qr_tpu_torch.utils.geometry import round_up
@@ -158,6 +159,25 @@ def test_select_kernel_switch_and_no_launch_on_cpu(rng):
     assert select_pivots_kernel.launches == before
     for a, b in zip(on, off):
         assert torch.equal(a, b)
+
+
+def test_mixed_config_asks_for_no_tf32(rng, monkeypatch):
+    """The reference runs every QRCP GEMM, the trailing update included, at
+    ``precision`` (cuda_qr_tpu/ops/qrcp.py:194-196), so MIXED_CONFIG's
+    trailing TF32 must never reach the pivoted factorization."""
+    asked = []
+    real = pq.matmul_precision
+
+    def record(precision):
+        asked.append(precision)
+        return real(precision)
+
+    monkeypatch.setattr(pq, "matmul_precision", record)
+    A = rng.standard_normal((96, 64)).astype(np.float32)
+    cfg = MIXED_CONFIG.replace(panel_width=16, device="cpu")
+    pq.qrcp_blocked(A, cfg)
+    assert asked and "tf32" not in asked
+    assert set(asked) == {"highest"}
 
 
 def test_input_not_modified_and_bf16_storage(rng):

@@ -18,8 +18,9 @@ import torch
 from cuda_qr_tpu.ops import pallas_select
 from cuda_qr_tpu.ops import qrcp as rq
 from cuda_qr_tpu_torch.ops import qrcp as pq
-from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
-                                                 selection_margin, supported)
+from cuda_qr_tpu_torch.ops.select_kernel import (in_kernel_range, select_pivots_kernel,
+                                                 select_pivots_plain, selection_margin,
+                                                 supported)
 
 _H = jax.lax.Precision.HIGHEST
 
@@ -123,3 +124,22 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     with pytest.raises(ValueError, match="unsupported device"):
         select_pivots_kernel(torch.empty((8, 128), device="meta"),
                              torch.empty(128, device="meta"), 4)
+
+
+@pytest.mark.parametrize("nb", [32, 64, 128, 256])
+def test_every_qrcp_tile_is_in_the_kernels_range(nb):
+    """QRCP's tiles (l = nb + 32, cand = 4 nb) pass the gate and the
+    kernel takes each of them."""
+    l, cand = pq.sketch_rows(1 << 20, nb), 4 * nb
+    assert l == nb + 32 and supported(l, cand, nb, torch.float32)
+    assert in_kernel_range(l, cand)
+
+
+@pytest.mark.parametrize("l,cand,want", [
+    (1024, 1024, False),        # the gate admits it (4 MiB); QRCP never makes it
+    (296, 512, False),          # more rows than nb + 32 at nb = 256
+    (160, 96, False),           # 12 columns a CTA: not a multiple of 8
+    (8, 64, True),              # 8 columns a CTA, one padded row block
+])
+def test_kernel_range_by_shape(l, cand, want):
+    assert in_kernel_range(l, cand) == want
