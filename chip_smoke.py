@@ -11,7 +11,12 @@ panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, the
 rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
 1,048,576 x 128 with both leaves and an ill-conditioned input that takes
 the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
-``qr_multiply`` in float64, and the QR updates on an 8192 x 1024 thin QR),
+``qr_multiply`` in float64, the QR updates on an 8192 x 1024 thin QR, and
+the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
+on known spectra, ``norm2_est``/``cond_est``, ``orth(rcond=...)``, QDWH
+``polar`` at 16,384 x 512 and 1,048,576 x 128, ``svd`` at 4,096^2 with both
+eigensolvers, and ``eigh`` at 2,048^2 plus a clustered spectrum and
+``eigh_batched`` on 4,096 x 64 x 64),
 checks the results against the residual and orthogonality gates and known
 answers, and prints timings beside the card's name and power limit.  The
 main path factors a numpy array with no config: the entry points place it
@@ -61,6 +66,15 @@ N_TSQR_ILL = (65536, 128, 7)     # cond 1e7: the cholqr2 path must fall back
 N_BATCHED = (8192, 256, 64)
 N_DECOMP = (8192, 2048, 64)      # tall shape; lq takes its transpose; C columns
 N_UPDATE = (8192, 1024, 100)     # thin QR; insert/delete index
+N_RSVD = (65536, 4096, 64, 8, 2)  # m, n, k, p, n_iter; singular values DECAY^i
+N_EIGH_RAND = (8192, 64, 8, 4)    # n, k, p, n_iter; eigenvalues (-1)^i DECAY^i
+DECAY = 0.9
+N_COND = (16384, 512, 1e3)        # singular values geomspace(1, 1/cond)
+N_POLAR = ((16384, 512), (1 << 20, 128))   # blocked-QR route; TSQR route
+N_SVD = 4096
+N_EIGH = 2048
+N_EIGH_CLUSTER = 512
+N_EIGH_BATCHED = (4096, 64)
 
 
 def say(*parts) -> None:
@@ -431,7 +445,8 @@ def counters():
     from cuda_qr_tpu_torch.ops import smalllinalg
     from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
     from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
-    return smalllinalg, (chol_with_inv_kernel, geqrt_base, geqrt_batched)
+    from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
+    return smalllinalg, (chol_with_inv_kernel, geqrt_base, geqrt_batched, select_pivots_kernel)
 
 
 def reset_counts(torch) -> None:
@@ -443,9 +458,52 @@ def reset_counts(torch) -> None:
 
 
 def read_counts() -> dict:
-    sl, (chol, base, batched) = counters()
+    sl, (chol, base, batched, select) = counters()
     return {"chol_inv": chol.launches, "geqrt": base.launches,
-            "geqrt_batched": batched.launches, "host_syncs": sl.host_syncs}
+            "geqrt_batched": batched.launches, "select_pivots": select.launches,
+            "host_syncs": sl.host_syncs}
+
+
+def counts_str(c: dict) -> str:
+    return (f"launches chol_inv {c['chol_inv']}, geqrt {c['geqrt']}, geqrt_batched "
+            f"{c['geqrt_batched']}, select_pivots {c['select_pivots']}; host syncs "
+            f"{c['host_syncs']}")
+
+
+def run_counted(torch, fn):
+    """fn() with the counts set to 0 just before and read just after:
+    (result, counts, seconds of this first call)."""
+    reset_counts(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, read_counts(), seconds
+
+
+def add_counts(total: dict, c: dict) -> None:
+    for key, v in c.items():
+        total[key] = total.get(key, 0) + v
+
+
+def require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def orth_defect(torch, Q) -> float:
+    """||Q^T Q - I||_F in float64 on Q's device."""
+    Q64 = Q.double()
+    G = Q64.T @ Q64
+    G.diagonal().sub_(1.0)
+    return float(G.norm())
+
+
+def haar(torch, rows: int, cols: int, seed: int, dev):
+    """An orthonormal (rows x cols) float64 factor: Q of a seeded Gaussian."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.linalg.qr(torch.randn(rows, cols, generator=g, dtype=torch.float64,
+                                       device=dev)).Q
 
 
 def phase_tsqr(torch, np, ct, dev, smi):
@@ -640,6 +698,263 @@ def phase_update(torch, np, ct, dev, smi):
             raise AssertionError(f"{name} fails its gates or took a host sync")
 
 
+def phase_rsvd(torch, np, ct, cfg, dev, smi):
+    """The randomized tools on known spectra: rsvd 65,536 x 4,096, eigh_rand
+    8,192^2, norm2_est / cond_est, and orth(rcond) on phase_rank's rank-1536
+    input.  Returns this path's counts."""
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    eps = float(torch.finfo(torch.float32).eps)
+    total = {}
+    m, n, k, p, it = N_RSVD
+    sig = DECAY ** torch.arange(n, dtype=torch.float64, device=dev)
+    A = ((haar(torch, m, n, 30, dev) * sig) @ haar(torch, n, n, 31, dev).T).float()
+    (U, s, Vt), c, sec = run_counted(torch, lambda: ct.rsvd(A, k, p, it, config=cfg))
+    add_counts(total, c)
+    E = A.double() - (U.double() * s.double()) @ Vt.double()
+    err2 = float(torch.linalg.eigvalsh(E.T @ E)[-1].clamp_min(0).sqrt())
+    del E
+    tail = float(sig[k])
+    s_err = float(((s.double() - sig[:k]).abs() / (1e-3 * sig[:k] + 50 * eps)).max())
+    ou, ov = orth_defect(torch, U), orth_defect(torch, Vt.T)
+    say(f"rsvd {m}x{n} f32 k={k} p={p} n_iter={it}: ||A - U S V^T||_2 {err2:.3e} (< 3 sigma_"
+        f"{k + 1} = {3 * tail:.3e}), max |s - sigma| / (1e-3 sigma + 50 eps) {s_err:.3f} (< 1), "
+        f"||U^T U - I|| {ou:.3e}, ||V V^T - I|| {ov:.3e} (< {16 * (k + p) * eps:.3e}); "
+        f"{sec:.3f} s first call, {counts_str(c)}")
+    require(err2 < 3 * tail and s_err < 1 and max(ou, ov) < 16 * (k + p) * eps,
+            "rsvd fails its gates")
+    require(c["geqrt_batched"] > 0, "rsvd's thin QRs launched no batched geqrt kernel")
+    t_rsvd = cuda_time_ms(lambda: ct.rsvd(A, k, p, it, config=cfg), reps=3, warmup=1)
+    t_low = cuda_time_ms(lambda: torch.svd_lowrank(A, q=k + p, niter=it), reps=3, warmup=1)
+    (est, c, _) = run_counted(torch, lambda: float(ct.norm2_est(A, config=cfg)))
+    add_counts(total, c)
+    say(f"norm2_est of the same matrix (sigma_max 1): {est:.6f} (in [0.95, 1.0001])")
+    require(0.95 <= est <= 1.0001, "norm2_est is no lower bound near sigma_max")
+    del A, U, Vt
+
+    mc, nc, cond = N_COND
+    sc = torch.from_numpy(np.geomspace(1.0, 1.0 / cond, nc)).to(dev)
+    Ac = ((haar(torch, mc, nc, 32, dev) * sc) @ haar(torch, nc, nc, 33, dev).T).float()
+    (got, c, sec) = run_counted(torch, lambda: (float(ct.norm2_est(Ac, config=cfg)),
+                                                float(ct.cond_est(Ac, config=cfg))))
+    add_counts(total, c)
+    say(f"norm2_est / cond_est {mc}x{nc} f32, sigma in [1/{cond:g}, 1]: norm {got[0]:.6f} "
+        f"(in [0.95, 1.0001]), cond {got[1]:.2f} (in [{0.8 * cond:g}, {1.05 * cond:g}]); "
+        f"{sec:.3f} s, {counts_str(c)}")
+    require(0.95 <= got[0] <= 1.0001 and 0.8 * cond <= got[1] <= 1.05 * cond,
+            "norm2_est / cond_est miss the known spectrum")
+    del Ac
+
+    ne, ke, pe, ite = N_EIGH_RAND
+    w_true = (DECAY ** torch.arange(ne, dtype=torch.float64, device=dev)
+              * (1 - 2 * (torch.arange(ne, device=dev) % 2)))
+    Ve = haar(torch, ne, ne, 34, dev)
+    S = (Ve * w_true) @ Ve.T
+    S = ((S + S.T) * 0.5).float()
+    del Ve
+    ((w, V), c, sec) = run_counted(torch, lambda: ct.eigh_rand(S, ke, pe, ite, config=cfg))
+    add_counts(total, c)
+    E = S.double() - (V.double() * w.double()) @ V.double().T
+    errf = float(E.norm())
+    tailf = float(w_true[ke:].norm())
+    del E
+    w_err = float(((w.double() - w_true[:ke]).abs()
+                   / (1e-3 * w_true[:ke].abs() + 50 * eps)).max())
+    ov = orth_defect(torch, V)
+    say(f"eigh_rand {ne}^2 f32 k={ke} p={pe} n_iter={ite}: ||S - V W V^T||_F {errf:.3e} "
+        f"(< 1.5 x the tail's {tailf:.3e}), max |w - w_true| / (1e-3 |w| + 50 eps) "
+        f"{w_err:.3f} (< 1), ||V^T V - I|| {ov:.3e} (< {16 * (ke + pe) * eps:.3e}); "
+        f"{sec:.3f} s first call, {counts_str(c)}")
+    require(errf < 1.5 * tailf and w_err < 1 and ov < 16 * (ke + pe) * eps,
+            "eigh_rand fails its gates")
+    del S, V
+
+    mr, nr, r = N_RANK
+    rng = np.random.default_rng(4)          # phase_rank's rank-r input
+    B = torch.from_numpy(rng.standard_normal((mr, r))).to(dev)
+    C = torch.from_numpy(rng.standard_normal((r, nr))).to(dev)
+    Ar = (B @ C).float()
+    del B, C
+    (Q, c, sec) = run_counted(torch, lambda: ct.orth(Ar, rcond=1e-4, config=cfg))
+    add_counts(total, c)
+    oq = orth_defect(torch, Q)
+    proj = float((Q.double() @ (Q.double().T @ Ar.double()) - Ar.double()).norm()
+                 / Ar.double().norm())
+    say(f"orth(rcond=1e-4) {mr}x{nr} rank {r}: {tuple(Q.shape)}, ||Q^T Q - I|| {oq:.3e} "
+        f"(< {4 * nr * eps:.3e}), ||Q Q^T A - A||/||A|| {proj:.3e} (< {nr * eps:.3e}); "
+        f"{sec:.3f} s, {counts_str(c)}")
+    require(tuple(Q.shape) == (mr, r) and oq < 4 * nr * eps and proj < nr * eps,
+            "orth(rcond) fails its gates")
+    require(c["select_pivots"] > 0, "orth(rcond) launched no select_pivots kernel")
+    say(f"rsvd timings on {smi}: rsvd {m}x{n} k={k} {t_rsvd:.2f} ms vs torch.svd_lowrank "
+        f"(q={k + p}, niter={it}) {t_low:.2f} ms")
+    return total
+
+
+def polar_gates(torch, name, A, U, H):
+    n = A.shape[1]
+    eps = float(torch.finfo(torch.float32).eps)
+    ou = orth_defect(torch, U)
+    res = float((A.double() - U.double() @ H.double()).norm() / A.double().norm())
+    asym = float((H - H.T).abs().max())
+    ev = torch.linalg.eigvalsh(H.double())
+    hn = float(ev.abs().max())
+    say(f"{name}: ||U^T U - I|| {ou:.3e} (< {4 * n * eps:.3e}), ||A - U H||/||A|| {res:.3e} "
+        f"(< {n * eps:.3e}), |H - H^T| {asym:g}, min eig(H) {float(ev[0]):.3e} "
+        f"(>= {-n * eps * hn:.3e})")
+    require(ou < 4 * n * eps and res < n * eps and asym == 0.0 and float(ev[0]) >= -n * eps * hn,
+            f"{name} fails its gates")
+
+
+def phase_polar(torch, np, ct, cfg, dev, smi):
+    """QDWH polar at 16,384 x 512 (stacked QRs on the blocked route, Cholesky
+    steps on the chol_inv kernel at 512) and 1,048,576 x 128 (stacked QRs on
+    the TSQR route), then svd at 4,096^2 with both eigensolvers.  Returns
+    this path's counts."""
+    from cuda_qr_tpu_torch.models import eigh as eigh_mod
+    from cuda_qr_tpu_torch.models.polar import _qdwh_schedule
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    eps = float(torch.finfo(torch.float32).eps)
+    total = {}
+    times = []
+    for (m, n), seed in zip(N_POLAR, (40, 41)):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        A = torch.randn(m, n, generator=g, dtype=torch.float32, device=dev)
+        sched = _qdwh_schedule(eps / 10.0 / (m * n) ** 0.25, eps)
+        n_chol = sum(not st[3] for st in sched)
+        ((U, H), c, sec) = run_counted(torch, lambda: ct.polar(A, config=cfg))
+        add_counts(total, c)
+        say(f"polar {m}x{n} f32: schedule {len(sched) - n_chol} QR + {n_chol} Cholesky steps; "
+            f"{sec:.3f} s first call, {counts_str(c)}")
+        polar_gates(torch, f"polar {m}x{n}", A, U, H)
+        require(c["chol_inv"] >= n_chol >= 1,
+                f"polar {m}x{n}: chol_inv launched {c['chol_inv']} times in {n_chol} "
+                f"Cholesky steps")
+        if n <= cfg.panel_width:
+            require(c["geqrt_batched"] > 0, "polar's TSQR route launched no batched geqrt")
+        del U, H
+        times.append((m, n, cuda_time_ms(lambda: ct.polar(A, config=cfg), reps=2, warmup=0)))
+        del A
+    n = N_SVD
+    g = torch.Generator(device=dev).manual_seed(42)
+    A = torch.randn(n, n, generator=g, dtype=torch.float32, device=dev)
+    s_ref = torch.linalg.svdvals(A.double())
+    t_svd = {}
+    for impl in ("torch", "qdwh"):
+        ((U, s, Vh), c, sec) = run_counted(torch, lambda: ct.svd(A, config=cfg, eigh_impl=impl))
+        add_counts(total, c)
+        t_svd[impl] = sec
+        res = float((A.double() - (U.double() * s.double()) @ Vh.double()).norm()
+                    / A.double().norm())
+        ou, ov = orth_defect(torch, U), orth_defect(torch, Vh.T)
+        serr = float((s.double() - s_ref).abs().max() / s_ref[0])
+        desc = bool((s[1:] <= s[:-1]).all())
+        extra = f", eigh {eigh_mod.last_stats}" if impl == "qdwh" else ""
+        say(f"svd {n}^2 f32 eigh_impl={impl}: residual {res:.3e} (< {n * eps:.3e}), "
+            f"||U^T U - I|| {ou:.3e}, ||V V^T - I|| {ov:.3e} (< {16 * n * eps:.3e}), "
+            f"max |s - svdvals64| / s_max {serr:.3e} (< {n * eps:.3e}), descending {desc}; "
+            f"{sec:.3f} s first call, {counts_str(c)}{extra}")
+        require(res < n * eps and max(ou, ov) < 16 * n * eps and serr < n * eps and desc,
+                f"svd eigh_impl={impl} fails its gates")
+        del U, s, Vh
+    t0 = time.perf_counter()
+    torch.linalg.svd(A)
+    torch.cuda.synchronize()
+    t_lib = time.perf_counter() - t0
+    say(f"polar/svd timings on {smi}:")
+    for m, n_, t in times:
+        say(f"  polar {m}x{n_} f32: {t:.2f} ms")
+    say(f"  svd {n}^2 f32: eigh_impl=torch {t_svd['torch'] * 1e3:.2f} ms, eigh_impl=qdwh "
+        f"{t_svd['qdwh'] * 1e3:.2f} ms (first calls), torch.linalg.svd {t_lib * 1e3:.2f} ms")
+    return total
+
+
+def eigh_gates(torch, name, A, w, V):
+    """Residual < n eps, orthogonality < 32 n eps (tests/test_eigh.py's
+    _check allows 1e-5 n = 84 n eps for both; the leaf Jacobi's ~900 rotation
+    rounds set a floor of a few 1e-4 a leaf whatever n), eigenvalues within n eps
+    max|w| of torch.linalg.eigvalsh in float64, ascending."""
+    n = A.shape[0]
+    eps = float(torch.finfo(torch.float32).eps)
+    A64, V64, w64 = A.double(), V.double(), w.double()
+    res = float((A64 @ V64 - V64 * w64).norm() / A64.norm())
+    ov = orth_defect(torch, V)
+    w_ref = torch.linalg.eigvalsh(A64)
+    werr = float((w64 - w_ref).abs().max() / w_ref.abs().max().clamp_min(1.0))
+    asc = bool((w[1:] >= w[:-1]).all())
+    say(f"{name}: ||A V - V W||/||A|| {res:.3e} (< {n * eps:.3e}), ||V^T V - I|| {ov:.3e} "
+        f"(< {32 * n * eps:.3e}), max |w - eigvalsh64| {werr:.3e} (< {n * eps:.3e}), "
+        f"ascending {asc}")
+    require(res < n * eps and ov < 32 * n * eps and werr < n * eps and asc,
+            f"{name} fails its gates")
+
+
+def phase_eigh(torch, np, ct, cfg, dev, smi):
+    """QDWH-eig: eigh at 2,048^2 (Gaussian), a clustered spectrum at 512^2,
+    eigh_batched on 4,096 x 64 x 64.  Returns this path's counts."""
+    from cuda_qr_tpu_torch.models import eigh as eigh_mod
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    total = {}
+
+    def drive(name, A):
+        ((w, V), c, sec) = run_counted(torch, lambda: ct.eigh(A, cfg))
+        add_counts(total, c)
+        st = dict(eigh_mod.last_stats)
+        say(f"{name}: {sec:.3f} s first call; split nodes {st['split_nodes']}, leaves "
+            f"{st['leaves']}, diagonal exits {st['diag_exits']}, Jacobi fallbacks "
+            f"{st['fallbacks']}, Jacobi sweeps {st['jacobi_sweeps']}; {counts_str(c)}")
+        eigh_gates(torch, name, A, w, V)
+        return sec, c
+
+    n = N_EIGH
+    g = torch.Generator(device=dev).manual_seed(50)
+    G = torch.randn(n, n, generator=g, dtype=torch.float32, device=dev)
+    S = (G + G.T) * 0.5
+    sec_main, c_main = drive(f"eigh {n}^2 f32 Gaussian", S)
+    require(c_main["chol_inv"] > 0, "eigh launched no chol_inv kernel")
+    nt = n if sec_main < 60 else n // 2     # the timed repetition, at half the size if slow
+    St = S[:nt, :nt].contiguous()
+    t_eigh = cuda_time_ms(lambda: ct.eigh(St, cfg), reps=1, warmup=0)
+    t_lib = cuda_time_ms(lambda: torch.linalg.eigh(St), reps=2, warmup=1)
+    del S, G
+
+    # repeated eigenvalues plus a tight cluster (tests/test_eigh.py:96-106, scaled up)
+    nc = N_EIGH_CLUSTER
+    third = nc // 3
+    w_true = torch.cat([torch.full((third,), 1.0), torch.full((third,), 1.0 + 3e-3),
+                        torch.linspace(2, 5, nc - 2 * third)]).double().to(dev)
+    Qc = haar(torch, nc, nc, 51, dev)
+    C = (Qc * w_true) @ Qc.T
+    drive(f"eigh {nc}^2 f32 clustered", ((C + C.T) * 0.5).float())
+
+    b, nb = N_EIGH_BATCHED
+    g = torch.Generator(device=dev).manual_seed(52)
+    As = torch.randn(b, nb, nb, generator=g, dtype=torch.float32, device=dev)
+    As = (As + As.mT) * 0.5
+    ((ws, Vs), c, sec) = run_counted(torch, lambda: ct.eigh_batched(As))
+    add_counts(total, c)
+    eps = float(torch.finfo(torch.float32).eps)
+    A64, V64 = As.double(), Vs.double()
+    res = float(((A64 @ V64 - V64 * ws.double()[:, None, :]).norm(dim=(1, 2))
+                 / A64.norm(dim=(1, 2))).max())
+    ov = float((V64.mT @ V64 - torch.eye(nb, dtype=torch.float64, device=dev))
+               .norm(dim=(1, 2)).max())
+    werr = float((ws.double() - torch.linalg.eigvalsh(A64)).abs().max())
+    tol = 5e-6 * nb                     # tests/test_eigh.py's bound for the batched Jacobi
+    say(f"eigh_batched {b} x {nb}x{nb} f32: max residual {res:.3e}, max orthogonality "
+        f"{ov:.3e} (< {tol:.3e}), max |w - eigvalsh64| {werr:.3e} "
+        f"(< {tol * float(ws.abs().max()):.3e}); Jacobi sweeps "
+        f"{eigh_mod.last_stats['jacobi_sweeps']}, host syncs {c['host_syncs']}, {sec:.3f} s")
+    require(res < tol and ov < tol and werr < tol * float(ws.abs().max()),
+            "eigh_batched fails its gates")
+    t_b = cuda_time_ms(lambda: ct.eigh_batched(As), reps=1, warmup=0)
+    t_bl = cuda_time_ms(lambda: torch.linalg.eigh(As), reps=2, warmup=1)
+    say(f"eigh timings on {smi}:")
+    say(f"  eigh {nt}^2 f32: {t_eigh:.2f} ms vs torch.linalg.eigh {t_lib:.2f} ms")
+    say(f"  eigh_batched {b} x {nb}x{nb} f32: {t_b:.2f} ms vs batched torch.linalg.eigh "
+        f"{t_bl:.2f} ms")
+    return total
+
+
 def gate(name, chk) -> None:
     say(f"{name}: residual {chk.residual:.3e} (< {chk.n * chk.eps:.3e}), "
         f"orthogonality {chk.orthogonality:.3e} (< {4 * chk.n * chk.eps:.3e}), "
@@ -765,6 +1080,21 @@ def main() -> int:
     phase_decomp(torch, np, ct, dev)
     phase_update(torch, np, ct, dev, smi)
 
+    # ---- the spectral family: randomized tools, QDWH polar and svd, QDWH-eig
+    by_path = {"qr, geqrt, qr_pivoted, tsqr": dict(launches),
+               "rsvd": phase_rsvd(torch, np, ct, cfg, dev, smi),
+               "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
+               "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
+    for name, path_counts in by_path.items():
+        say(f"path {name}: {counts_str({'host_syncs': '-', **path_counts})}")
+    for kernel in launches:
+        launches[kernel] = sum(c[kernel] for c in by_path.values())
+    for name, needs in (("rsvd", ("geqrt_batched", "select_pivots")),
+                        ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",))):
+        for kernel in needs:
+            if by_path[name][kernel] == 0:
+                raise AssertionError(f"path {name} launched no {kernel} kernel")
+
     # ---- timings (informational)
     flops = qr_flops(N_MAIN, N_MAIN)
     t_fac = cuda_time_ms(lambda: ct.qr_blocked(A, cfg), reps=3, warmup=1)
@@ -818,6 +1148,8 @@ def main() -> int:
          "launches": launches["select_pivots"], **select,
          **select_bound(*SELECT_TILES[0][:3]), "library_ms": None},
     ]
+    for entry in kernels:
+        entry["launches_by_path"] = {name: c[entry["name"]] for name, c in by_path.items()}
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

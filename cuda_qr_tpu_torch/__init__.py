@@ -1,7 +1,8 @@
 """cuda_qr_tpu_torch: the blocked-Householder QR of ``cuda_qr_tpu``, its
 column-pivoted QR and the solvers on both, tall-skinny QR (TSQR), batched
-QR, the LQ/RQ/QL family and QR updating, in PyTorch, with hand-written CUDA
-kernels for an NVIDIA H100 (sm_90a).
+QR, the LQ/RQ/QL family, QR updating and the single-device spectral family
+(randomized range finders, QDWH polar and SVD, QDWH-eig), in PyTorch, with
+hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 The JAX package ``cuda_qr_tpu`` is the reference; this package keeps its
 factor storage and conventions so the two compare piece by piece.  It
@@ -12,9 +13,12 @@ PyTorch version.
 
 from .models.batched import qr_batched
 from .models.decomp import lq, ql, qr_multiply, rq
+from .models.eigh import eigh, eigh_batched
 from .models.lstsq import LstsqResult, lstsq, solve
+from .models.polar import polar, svd
 from .models.qr import QRResult, qr, qr_factor, qr_pivoted
 from .models.rank import lstsq_rr, matrix_rank, null_space, pinv, slogdet
+from .models.rsvd import cond_est, eigh_rand, norm2_est, orth, rsvd
 from .models.tsqr import tsqr, tsqr_r
 from .models.update import (qr_col_delete, qr_col_insert, qr_rank1_update,
                             qr_row_delete, qr_row_insert, qr_update)
@@ -33,5 +37,6 @@ __all__ = [
     "check_qr", "check_qr_device", "QRError", "QRShapeError", "QRNumericalError",
     "tsqr", "tsqr_r", "qr_batched", "lq", "rq", "ql", "qr_multiply", "qr_update",
     "qr_rank1_update", "qr_row_insert", "qr_row_delete", "qr_col_insert",
-    "qr_col_delete",
+    "qr_col_delete", "orth", "rsvd", "eigh_rand", "norm2_est", "cond_est", "polar", "svd",
+    "eigh", "eigh_batched",
 ]

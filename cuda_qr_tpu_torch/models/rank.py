@@ -32,7 +32,9 @@ def _qrcp_with_rank(A: torch.Tensor, config: QRConfig, rcond):
     factors, jpvt, R12 = qrcp_blocked(A, config)
     kb = factors.packed.shape[1]
     R = torch.cat([extract_r(factors, kb), R12], 1)
-    d = np.abs(torch.diagonal(R)[:n].float().cpu().numpy())
+    # float64 on the host whatever R's dtype: a float32 copy would flush a
+    # float64 diagonal outside float32's range to 0 or inf (rank 0)
+    d = np.abs(torch.diagonal(R)[:n].double().cpu().numpy())
     if rcond is None:
         rcond = max(m, n) * float(torch.finfo(R.dtype).eps)
     r = int((d > rcond * (d[0] if d.size else 0.0)).sum())

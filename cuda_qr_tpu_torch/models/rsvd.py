@@ -1,0 +1,208 @@
+"""QR-powered spectral tools: orth / randomized SVD / randomized
+eigendecomposition / norm and condition estimates.
+
+Counterpart of ``cuda_qr_tpu/models/rsvd.py``.  The randomized range finder
+(Halko, Martinsson & Tropp 2011) is two tall GEMMs plus thin QRs, the
+shapes the TSQR and blocked-QR paths factor; the only dense SVD or
+eigendecomposition is of a small (k+p) core and goes to ``torch.linalg``,
+as the reference hands it to its library.
+
+  orth(A)          orthonormal basis of range(A) (thin Q; rank-revealing
+                   truncation via QRCP when rcond is given)
+  rsvd(A, k)       rank-k randomized SVD: A ~= U @ diag(s) @ Vt
+  eigh_rand(A, k)  rank-k randomized eigendecomposition of a symmetric A
+  norm2_est(A)     randomized spectral-norm estimate (block power iteration)
+  cond_est(A)      2-norm condition estimate through one QR
+
+The sketches.  The reference draws them from ``jax.random`` (key 12), whose
+numbers torch cannot reproduce; here ``generator`` (default: seeded 12 on
+the input's device) takes the key's place, and ``omega`` hands the sketch in
+directly, which is how the two packages are compared on one input.
+
+The distributed ``rsvd_dist`` and ``eigh_rand_dist`` of the reference are
+not ported yet: they wait for the distributed layer (ROADMAP.md, Queue A).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.blocked import as_real_matrix, orgqr
+from ..ops.smalllinalg import library_eigh
+from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.errors import QRShapeError
+from .qr import qr
+from .tsqr import tsqr
+
+SKETCH_SEED = 12   # the reference's PRNGKey(12)
+
+
+def _mm(X: torch.Tensor, Y: torch.Tensor, config: QRConfig) -> torch.Tensor:
+    """X @ Y at config.precision; mixed dtypes promote, as jnp.einsum does."""
+    dt = torch.promote_types(X.dtype, Y.dtype)
+    with matmul_precision(config.precision):
+        return X.to(dt) @ Y.to(dt)
+
+
+def _thin_qr(Y: torch.Tensor, config: QRConfig) -> torch.Tensor:
+    """Thin Q of a tall block: TSQR when it fits the tall-skinny path,
+    blocked Householder otherwise."""
+    m, n = Y.shape
+    if n <= config.panel_width and m >= 2 * n:
+        return tsqr(Y, config)[0]
+    return qr(Y, config, mode="reduced")[0]
+
+
+def _sketch(shape, like: torch.Tensor, generator, omega) -> torch.Tensor:
+    """Standard normal sketch of ``shape`` in ``like``'s dtype on its device:
+    ``omega`` if given, else drawn from ``generator`` (default seeded 12)."""
+    if omega is not None:
+        omega = torch.as_tensor(omega, device=like.device).to(like.dtype)
+        if tuple(omega.shape) != tuple(shape):
+            raise QRShapeError(f"omega must be {tuple(shape)}, got {tuple(omega.shape)}")
+        return omega
+    if generator is None:
+        generator = torch.Generator(device=like.device).manual_seed(SKETCH_SEED)
+    return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device)
+
+
+def orth(A, rcond: float | None = None, config: QRConfig = DEFAULT_CONFIG):
+    """Orthonormal basis of range(A) (scipy.linalg.orth analog, QR-based).
+
+    rcond=None: thin Q of A (full column count, requires m >= n).
+    rcond given: rank-revealing basis -- QRCP runs, the rank is the count of
+    R's diagonal entries above rcond * |R[0,0]|, and only those columns of Q
+    return (at least one: a zero matrix keeps a trivial 1-column slot).
+    """
+    A = as_real_matrix(A, config, "orth")
+    if rcond is None:
+        return _thin_qr(A, config)
+    from .rank import _qrcp_with_rank
+    factors, _, _, r = _qrcp_with_rank(A, config, rcond)
+    r = max(r, 1)
+    kb = factors.packed.shape[1]
+    return orgqr(factors, A.shape[0], kb, config)[:, :r]
+
+
+def rsvd(A, k: int, p: int = 8, n_iter: int = 2,
+         generator: torch.Generator | None = None,
+         config: QRConfig = DEFAULT_CONFIG, omega=None):
+    """Randomized rank-k SVD (HMT 2011, Alg. 4.4 + 5.1): returns (U, s, Vt)
+    with U (m x k), s (k,), Vt (k x n) and A ~= U @ diag(s) @ Vt.
+
+    Sketch width ell = min(k + p, m, n); n_iter power iterations with QR
+    re-orthonormalization between applications.  All large operations are
+    (m x n)(n x ell) GEMMs and thin QRs; the dense SVD is of the (ell x n)
+    projection only.  Works for m >= n and m < n alike.  ``omega``: the
+    (n x ell) sketch, in place of a draw from ``generator``.
+    """
+    A = as_real_matrix(A, config, "rsvd")
+    m, n = A.shape
+    ell = min(k + p, min(m, n))
+    if not 1 <= k <= min(m, n):
+        raise QRShapeError(f"rank k must be in [1, {min(m, n)}], got {k}")
+    Om = _sketch((n, ell), A, generator, omega)
+    Q = _thin_qr(_mm(A, Om, config), config)
+    for _ in range(n_iter):
+        Q = _thin_qr(_mm(A.T, Q, config), config)
+        Q = _thin_qr(_mm(A, Q, config), config)
+    B = _mm(Q.T, A, config)                       # (ell x n) projection
+    Ub, s, Vt = torch.linalg.svd(B, full_matrices=False)
+    U = _mm(Q, Ub, config)
+    return U[:, :k], s[:k], Vt[:k]
+
+
+def eigh_rand(A, k: int, p: int = 8, n_iter: int = 2,
+              generator: torch.Generator | None = None,
+              config: QRConfig = DEFAULT_CONFIG, omega=None):
+    """Randomized rank-k eigendecomposition of a symmetric A.
+
+    Returns (w (k,), V (m x k)) with A ~= V @ diag(w) @ V^T, eigenpairs
+    ordered by descending |w| (the dominant pairs the sketch captures; works
+    for indefinite A).  Range finder as in ``rsvd`` -- for symmetric A each
+    power step is one GEMM + thin QR -- then Rayleigh-Ritz on the
+    (ell x ell) compression T = Q^T A Q.  n_iter counts single applications
+    of A (n_iter + 1 in all).  ``omega``: the (m x ell) sketch.
+    """
+    A = as_real_matrix(A, config, "eigh_rand")
+    m, n = A.shape
+    if m != n:
+        raise QRShapeError(f"eigh_rand needs a square matrix, got {tuple(A.shape)}")
+    ell = min(k + p, m)
+    if not 1 <= k <= m:
+        raise QRShapeError(f"rank k must be in [1, {m}], got {k}")
+    Om = _sketch((m, ell), A, generator, omega)
+    Q = _thin_qr(_mm(A, Om, config), config)
+    for _ in range(n_iter):
+        Q = _thin_qr(_mm(A, Q, config), config)
+    T = _mm(Q.T, _mm(A, Q, config), config)       # (ell x ell) Rayleigh quotient
+    T = 0.5 * (T + T.T)
+    w, S = library_eigh(T)                        # ascending
+    order = torch.argsort(-w.abs(), stable=True)[:k]
+    return w[order], _mm(Q, S[:, order], config)
+
+
+def _gram_orthonormalize(Z: torch.Tensor, config: QRConfig) -> torch.Tensor:
+    """Z L^{-T} with L L^T = Z^T Z + tiny I: the b-column re-orthonormalization
+    of the block power iterations."""
+    b = Z.shape[1]
+    tiny = torch.finfo(Z.dtype).tiny
+    G = _mm(Z.T, Z, config)
+    L = torch.linalg.cholesky_ex(
+        G + tiny * torch.eye(b, dtype=G.dtype, device=G.device)).L
+    return torch.linalg.solve_triangular(L, Z.T, upper=False).T
+
+
+def _growth(Y: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """max over columns of ||Y_j|| / ||X_j|| (a 0-d tensor)."""
+    tiny = torch.finfo(X.dtype).tiny
+    return (torch.linalg.norm(Y, dim=0)
+            / torch.linalg.norm(X, dim=0).clamp_min(tiny)).max()
+
+
+def norm2_est(A, n_iter: int = 8, generator: torch.Generator | None = None,
+              config: QRConfig = DEFAULT_CONFIG, omega=None) -> torch.Tensor:
+    """Randomized spectral-norm estimate via block power iteration (block
+    size min(4, n)) with Gram-Cholesky re-orthonormalization; a lower bound
+    converging at rate (s2/s1)^(2*n_iter).  Returns a 0-d tensor; the loop
+    takes no host sync.  ``omega``: the (n x b) start block."""
+    A = as_real_matrix(A, config, "norm2_est")
+    n = A.shape[1]
+    X = _sketch((n, min(4, n)), A, generator, omega)
+    for _ in range(n_iter):
+        X = _gram_orthonormalize(_mm(A.T, _mm(A, X, config), config), config)
+    return _growth(_mm(A, X, config), X)
+
+
+def cond_est(A, n_iter: int = 12, generator: torch.Generator | None = None,
+             config: QRConfig = DEFAULT_CONFIG, omega=None, omega_inv=None) -> torch.Tensor:
+    """2-norm condition number estimate of A (m >= n, full rank) via QR.
+
+    cond2(A) = cond2(R): one factorization, then block power iteration on
+    R^T R for sigma_max (``norm2_est``) and on R^{-1} R^{-T} (two triangular
+    solves per step; R is never inverted) for sigma_min.  Both iterates are
+    lower bounds of their targets, so the estimate approaches cond2(A) from
+    below.  ``omega`` is ``norm2_est``'s (n x b) start block, ``omega_inv``
+    the inverse iteration's; without them both are drawn, one after the
+    other, from ``generator``.
+    """
+    A = as_real_matrix(A, config, "cond_est")
+    m, n = A.shape
+    if m < n:
+        raise QRShapeError(f"cond_est needs m >= n, got {tuple(A.shape)}")
+    R = qr(A, config, mode="r")
+    if generator is None:
+        generator = torch.Generator(device=R.device).manual_seed(SKETCH_SEED)
+    smax = norm2_est(R, n_iter=n_iter, generator=generator, config=config, omega=omega)
+
+    def apply_inv(X):                             # R^{-1} R^{-T} X
+        Y = torch.linalg.solve_triangular(R.T, X, upper=False)
+        return torch.linalg.solve_triangular(R, Y, upper=True)
+
+    # sigma_min(R) = 1 / ||R^{-1}||_2: power-iterate z -> R^{-1} R^{-T} z
+    X = _sketch((n, min(4, n)), R, generator, omega_inv)
+    for _ in range(n_iter):
+        X = _gram_orthonormalize(apply_inv(X), config)
+    # one (R^-1 R^-T) application grows vectors by sigma_min^{-2}
+    smin = 1.0 / torch.sqrt(_growth(apply_inv(X), X))
+    return smax / smin

@@ -54,6 +54,15 @@ def _require_real(*tensors: torch.Tensor) -> None:
             "complex QR is not ported yet (ROADMAP.md, Queue A: complex support)")
 
 
+def as_real_matrix(A, config: QRConfig, name: str) -> torch.Tensor:
+    """``as_tensor`` for an entry point ``name`` that takes one real matrix."""
+    A = as_tensor(A, config)
+    _require_real(A)
+    if A.dim() != 2:
+        raise QRShapeError(f"{name} needs a 2-D matrix, got shape {tuple(A.shape)}")
+    return A
+
+
 def _merge_group(Vs, Ts):
     """Pair-merge per-panel (V, T), left to right, into one wide (V, T)."""
     Vs, Ts = list(Vs), list(Ts)

@@ -10,8 +10,9 @@ branch on finiteness.
 
 Data-dependent branches.  The reference decides them on the device
 (``lax.cond`` / ``lax.while_loop``); eager PyTorch decides them on the host,
-and every such decision is one device->host sync.  ``host_decision`` is the
-single place that takes one, and ``host_syncs`` counts them.
+and every such decision is one device->host sync.  ``host_decision`` (a
+boolean) and ``host_values`` (numbers, such as a split size) are the only
+places that take one, and ``host_syncs`` counts them.
 """
 
 from __future__ import annotations
@@ -32,6 +33,14 @@ def host_decision(flag: torch.Tensor) -> bool:
     global host_syncs
     host_syncs += 1
     return bool(flag)
+
+
+def host_values(values: torch.Tensor):
+    """Bring a small tensor to the host as Python numbers (one sync on a
+    device, however many numbers it holds)."""
+    global host_syncs
+    host_syncs += 1
+    return values.tolist()
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -192,6 +201,19 @@ def lu_with_inv(Y: torch.Tensor):
             torch.cat([torch.cat([U11, U12], 1), torch.cat([zu, U22], 1)], 0),
             torch.cat([torch.cat([L11i, zl], 1), torch.cat([Lbot, L22i], 1)], 0),
             torch.cat([torch.cat([U11i, Utop], 1), torch.cat([zu, U22i], 1)], 0))
+
+
+def library_eigh(H: torch.Tensor):
+    """torch.linalg.eigh of a symmetric H, the small dense core that the
+    reference hands to its library too.  On a card, a float32 H of at most
+    512 rows is solved in float64: PyTorch gives float32 matrices of that
+    size to cuSOLVER's Jacobi solver, whose eigenvalues of a 384 x 384 H
+    were off by 1.5e-4 ||H|| (H100, torch 2.11, cuda 12.8), where larger and
+    float64 matrices take the QR-based solver and come out at n eps."""
+    if H.is_cuda and H.dtype == torch.float32 and H.shape[-1] <= 512:
+        w, V = torch.linalg.eigh(H.double())
+        return w.float(), V.float()
+    return torch.linalg.eigh(H)
 
 
 def chol_with_inv_auto(G: torch.Tensor, config=None):

@@ -1,10 +1,12 @@
 """Where the device time of a call goes, from torch.profiler on the card.
 
-    python -m cuda_qr_tpu_torch.utils.profile [--out DIR]
+    python -m cuda_qr_tpu_torch.utils.profile [--out DIR] [--only TEXT]
 
 Profiles, after a warm-up call each, one 8192^2 float32 ``qr_blocked`` at
-DEFAULT_CONFIG, one 1,048,576 x 128 float32 Householder ``tsqr`` and one
-8192^2 float32 pivoted ``qrcp_blocked`` at DEFAULT_CONFIG: the
+DEFAULT_CONFIG, one 1,048,576 x 128 float32 Householder ``tsqr``, one
+8192^2 float32 pivoted ``qrcp_blocked`` at DEFAULT_CONFIG, one 1024^2
+float32 ``eigh`` and one 4096^2 float32 ``svd`` (``--only`` keeps the runs
+whose name starts with TEXT): the
 call's window on the host clock (ending in a synchronize), the device busy
 time (the union of the CUDA events' intervals), the busy share, the host
 syncs, and the device time and count of each kernel, largest first.  The
@@ -96,6 +98,7 @@ def profile(fn) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--only", default="", help="profile only the runs whose name starts with this")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
@@ -107,9 +110,13 @@ def main() -> int:
         (8192, 8192), dtype=np.float32)).to(dev)
     T = torch.from_numpy(np.random.default_rng(14).standard_normal(
         (1 << 20, 128), dtype=np.float32)).to(dev)
+    S = (A[:1024, :1024] + A[:1024, :1024].T) * 0.5
     runs = {"qr_blocked 8192^2 f32 DEFAULT_CONFIG": lambda: ct.qr_blocked(A),
             "tsqr 1048576x128 f32 householder": lambda: ct.tsqr(T),
-            "qrcp_blocked 8192^2 f32 DEFAULT_CONFIG": lambda: qrcp_blocked(A)}
+            "qrcp_blocked 8192^2 f32 DEFAULT_CONFIG": lambda: qrcp_blocked(A),
+            "eigh 1024^2 f32 DEFAULT_CONFIG": lambda: ct.eigh(S),
+            "svd 4096^2 f32 eigh_impl=torch": lambda: ct.svd(A[:4096, :4096])}
+    runs = {name: fn for name, fn in runs.items() if name.startswith(args.only)}
     out = {"device": smi}
     for name, fn in runs.items():
         rec = profile(fn)

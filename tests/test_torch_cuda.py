@@ -314,3 +314,51 @@ def test_update_chains_take_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert ct.check_qr_device(A + torch.outer(u, v), *outs[0]).ok
+
+
+def test_polar_launches_chol_inv_and_equals_plain_path(dev):
+    """QDWH's Cholesky steps at n = 256 run on the chol_inv kernel, one
+    launch a step, and give the polar factors of the kernel-free path."""
+    from cuda_qr_tpu_torch.models.polar import _qdwh_schedule
+    A = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (4096, 256), dtype=np.float32)).to(dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    n_chol = sum(not s[3] for s in _qdwh_schedule(eps / 10 / (4096 * 256) ** 0.25, eps))
+    before = chol_with_inv_kernel.launches
+    U, H = ct.polar(A, config=ct.QRConfig(device="cuda"))
+    assert chol_with_inv_kernel.launches - before >= n_chol >= 1
+    Up, Hp = ct.polar(A, config=ct.QRConfig(device="cuda", use_kernels=False))
+    assert float((U - Up).abs().max()) < 1e-4 and rel(H, Hp) < 1e-4
+    G = U.double().T @ U.double()
+    G.diagonal().sub_(1.0)
+    assert float(G.norm()) < 4 * 256 * eps
+    assert float((A - U @ H).norm() / A.norm()) < 256 * eps
+
+
+def test_spectral_family_on_the_card(dev):
+    """eigh (divide and conquer + the batched leaf Jacobi), eigh_batched,
+    svd with both eigensolvers and rsvd on CUDA tensors."""
+    rng = np.random.default_rng(22)
+    S = rng.standard_normal((512, 512), dtype=np.float32)
+    S = torch.from_numpy((S + S.T) / 2).to(dev)
+    cfg = ct.QRConfig(device="cuda")
+    w, V = ct.eigh(S, cfg)
+    eps = float(torch.finfo(torch.float32).eps)
+    S64, V64 = S.double(), V.double()
+    assert float((S64 @ V64 - V64 * w.double()).norm() / S64.norm()) < 512 * eps
+    # the leaf Jacobi's ~900 rotation rounds floor V's orthogonality at a few 1e-4
+    assert float((V64.T @ V64 - torch.eye(512, device=dev, dtype=torch.float64)).norm()) \
+        < 32 * 512 * eps
+    assert float((w.double() - torch.linalg.eigvalsh(S64)).abs().max()) \
+        < 512 * eps * float(w.abs().max())
+    ws, Vs = ct.eigh_batched(S[:60, :60].reshape(1, 60, 60).repeat(8, 1, 1), config=cfg)
+    assert float((ws[3].double() - torch.linalg.eigvalsh(S64[:60, :60])).abs().max()) < 1e-4
+    A = torch.from_numpy(rng.standard_normal((1024, 384), dtype=np.float32)).to(dev)
+    s_ref = torch.linalg.svdvals(A.double())
+    for impl in ("torch", "qdwh"):
+        U, s, Vh = ct.svd(A, config=cfg, eigh_impl=impl)
+        assert float((s.double() - s_ref).abs().max()) < 384 * eps * float(s_ref[0])
+        assert float((A - (U * s) @ Vh).norm() / A.norm()) < 384 * eps
+    U, s, Vt = ct.rsvd(A, k=16, config=cfg)
+    assert float((s.double() - s_ref[:16]).abs().max()) < 0.2 * float(s_ref[0])
+    assert U.device.type == "cuda" and tuple(Vt.shape) == (16, 384)

@@ -87,6 +87,28 @@ def test_null_space(rng, m, n, r):
         assert np.abs(N @ N.T - rN @ rN.T).max() < 1e-4
 
 
+@pytest.mark.parametrize("scale", [1e-200, 1e200])
+def test_rank_decision_keeps_float64_range(rng, scale):
+    """A float64 input far outside float32's range: the rank is decided on
+    R's diagonal in float64, as in the reference, so the solvers see full
+    rank where a float32 copy of the diagonal reads 0 or inf."""
+    A = rng.standard_normal((64, 32)) * scale
+    b = rng.standard_normal(64)
+    assert matrix_rank(A, config=CFG64) == rrank.matrix_rank(A, config=RCFG64) == 32
+    x, resid, r, _ = lstsq_rr(A, b, config=CFG64)
+    rx, rres, rr, _ = rrank.lstsq_rr(A, b, config=RCFG64)
+    assert r == rr == 32
+    np.testing.assert_allclose(x.numpy() * scale, np.asarray(rx) * scale, atol=1e-9)
+    np.testing.assert_allclose(x.numpy() * scale, np.linalg.lstsq(A / scale, b, rcond=None)[0],
+                               atol=1e-9)
+    assert abs(float(resid) - float(rres)) < 1e-9
+    P = pinv(A, config=CFG64).numpy()
+    np.testing.assert_allclose(P * scale, np.asarray(rrank.pinv(A, config=RCFG64)) * scale,
+                               atol=1e-9)
+    N = null_space(A, config=CFG64)
+    assert tuple(N.shape) == tuple(rrank.null_space(A, config=RCFG64).shape) == (32, 0)
+
+
 @pytest.mark.parametrize("n", [16, 48, 130])
 def test_slogdet(rng, n):
     A = rng.standard_normal((n, n)).astype(np.float32)
