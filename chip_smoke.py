@@ -57,9 +57,12 @@ TOL64 = 1e-10
 FP32_PEAK = 67e12   # FLOP/s, H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
 HBM_PEAK = 3.35e12  # bytes/s, H100 SXM HBM3
 # geqrt batch grid (L, m, w, off, float64?, zero panels): the TSQR leaf shape
-# at 1M x 128 (first), a tree-node-like stack, an odd width with an offset
+# at 1M x 128 (first), a tree-node-like stack, an odd width with an offset,
+# zero panels, and the rsvd path's own stacks at k + p = 72: its leaves
+# (65,536 rows in blocks of 1,024) and a level of its tree
 GEQRT_BATCHED = ((1024, 1024, 128, 0, False, False), (64, 256, 128, 0, False, False),
-                 (8, 2048, 77, 3, True, False), (16, 512, 64, 0, False, True))
+                 (8, 2048, 77, 3, True, False), (16, 512, 64, 0, False, True),
+                 (64, 1024, 72, 0, False, False), (32, 144, 72, 0, False, False))
 CHOL_STACK = (4096, 64)
 N_TSQR = (1 << 20, 128)          # BASELINE config 3
 N_TSQR_ILL = (65536, 128, 7)     # cond 1e7: the cholqr2 path must fall back
@@ -75,6 +78,7 @@ N_SVD = 4096
 N_EIGH = 2048
 N_EIGH_CLUSTER = 512
 N_EIGH_BATCHED = (4096, 64)
+N_CHOL_PAD = 509                  # a QDWH Cholesky step on an exact-size eigh node
 
 
 def say(*parts) -> None:
@@ -805,6 +809,33 @@ def polar_gates(torch, name, A, U, H):
             f"{name} fails its gates")
 
 
+def phase_chol_pad(torch, np, cfg, dev):
+    """One QDWH Cholesky step at a side that is no multiple of 16: grown with
+    an identity block onto the chol_inv kernel (the route every QDWH
+    Cholesky step takes), against and beside the plain recursion at the
+    exact size."""
+    from cuda_qr_tpu_torch.models.polar import _chol_inv_padded
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+    from cuda_qr_tpu_torch.ops.smalllinalg import cholesky_with_inv
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    n = N_CHOL_PAD
+    B = torch.from_numpy(np.random.default_rng(43).standard_normal((n, 2 * n))).to(dev)
+    Z = (torch.eye(n, device=dev, dtype=torch.float64) + B @ B.T / (2 * n)).float()
+    before = chol_with_inv_kernel.launches
+    L, Li = _chol_inv_padded(Z, cfg)
+    launched = chol_with_inv_kernel.launches - before
+    Lp, Lip = cholesky_with_inv(Z)
+    torch.cuda.synchronize()
+    eL, eLi = rel_err(L, Lp), rel_err(Li, Lip)
+    t_k = cuda_time_ms(lambda: _chol_inv_padded(Z, cfg), reps=10)
+    t_p = cuda_time_ms(lambda: cholesky_with_inv(Z), reps=3)
+    say(f"QDWH Cholesky step {n}^2 f32: padded onto chol_inv ({launched} launch) vs the plain "
+        f"recursion at {n}: rel err L {eL:.2e}, L^-1 {eLi:.2e} (tol {TOL32:g}); padded kernel "
+        f"route {t_k:.4f} ms vs plain route {t_p:.4f} ms")
+    require(launched == 1 and tuple(L.shape) == (n, n) and eL < TOL32 and eLi < TOL32,
+            "the padded Cholesky step disagrees with the plain recursion")
+
+
 def phase_polar(torch, np, ct, cfg, dev, smi):
     """QDWH polar at 16,384 x 512 (stacked QRs on the blocked route, Cholesky
     steps on the chol_inv kernel at 512) and 1,048,576 x 128 (stacked QRs on
@@ -816,6 +847,7 @@ def phase_polar(torch, np, ct, cfg, dev, smi):
     eps = float(torch.finfo(torch.float32).eps)
     total = {}
     times = []
+    phase_chol_pad(torch, np, cfg, dev)
     for (m, n), seed in zip(N_POLAR, (40, 41)):
         g = torch.Generator(device=dev).manual_seed(seed)
         A = torch.randn(m, n, generator=g, dtype=torch.float32, device=dev)

@@ -57,7 +57,9 @@ from ..utils.errors import QRShapeError
 from .polar import _qdwh_dyn_core, _real_dtype
 from .qr import qr
 
-# Counters of the last ``eigh`` / ``eigh_batched`` call.
+# Counters of the LAST ``eigh`` / ``eigh_batched`` call only: each call sets
+# them to 0 first, one made inside another function (``svd`` with
+# eigh_impl="qdwh") included.  Read them right after the call they describe.
 last_stats = {"split_nodes": 0, "diag_exits": 0, "fallbacks": 0, "leaves": 0,
               "jacobi_calls": 0, "jacobi_sweeps": 0}
 
@@ -88,8 +90,20 @@ def _rr_pairs(n: int) -> np.ndarray:
     return np.stack([np.minimum(a, b), np.maximum(a, b)], -1).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=16)
+_SCHEDULE_CACHE_MAX_N = 512   # a cached table holds (n-1) n int64 on the device: 2 MB here
+
+
 def _schedule(kind: str, n: int, device: str) -> torch.Tensor:
+    """The (n-1, n/2, 2) pair table on ``device``.  Leaf and bucket sizes
+    are kept between calls; a larger table (a Jacobi fallback on a whole
+    node: 134 MB at n = 4096) is built for its one use and freed with it."""
+    if n <= _SCHEDULE_CACHE_MAX_N:
+        return _schedule_cached(kind, n, device)
+    return _schedule_cached.__wrapped__(kind, n, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _schedule_cached(kind: str, n: int, device: str) -> torch.Tensor:
     table = _round_robin(n) if kind == "round_robin" else _rr_pairs(n)
     return torch.from_numpy(table.astype(np.int64)).to(device)
 

@@ -86,14 +86,18 @@ def _thin_q2(Y: torch.Tensor, config: QRConfig) -> torch.Tensor:
 
 
 def _chol_inv_padded(Z: torch.Tensor, config: QRConfig):
-    """chol_with_inv_auto of diag(Z, I), Z grown to the next multiple of 16,
-    cut back to Z's size: diag(L, I) is the factor of diag(Z, I).  The
-    reference's divide steps run on bucketed blocks padded with +I, whose
-    sizes pass the chol_inv kernel's gate; exact-size blocks reach the
-    kernel this way."""
+    """The Cholesky step's (L, L^{-1}): chol_with_inv_auto of diag(Z, I), Z
+    grown to the next multiple of 16, cut back to Z's size (diag(L, I) is
+    the factor of diag(Z, I)).  Every QDWH Cholesky step takes this one
+    route, so a side that is no multiple of 16 (the exact-size blocks of
+    ``models/eigh.py``; the reference pads its bucketed blocks with +I too)
+    passes the chol_inv kernel's gate instead of taking the plain recursion.
+    Sides that are multiples of 16, sides above 512 and float64 go to
+    chol_with_inv_auto unchanged, the reference's routing."""
     n = Z.shape[0]
     npad = round_up(n, 16)
-    if npad == n or not supported((npad, npad), Z.dtype):
+    if (npad == n or not (config.use_kernels and config.use_chol_kernel)
+            or not supported((npad, npad), Z.dtype)):
         return chol_with_inv_auto(Z, config)
     Zp = _eye(npad, Z)
     Zp[:n, :n] = Z
@@ -101,12 +105,9 @@ def _chol_inv_padded(Z: torch.Tensor, config: QRConfig):
     return L[:n, :n], Li[:n, :n]
 
 
-def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig,
-               pad_chol: bool = False) -> torch.Tensor:
+def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig) -> torch.Tensor:
     """Run a (a, b, c, use_qr) weight schedule on X (m x n, spectrum in
-    [l0, 1]).  GEMMs at config.precision; no host sync of its own.
-    ``pad_chol``: Cholesky steps through ``_chol_inv_padded``."""
-    chol = _chol_inv_padded if pad_chol else chol_with_inv_auto
+    [l0, 1]).  GEMMs at config.precision; no host sync of its own."""
     m, n = X.shape
     dt = X.dtype
     eye = _eye(n, X)
@@ -121,7 +122,7 @@ def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig,
         else:
             with matmul_precision(config.precision):
                 Z = eye + c * (X.T @ X)
-                _, Li = chol(Z, config)
+                _, Li = _chol_inv_padded(Z, config)
                 # X Z^{-1} = (X L^{-T}) L^{-1}  with  Z = L L^T
                 X = bc * X + (a - bc) * ((X @ Li.T) @ Li)
     return X
@@ -188,7 +189,7 @@ def _qdwh_dyn_core(X: torch.Tensor, l0: float, config: QRConfig) -> torch.Tensor
     while-loops; l0 is a host number here, so the weights are all computed
     on the host first and the iteration takes no host sync."""
     rdt = np.float64 if X.dtype == torch.float64 else np.float32
-    return _qdwh_core(X, _qdwh_dyn_schedule(l0, rdt), config, pad_chol=True)
+    return _qdwh_core(X, _qdwh_dyn_schedule(l0, rdt), config)
 
 
 def polar(A, side: str = "right", l0: float | None = None,

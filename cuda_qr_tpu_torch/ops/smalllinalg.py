@@ -203,14 +203,22 @@ def lu_with_inv(Y: torch.Tensor):
             torch.cat([torch.cat([U11i, Utop], 1), torch.cat([zu, U22i], 1)], 0))
 
 
+# Largest float32 side that library_eigh solves in float64 on a card.  The
+# value is PyTorch's own switch (torch 2.11, CUDA 12.8: float32 matrices of
+# at most 512 rows go to cuSOLVER's Jacobi solver, larger ones and float64
+# to the QR-based one).  tests/test_torch_cuda.py holds both sides of it
+# (384, 512, 528 rows) to n eps; re-read it there when torch changes.
+LIBRARY_EIGH_F64_MAX_N = 512
+
+
 def library_eigh(H: torch.Tensor):
     """torch.linalg.eigh of a symmetric H, the small dense core that the
     reference hands to its library too.  On a card, a float32 H of at most
-    512 rows is solved in float64: PyTorch gives float32 matrices of that
-    size to cuSOLVER's Jacobi solver, whose eigenvalues of a 384 x 384 H
-    were off by 1.5e-4 ||H|| (H100, torch 2.11, cuda 12.8), where larger and
-    float64 matrices take the QR-based solver and come out at n eps."""
-    if H.is_cuda and H.dtype == torch.float32 and H.shape[-1] <= 512:
+    LIBRARY_EIGH_F64_MAX_N rows is solved in float64 and rounded back: the
+    Jacobi solver PyTorch picks there gave the eigenvalues of a 384 x 384 H
+    1.5e-4 ||H|| off (H100), where the QR-based solver comes out at n eps.
+    A CPU tensor goes to torch.linalg.eigh as it is."""
+    if H.is_cuda and H.dtype == torch.float32 and H.shape[-1] <= LIBRARY_EIGH_F64_MAX_N:
         w, V = torch.linalg.eigh(H.double())
         return w.float(), V.float()
     return torch.linalg.eigh(H)

@@ -239,12 +239,14 @@ def test_qr_pivoted_on_the_card(dev):
                                              (4, 398, 128, 0, torch.float32),
                                              (4, 1553, 128, 0, torch.float32),
                                              (4, 1554, 128, 0, torch.float32),
-                                             (6, 256, 128, 9, torch.float64)])
+                                             (6, 256, 128, 9, torch.float64),
+                                             (64, 1024, 72, 0, torch.float32),
+                                             (32, 144, 72, 0, torch.float32)])
 def test_geqrt_batched_kernel_matches_plain(dev, L, m, w, off, dtype):
     """The TSQR leaf and node stacks, w = 77 (not a multiple of kb = 8), the
     edge of the resident panel (m = 397 / 398) and of the sub-panel width
     (kb 32 -> 16 between m = 1553 and 1554), a zero panel (tau = 0) and a
-    zero column."""
+    zero column; the leaves and a tree level of rsvd's thin QRs at k + p = 72."""
     P = torch.from_numpy(np.random.default_rng(L).standard_normal((L, m, w))).to(dev, dtype)
     P[1] = 0
     P[2, :, 5] = 0
@@ -362,3 +364,42 @@ def test_spectral_family_on_the_card(dev):
     U, s, Vt = ct.rsvd(A, k=16, config=cfg)
     assert float((s.double() - s_ref[:16]).abs().max()) < 0.2 * float(s_ref[0])
     assert U.device.type == "cuda" and tuple(Vt.shape) == (16, 384)
+
+
+@pytest.mark.parametrize("n", [509, 45])
+def test_qdwh_cholesky_step_pads_to_the_kernel(dev, n):
+    """A QDWH Cholesky step whose side is no multiple of 16 (an exact-size
+    block of eigh) launches the chol_inv kernel once, on diag(Z, I), and
+    gives the plain recursion's factors; float64 is not padded."""
+    from cuda_qr_tpu_torch.models.polar import _chol_inv_padded
+    B = torch.from_numpy(np.random.default_rng(n).standard_normal((n, 2 * n))).to(dev)
+    Z = (torch.eye(n, device=dev, dtype=torch.float64) + B @ B.T / (2 * n)).float()
+    cfg = ct.QRConfig(device="cuda")
+    before = chol_with_inv_kernel.launches
+    L, Li = _chol_inv_padded(Z, cfg)
+    assert chol_with_inv_kernel.launches == before + 1
+    Lp, Lip = cholesky_with_inv(Z)
+    assert tuple(L.shape) == (n, n) and rel(L, Lp) < 1e-4 and rel(Li, Lip) < 1e-4
+    _chol_inv_padded(Z.double(), cfg)
+    assert chol_with_inv_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [384, 512, 528])
+def test_library_eigh_at_its_float64_threshold(dev, n):
+    """Both sides of LIBRARY_EIGH_F64_MAX_N: the polar factor H of a
+    Gaussian 2n x n matrix, float32 in and out, eigenvalues within n eps
+    ||H|| of float64's.  Up to 512 rows that needs the float64 detour (the
+    card's float32 Jacobi solver is 1e-4 off); at 528 torch's own choice
+    must do."""
+    from cuda_qr_tpu_torch.ops.smalllinalg import LIBRARY_EIGH_F64_MAX_N, library_eigh
+    assert LIBRARY_EIGH_F64_MAX_N == 512
+    A = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (2 * n, n), dtype=np.float32)).to(dev)
+    H = ct.polar(A, config=ct.QRConfig(device="cuda"))[1]
+    w, V = library_eigh(H)
+    assert w.dtype == V.dtype == torch.float32 and w.is_cuda
+    eps = float(torch.finfo(torch.float32).eps)
+    w_ref = torch.linalg.eigvalsh(H.double())
+    assert float((w.double() - w_ref).abs().max()) < n * eps * float(w_ref[-1])
+    H64, V64 = H.double(), V.double()
+    assert float((H64 @ V64 - V64 * w.double()).norm() / H64.norm()) < n * eps

@@ -7,9 +7,10 @@ the reference the eigenvalues agree within 50 n eps max|w|; eigenvectors are
 compared through residual and orthogonality only (signs and the bases of
 clusters are free).  The pair schedules are host tables and must be equal.
 A divide-and-conquer call of the reference compiles for most of a minute on
-the CPU, so it is called three times in all, from one module-scoped fixture
-(Gaussian float32 and float64, the clustered spectrum); the odd size and the
-near-identity input are held to LAPACK alone.
+the CPU, so it is called four times in all, from one module-scoped fixture
+(Gaussian float32 and float64, the clustered spectrum, the odd size, whose
+pad coordinate goes through the divide and conquer); the near-identity
+input, done at the root, is held to LAPACK alone.
 """
 
 import jax.numpy as jnp
@@ -77,12 +78,12 @@ def _cases():
 
 
 CASES = _cases()
-WITH_REFERENCE = ("gaussian_f32", "gaussian_f64", "clustered")
+WITH_REFERENCE = ("gaussian_f32", "gaussian_f64", "clustered", "odd_n")
 
 
 @pytest.fixture(scope="module")
 def reference_w():
-    """The reference's eigenvalues: its three divide-and-conquer calls."""
+    """The reference's eigenvalues: its four divide-and-conquer calls."""
     out = {}
     for name in WITH_REFERENCE:
         A, (_, rcfg), base_n, bucket, _ = CASES[name]
@@ -150,6 +151,19 @@ def test_eigh_spectra(name, reference_w):
         eps = float(np.finfo(A.dtype).eps)
         wr = reference_w[name]
         assert np.abs(w.numpy() - wr).max() < 50 * n * eps * max(np.abs(wr).max(), 1.0)
+
+
+def test_pair_table_cache_keeps_small_sizes_only():
+    """Leaf-size tables are kept between calls; a whole-node table (the
+    Jacobi fallback) is built for its one use."""
+    a = pe._schedule("circle", 16, "cpu")
+    assert pe._schedule("circle", 16, "cpu") is a
+    held = pe._schedule_cached.cache_info().currsize
+    n = pe._SCHEDULE_CACHE_MAX_N + 2
+    big = pe._schedule("circle", n, "cpu")
+    assert tuple(big.shape) == (n - 1, n // 2, 2) and big.dtype == torch.int64
+    assert np.array_equal(big.numpy(), pe._rr_pairs(n))
+    assert pe._schedule_cached.cache_info().currsize == held
 
 
 def test_eigh_direct_path_matches_reference(rng):

@@ -164,6 +164,56 @@ def test_polar_cholesky_steps_go_through_chol_with_inv_auto(rng, monkeypatch):
     assert all(supported(s, d) and c is not None and c.use_chol_kernel for s, d, c in seen)
 
 
+@pytest.mark.parametrize("n", [45, 40, 13])
+def test_qdwh_cholesky_step_pads_to_the_kernel_gate(rng, monkeypatch, n):
+    """A side that is no multiple of 16 reaches chol_with_inv_auto grown to
+    the next one with an identity block, and comes back cut to size with the
+    factors of the plain route; with the kernels off nothing is padded."""
+    from cuda_qr_tpu_torch.ops.chol_kernel import supported
+    seen = []
+    real = smalllinalg.chol_with_inv_auto
+
+    def spy(G, config=None):
+        seen.append(tuple(G.shape))
+        return real(G, config)
+
+    monkeypatch.setattr(pp, "chol_with_inv_auto", spy)
+    B = rng.standard_normal((n, 3 * n)).astype(np.float32)
+    Z = torch.from_numpy(np.eye(n, dtype=np.float32) + B @ B.T / (3 * n))
+    L, Li = pp._chol_inv_padded(Z, CFG)
+    Lp, Lip = smalllinalg.cholesky_with_inv(Z)
+    npad = -(-n // 16) * 16
+    assert seen == [(npad, npad)] and supported(seen[0], Z.dtype)
+    assert tuple(L.shape) == tuple(Li.shape) == (n, n)
+    assert float((L - Lp).abs().max()) < 1e-5 and float((Li - Lip).abs().max()) < 1e-5
+    for cfg, Zx in ((CFG.replace(use_kernels=False), Z), (CFG, Z.double())):
+        seen.clear()
+        out = pp._chol_inv_padded(Zx, cfg)
+        assert seen == [(n, n)]
+        assert all(torch.equal(a, b) for a, b in zip(out, smalllinalg.cholesky_with_inv(Zx)))
+
+
+def test_polar_odd_width_matches_reference(rng):
+    """n = 45: every Cholesky step is padded to 48; U and H still agree with
+    the reference, which takes the plain route there."""
+    A = rng.standard_normal((90, 45)).astype(np.float32)
+    U, H = wide(*polar(A, config=CFG))
+    Ur, Hr = wide(*rp.polar(A, config=RCFG))
+    checks(A, U, H)
+    assert np.abs(U - Ur).max() < tol_of(A) and np.abs(H - Hr).max() < tol_of(A)
+
+
+def test_library_eigh_on_the_cpu_is_torch_eigh(rng):
+    """The float64 detour of small float32 matrices exists for the card's
+    solver only; on the CPU the core is torch.linalg.eigh as it stands."""
+    H = rng.standard_normal((40, 40)).astype(np.float32)
+    H = torch.from_numpy(H + H.T)
+    w, V = smalllinalg.library_eigh(H)
+    wt, Vt = torch.linalg.eigh(H)
+    assert w.dtype == V.dtype == torch.float32
+    assert torch.equal(w, wt) and torch.equal(V, Vt)
+
+
 def test_polar_errors():
     with pytest.raises(QRShapeError):
         polar(np.zeros((3, 3, 3), np.float32), config=CFG)
