@@ -16,7 +16,13 @@ the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
 on known spectra, ``norm2_est``/``cond_est``, ``orth(rcond=...)``, QDWH
 ``polar`` at 16,384 x 512 and 1,048,576 x 128, ``svd`` at 4,096^2 with both
 eigensolvers, and ``eigh`` at 2,048^2 plus a clustered spectrum and
-``eigh_batched`` on 4,096 x 64 x 64),
+``eigh_batched`` on 4,096 x 64 x 64; then the distributed path on 4 ranks,
+sharing the card over gloo when there is one card: ``tsqr_dist`` at
+1,048,576 x 128 with every strategy, ``caqr`` at 32,768^2, the CAQR variants,
+``caqr_ormqr`` and a crash-and-resume at 8,192^2, ``lstsq_dist``,
+``polar_dist``/``svd_dist``, ``rsvd_dist`` and ``eigh_rand_dist``, each also
+against the single-device function on the same input, and ``caqr`` on one
+rank over NCCL),
 checks the results against the residual and orthogonality gates and known
 answers, and prints timings beside the card's name and power limit.  The
 main path factors a numpy array with no config: the entry points place it
@@ -79,6 +85,16 @@ N_EIGH = 2048
 N_EIGH_CLUSTER = 512
 N_EIGH_BATCHED = (4096, 64)
 N_CHOL_PAD = 509                  # a QDWH Cholesky step on an exact-size eigh node
+# The distributed path: P_DIST ranks (sharing the card when there are fewer
+# cards), at BASELINE config 3 (tsqr), config 5 cut to 32,768^2 on 4 ranks
+# (caqr), 8,192^2 for the CAQR variants, config 4 (lstsq), and the spectral
+# phases' shapes; then caqr at N_NCCL^2 on one rank over NCCL.
+P_DIST = 4
+N_CAQR_LEAF = 8192   # rows of a rank's leaf in caqr at 32,768^2 on 4 ranks
+DIST_SIZES = {"tsqr": N_TSQR, "caqr": 32768, "variants": 8192, "lstsq": N_RANK[:2],
+              "polar": N_POLAR[0], "rsvd": N_RSVD, "eigh_rand": N_EIGH_RAND}
+N_NCCL = 8192
+DIST_JOIN_S = 700
 
 
 def say(*parts) -> None:
@@ -236,6 +252,28 @@ def phase_geqrt(torch, np, dev):
     say(f"geqrt: 8192x32 f32 kernel {out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, "
         f"torch.geqrf {out['library_ms']:.4f} ms (computes less: no T), bound "
         f"{out['bound_ms']:.6f} ms ({out['bound_by']})")
+    # The distributed CAQR's leaf: a 128-column slice of a rank's rows of a
+    # wider matrix, read in place (row stride 512 here), from a live offset.
+    m, w = N_CAQR_LEAF, 128
+    W = torch.from_numpy(rng.standard_normal((m, 4 * w))).to(dev, torch.float32)
+    panel = W[:, w:2 * w]
+    for off in (0, m // 2):
+        pk, tau, T = geqrt_base(panel, off)
+        pp, taup, Tp = geqrt_base_plain(panel, off)
+        torch.cuda.synchronize()
+        errs = (rel_err(pk, pp), rel_err(tau, taup), rel_err(T, Tp))
+        say(f"geqrt CAQR leaf f32 m={m} w={w} column slice (lda {W.stride(0)}) off={off} "
+            f"({body(m, w, off, torch.float32)} body): rel err packed {errs[0]:.2e}, tau "
+            f"{errs[1]:.2e}, T {errs[2]:.2e} (tol {TOL32:g})")
+        require(max(errs) < TOL32 and torch.equal(pk[:off], panel[:off]),
+                f"geqrt disagrees with its plain version on the CAQR leaf, off={off}")
+    out["caqr_leaf_ms"] = cuda_time_ms(lambda: geqrt_base(panel, 0), reps=10)
+    out["caqr_leaf_plain_ms"] = cuda_time_ms(lambda: geqrt_base_plain(panel, 0), reps=3)
+    out["caqr_leaf_library_ms"] = cuda_time_ms(lambda: torch.geqrf(panel), reps=10)
+    out["caqr_leaf_bound_ms"] = geqrt_bound(1, m, w)["bound_ms"]
+    say(f"geqrt CAQR leaf {m}x{w} f32: kernel {out['caqr_leaf_ms']:.4f} ms vs plain "
+        f"{out['caqr_leaf_plain_ms']:.4f} ms, torch.geqrf {out['caqr_leaf_library_ms']:.4f} ms, "
+        f"bound {out['caqr_leaf_bound_ms']:.6f} ms")
     return out
 
 
@@ -987,6 +1025,435 @@ def phase_eigh(torch, np, ct, cfg, dev, smi):
     return total
 
 
+# ---- the distributed path: P ranks over torch.distributed ------------------
+# Each rank body below runs in a process of its own (``run_ranks``): gloo with
+# every rank on card 0 when there are more ranks than cards, NCCL with a card
+# per rank otherwise.  Rank 0 prints each phase's line as it ends; every body
+# returns, per phase, its launch counts (summed over ranks by the caller).
+
+
+def d_timed(torch, fn):
+    """(fn(), seconds on rank 0's clock from a barrier before to a barrier
+    after every rank has finished)."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return out, time.perf_counter() - t0
+
+
+def d_norm(torch, x, mesh) -> float:
+    """Frobenius norm of a row-sharded matrix (x this rank's rows), float64."""
+    from cuda_qr_tpu_torch.parallel.collectives import psum
+    return float(psum(x.double().square().sum(), mesh).sqrt())
+
+
+def d_orth(torch, Q, mesh, blk: int = 2048) -> float:
+    """||Q^T Q - I||_F of a row-sharded Q, in float64, the Gram all-reduced
+    one block of columns at a time."""
+    from cuda_qr_tpu_torch.parallel.collectives import psum
+    Q64 = Q.double()
+    total = 0.0
+    for c0 in range(0, Q.shape[1], blk):
+        G = psum(Q64.T @ Q64[:, c0:c0 + blk], mesh)
+        G[c0:c0 + blk].diagonal().sub_(1.0)
+        total += float(G.square().sum())
+        del G
+    return total ** 0.5
+
+
+def d_resid(torch, a, Q, R, mesh, blk: int = 2048) -> float:
+    """||A - Q R||_F / ||A||_F of row-sharded A and Q, R replicated, in float64
+    by blocks of columns."""
+    from cuda_qr_tpu_torch.parallel.collectives import psum
+    Q64 = Q.double()
+    num = torch.zeros((), dtype=torch.float64, device=a.device)
+    for c0 in range(0, R.shape[1], blk):
+        num += (a[:, c0:c0 + blk].double() - Q64 @ R[:, c0:c0 + blk].double()).square().sum()
+    return float(psum(num, mesh).sqrt()) / d_norm(torch, a, mesh)
+
+
+def d_qr_gates(torch, name, a, Q, R, mesh, width=None):
+    """The residual / orthogonality / triangle gates of a distributed thin QR
+    (n eps, 4 n eps, 0, with eps of float32); the values as a dict."""
+    n = width or R.shape[1]
+    eps = float(torch.finfo(torch.float32).eps)
+    g = {"residual": d_resid(torch, a, Q, R, mesh), "orthogonality": d_orth(torch, Q, mesh),
+         "tril": float(torch.tril(R, -1).abs().max()) if R.shape[0] > 1 else 0.0}
+    require(g["residual"] < n * eps and g["orthogonality"] < 4 * n * eps and g["tril"] == 0.0,
+            f"{name} fails the gates: {g}")
+    return g
+
+
+def r_err(torch, R, R1) -> float:
+    """max |D R - D1 R1| / max |R1|, rows normalized to a positive diagonal."""
+    def pos(X):
+        d = torch.sign(torch.diagonal(X)).double()
+        return X.double() * torch.where(d == 0, 1.0, d)[:, None]
+    return float((pos(R) - pos(R1)).abs().max() / R1.double().abs().max())
+
+
+def d_rows(torch, seed: int, i: int, mloc: int, n: int, dev, shift: float = 0.0):
+    """Rank i's rows of a seeded Gaussian (block i from seed + i), plus
+    ``shift`` on the global diagonal: the full matrix is the blocks in order."""
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + i)
+    a = torch.randn(mloc, n, generator=g, dtype=torch.float32, device=dev)
+    if shift:
+        r = torch.arange(mloc, device=dev)
+        cols = r + i * mloc
+        keep = cols < n
+        a[r[keep], cols[keep]] += shift
+    return a
+
+
+def d_full(torch, seed, P, mloc, n, dev, shift=0.0):
+    return torch.cat([d_rows(torch, seed, j, mloc, n, dev, shift) for j in range(P)])
+
+
+def d_say(mesh, line: str) -> None:
+    if mesh.get_local_rank(0) == 0:
+        say(f"  [dist] {line}")
+
+
+def on_rank0(torch, mesh, fn):
+    """(fn(), seconds) on rank 0 only (None, 0.0 elsewhere): a single-device
+    counterpart, run while the other ranks wait."""
+    if mesh.get_local_rank(0):
+        return None, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dist_rank(mesh, smi: str, sizes: dict):
+    """Rank body of the distributed phases at ``sizes``.  Each phase times
+    only its distributed call (barrier to barrier), then checks the gates
+    and the single-device function on the same input (rank 0, also timed).
+    Returns {phase: this rank's launch counts of the call, its seconds, the
+    operations that went through host memory}."""
+    import torch
+    import cuda_qr_tpu_torch as ct
+    from cuda_qr_tpu_torch.parallel import collectives
+    from cuda_qr_tpu_torch.parallel.caqr import caqr_factor, caqr_ormqr
+    from cuda_qr_tpu_torch.parallel.collectives import gather_rows, psum
+    from cuda_qr_tpu_torch.parallel.dryrun import crash_and_resume
+    from cuda_qr_tpu_torch.parallel.mesh import as_row_sharded, mesh_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh_device(mesh)
+    P, i = mesh.size(0), mesh.get_local_rank(0)
+    eps = float(torch.finfo(torch.float32).eps)
+    cfg = ct.DEFAULT_CONFIG
+    out = {}
+
+    def phase(name, call, check):
+        """Time call() with this rank's counts set to 0 just before and read
+        just after; then check(result) gives the phase's line (rank 0
+        prints it)."""
+        reset_counts(torch)
+        collectives.host_hops.clear()
+        res, sec = d_timed(torch, call)
+        out[name] = {"counts": read_counts(), "seconds": sec, "hops": dict(collectives.host_hops)}
+        line = check(res)
+        del res
+        torch.cuda.empty_cache()   # the ranks share the card: give back what is free
+        d_say(mesh, f"{line}; {sec:.3f} s (P={P} ranks on one card, {smi})")
+
+    # -- tsqr_dist at BASELINE config 3, every strategy, then cholqr2 leaves
+    m, n = sizes["tsqr"]
+    mloc = m // P
+    a = d_rows(torch, 14, i, mloc, n, dev)
+    A = as_row_sharded(a, mesh, m)
+    R1, t1 = on_rank0(torch, mesh, lambda: ct.tsqr(d_full(torch, 14, P, mloc, n, dev), cfg)[1])
+    for strategy, leaf in (("allgather", "householder"), ("butterfly", "householder"),
+                           ("cholesky", "householder"), ("allgather", "cholqr2")):
+        def check(res, strategy=strategy, leaf=leaf):
+            Q, R = res
+            g = d_qr_gates(torch, f"tsqr_dist {strategy}/{leaf}", a, Q.to_local(), R, mesh)
+            e = r_err(torch, R, R1) if i == 0 else 0.0
+            require(e < TOL32, f"tsqr_dist {strategy}/{leaf}: R vs tsqr's {e}")
+            return (f"tsqr_dist {m}x{n} f32 {strategy}, {leaf} leaves: residual "
+                    f"{g['residual']:.3e}, orthogonality {g['orthogonality']:.3e}, R vs "
+                    f"single-device tsqr {e:.2e} (< {TOL32:g}; tsqr {t1:.3f} s first call)")
+        phase(f"tsqr_dist-{strategy}-{leaf}",
+              lambda strategy=strategy, leaf=leaf: ct.tsqr_dist(
+                  A, mesh, cfg.replace(tsqr_leaf=leaf), strategy=strategy), check)
+    del a, A, R1
+
+    # -- caqr at scale: bk combine, block layout (BASELINE config 5, cut)
+    nc = sizes["caqr"]
+    mloc = nc // P
+    shift = 3.0 * nc ** 0.5        # Gaussian + 3 sqrt(n) I: cond <= 5
+    a = d_rows(torch, 50, i, mloc, nc, dev, shift)
+
+    def check_caqr(res):
+        Q, R = res
+        g = d_qr_gates(torch, f"caqr {nc}^2", a, Q.to_local(), R, mesh)
+        del Q
+        torch.cuda.empty_cache()
+        R1, t1 = on_rank0(torch, mesh, lambda: ct.qr(d_full(torch, 50, P, mloc, nc, dev, shift),
+                                                     cfg, mode="r"))
+        e = r_err(torch, R, R1) if i == 0 else 0.0
+        require(e < nc * eps, f"caqr {nc}^2: R vs qr's {e}")
+        return (f"caqr {nc}^2 f32 bk block: residual {g['residual']:.3e} (< {nc * eps:.3e}), "
+                f"orthogonality {g['orthogonality']:.3e} (< {4 * nc * eps:.3e}), R vs "
+                f"single-device qr {e:.2e} (< {nc * eps:.2e}; qr mode='r' {t1:.3f} s)")
+    phase("caqr", lambda: ct.caqr(as_row_sharded(a, mesh, nc), mesh, cfg), check_caqr)
+    del a
+
+    # -- the variants at 8192^2: combines, layouts, caqr_r, ormqr, resume
+    nv = sizes["variants"]
+    mloc = nv // P
+    shift = 3.0 * nv ** 0.5
+    a = d_rows(torch, 51, i, mloc, nv, dev, shift)
+    A = as_row_sharded(a, mesh, nv)
+    R1, t1 = on_rank0(torch, mesh, lambda: ct.qr(d_full(torch, 51, P, mloc, nv, dev, shift),
+                                                 cfg, mode="r"))
+
+    def vs_qr(name, R):
+        e = r_err(torch, R, R1) if i == 0 else 0.0
+        require(e < nv * eps, f"{name}: R vs qr's {e}")
+        return f"R vs single-device qr {e:.2e} (< {nv * eps:.2e}; qr mode='r' {t1:.3f} s)"
+
+    for layout, combine in (("block", "allgather"), ("cyclic", "bk")):
+        def check(res, layout=layout, combine=combine):
+            Q, R = res
+            g = d_qr_gates(torch, f"caqr {combine} {layout}", a, Q.to_local(), R, mesh)
+            return (f"caqr {nv}^2 f32 {combine} {layout}: residual {g['residual']:.3e}, "
+                    f"orthogonality {g['orthogonality']:.3e}, {vs_qr(combine, R)}")
+        phase(f"caqr-{combine}-{layout}",
+              lambda layout=layout, combine=combine: ct.caqr(A, mesh, cfg, layout=layout,
+                                                             combine=combine), check)
+    phase("caqr_r", lambda: ct.caqr_r(A, mesh, cfg),
+          lambda R: f"caqr_r {nv}^2 f32 bk: {vs_qr('caqr_r', R)}")
+    anorm = d_norm(torch, a, mesh)
+    lo, hi = i * mloc, (i + 1) * mloc
+    for combine in ("bk", "allgather"):
+        fac, R = caqr_factor(A, mesh, cfg, combine=combine)
+        top = torch.zeros_like(a)
+        top[:] = R[lo:hi]                  # [R; 0]: R fills every row of a square A
+
+        def round_trip(fac=fac, top=top):
+            QtA = caqr_ormqr(fac, A, mesh, cfg, transpose=True)
+            return QtA, caqr_ormqr(fac, as_row_sharded(top, mesh, nv), mesh, cfg,
+                                   transpose=False)
+
+        def check(res, combine=combine, top=top):
+            QtA, QR = res
+            e_r = d_norm(torch, torch.triu(QtA.to_local(), lo) - top, mesh) / anorm
+            e_a = d_norm(torch, QR.to_local() - a, mesh) / anorm
+            require(e_r < nv * eps and e_a < nv * eps, f"ormqr {combine}: {e_r}, {e_a}")
+            return (f"caqr_ormqr {nv}^2 {combine}, Q^T A then Q [R; 0]: ||Q^T A - R||/||A|| "
+                    f"{e_r:.3e}, ||Q [R; 0] - A||/||A|| {e_a:.3e} (< {nv * eps:.3e})")
+        phase(f"ormqr-{combine}", round_trip, check)
+        del fac, R, top
+
+    def check_resume(res):
+        snaps, files, (_, R_r), (_, R_m) = res
+        e = float((R_r - R_m).abs().max() / R_m.abs().max())
+        require(snaps and snaps[-1] == 8 and len(files) == 8 and e < TOL32,
+                f"resume: snapshots {snaps}, files {len(files)}, R diff {e}")
+        return (f"caqr_factor_resumable {nv}^2 bk, crash after 8 panels (snapshots every 4), "
+                f"resume, then caqr_factor: snapshot before panel {snaps[-1]}, {len(files)} "
+                f"panel files on this rank, resumed R vs caqr_factor's {e:.1e}, "
+                f"{vs_qr('resume', R_r)}")
+    phase("resume", lambda: crash_and_resume(mesh, A, cfg, "block", "bk", crash_after=8,
+                                             every=4, path=sizes["checkpoint_dir"]),
+          check_resume)
+    del a, A, R1
+
+    # -- lstsq_dist at BASELINE config 4
+    ml, nl = sizes["lstsq"]
+    mloc = ml // P
+    a = d_rows(torch, 52, i, mloc, nl, dev)
+    b = d_rows(torch, 53, i, mloc, 1, dev)[:, 0]
+
+    def check_lstsq(res):
+        want, t1 = on_rank0(torch, mesh, lambda: ct.lstsq(
+            d_full(torch, 52, P, mloc, nl, dev), d_full(torch, 53, P, mloc, 1, dev)[:, 0], cfg))
+        ex = er = 0.0
+        if i == 0:
+            ex = float((res.x - want.x).norm() / want.x.norm())
+            er = abs(float(res.residual_norm - want.residual_norm)) / float(want.residual_norm)
+        require(ex < nl * eps and er < nl * eps, f"lstsq_dist vs lstsq: {ex}, {er}")
+        return (f"lstsq_dist {ml}x{nl} f32: x vs single-device lstsq {ex:.3e}, residual norm "
+                f"{er:.3e} (< {nl * eps:.3e}; lstsq {t1:.3f} s first call)")
+    phase("lstsq_dist", lambda: ct.lstsq_dist(as_row_sharded(a, mesh, ml),
+                                              as_row_sharded(b, mesh, ml), mesh, cfg),
+          check_lstsq)
+    del a, b
+
+    # -- polar_dist and svd_dist
+    mp, np_ = sizes["polar"]
+    mloc = mp // P
+    a = d_rows(torch, 54, i, mloc, np_, dev)
+    A = as_row_sharded(a, mesh, mp)
+    Af = d_full(torch, 54, P, mloc, np_, dev) if i == 0 else None
+
+    def check_polar(res):
+        U, H = res
+        ou = d_orth(torch, U.to_local(), mesh)
+        rel = d_norm(torch, a - U.to_local() @ H, mesh) / d_norm(torch, a, mesh)
+        one, t1 = on_rank0(torch, mesh, lambda: ct.polar(Af, config=cfg))
+        eu = 0.0
+        if i == 0:
+            eu = max(float((U.to_local() - one[0][:mloc]).abs().max()),
+                     float((H - one[1]).abs().max() / one[1].abs().max()))
+        require(ou < 4 * np_ * eps and rel < np_ * eps and eu < np_ * eps,
+                f"polar_dist: {ou}, {rel}, {eu}")
+        return (f"polar_dist {mp}x{np_} f32: ||U^T U - I|| {ou:.3e} (< {4 * np_ * eps:.3e}), "
+                f"||A - U H||/||A|| {rel:.3e} (< {np_ * eps:.3e}), U, H vs single-device polar "
+                f"{eu:.2e} (polar {t1:.3f} s first call)")
+    phase("polar_dist", lambda: ct.polar_dist(A, mesh, config=cfg), check_polar)
+
+    def check_svd(res):
+        U, s, Vh = res
+        rel = d_norm(torch, a - (U.to_local() * s) @ Vh, mesh) / d_norm(torch, a, mesh)
+        ou = d_orth(torch, U.to_local(), mesh)
+        one, t1 = on_rank0(torch, mesh, lambda: ct.svd(Af, config=cfg))
+        es = float((s - one[1]).abs().max() / one[1][0]) if i == 0 else 0.0
+        require(rel < np_ * eps and ou < 16 * np_ * eps and es < np_ * eps,
+                f"svd_dist: {rel}, {ou}, {es}")
+        return (f"svd_dist {mp}x{np_} f32: residual {rel:.3e}, ||U^T U - I|| {ou:.3e}, s vs "
+                f"single-device svd {es:.2e} (< {np_ * eps:.2e}; svd {t1:.3f} s first call)")
+    phase("svd_dist", lambda: ct.svd_dist(A, mesh, config=cfg), check_svd)
+    del a, A, Af
+
+    # -- rsvd_dist and eigh_rand_dist on known spectra (phase_rsvd's inputs)
+    mr, nr, k, p, it = sizes["rsvd"]
+    mloc = mr // P
+    sig = DECAY ** torch.arange(nr, dtype=torch.float64, device=dev)
+    Afull = ((haar(torch, mr, nr, 30, dev) * sig) @ haar(torch, nr, nr, 31, dev).T).float()
+    a = Afull[i * mloc:(i + 1) * mloc].clone()
+    if i:
+        del Afull
+        Afull = None
+
+    def check_rsvd(res):
+        U, s, Vt = res
+        E = a.double() - (U.to_local().double() * s.double()) @ Vt.double()
+        err2 = float(torch.linalg.eigvalsh(psum(E.T @ E, mesh))[-1].clamp_min(0).sqrt())
+        es = float(((s.double() - sig[:k]).abs() / (1e-3 * sig[:k] + 50 * eps)).max())
+        one, t1 = on_rank0(torch, mesh, lambda: ct.rsvd(Afull, k, p, it, config=cfg))
+        e1 = float((s - one[1]).abs().max() / one[1][0]) if i == 0 else 0.0
+        require(err2 < 3 * float(sig[k]) and es < 1 and e1 < 50 * (k + p) * eps,
+                f"rsvd_dist: {err2}, {es}, {e1}")
+        return (f"rsvd_dist {mr}x{nr} k={k} p={p} n_iter={it}: ||A - U S V^T||_2 {err2:.3e} "
+                f"(< 3 sigma_{k + 1} = {3 * float(sig[k]):.3e}), s vs sigma {es:.3f} (< 1), s vs "
+                f"single-device rsvd {e1:.2e} (< {50 * (k + p) * eps:.2e}; rsvd {t1:.3f} s "
+                f"first call)")
+    phase("rsvd_dist", lambda: ct.rsvd_dist(as_row_sharded(a, mesh, mr), k, mesh, p, it,
+                                            config=cfg), check_rsvd)
+    del a, Afull
+
+    ne, ke, pe, ite = sizes["eigh_rand"]
+    mloc = ne // P
+    w_true = (DECAY ** torch.arange(ne, dtype=torch.float64, device=dev)
+              * (1 - 2 * (torch.arange(ne, device=dev) % 2)))
+    Ve = haar(torch, ne, ne, 34, dev)
+    S = (Ve * w_true) @ Ve.T
+    S = ((S + S.T) * 0.5).float()
+    del Ve
+    s_loc = S[i * mloc:(i + 1) * mloc].clone()
+
+    def check_eigh_rand(res):
+        w, V = res
+        V_all = gather_rows(V, mesh).double()
+        errf = d_norm(torch, s_loc.double() - (V.to_local().double() * w.double()) @ V_all.T,
+                      mesh)
+        tailf = float(w_true[ke:].norm())
+        we = float(((w.double() - w_true[:ke]).abs()
+                    / (1e-3 * w_true[:ke].abs() + 50 * eps)).max())
+        ov = d_orth(torch, V.to_local(), mesh)
+        one, t1 = on_rank0(torch, mesh, lambda: ct.eigh_rand(S, ke, pe, ite, config=cfg))
+        e1 = float((w - one[0]).abs().max() / one[0].abs().max()) if i == 0 else 0.0
+        require(errf < 1.5 * tailf and we < 1 and ov < 16 * (ke + pe) * eps
+                and e1 < 50 * (ke + pe) * eps, f"eigh_rand_dist: {errf}, {we}, {ov}, {e1}")
+        return (f"eigh_rand_dist {ne}^2 k={ke} p={pe} n_iter={ite}: ||S - V W V^T||_F "
+                f"{errf:.3e} (< 1.5 x the tail's {tailf:.3e}), w vs w_true {we:.3f} (< 1), "
+                f"||V^T V - I|| {ov:.3e}, w vs single-device eigh_rand {e1:.2e} (eigh_rand "
+                f"{t1:.3f} s first call)")
+    phase("eigh_rand_dist", lambda: ct.eigh_rand_dist(as_row_sharded(s_loc, mesh, ne), ke, mesh,
+                                                      pe, ite, config=cfg), check_eigh_rand)
+    return out
+
+
+def dist_nccl_rank(mesh, smi: str, n: int):
+    """Rank body of the NCCL run: caqr at n^2 on this rank's own card."""
+    import torch
+    import torch.distributed as dist
+    import cuda_qr_tpu_torch as ct
+    from cuda_qr_tpu_torch.parallel.mesh import as_row_sharded, mesh_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh_device(mesh)
+    P, i = mesh.size(0), mesh.get_local_rank(0)
+    eps = float(torch.finfo(torch.float32).eps)
+    cfg = ct.DEFAULT_CONFIG
+    mloc, shift = n // P, 3.0 * n ** 0.5
+    a = d_rows(torch, 51, i, mloc, n, dev, shift)
+    reset_counts(torch)
+    (Q, R), sec = d_timed(torch, lambda: ct.caqr(as_row_sharded(a, mesh, n), mesh, cfg))
+    counts = read_counts()
+    g = d_qr_gates(torch, f"caqr {n}^2 over NCCL", a, Q.to_local(), R, mesh)
+    e = r_err(torch, R, ct.qr(d_full(torch, 51, P, mloc, n, dev, shift), cfg, mode="r")) \
+        if i == 0 else 0.0
+    require(e < n * eps, f"caqr over NCCL: R vs qr's {e}")
+    d_say(mesh, f"caqr {n}^2 f32 bk block over {dist.get_backend()}, P={P}: residual "
+          f"{g['residual']:.3e}, orthogonality {g['orthogonality']:.3e}, R vs single-device qr "
+          f"{e:.2e}; {sec:.3f} s ({smi})")
+    return {"backend": dist.get_backend(), "counts": counts, "seconds": sec}
+
+
+def phase_dist(torch, smi):
+    """The distributed path: one spawn of P_DIST ranks runs every phase of
+    ``dist_rank``, then one rank over NCCL runs caqr.  Prints each phase's
+    launches summed over the ranks and per rank, and which operations went
+    through host memory; returns the path's counts summed over ranks."""
+    import tempfile
+    from cuda_qr_tpu_torch.parallel.launch import run_ranks
+    from cuda_qr_tpu_torch.parallel.mesh import backend_for
+    torch.cuda.empty_cache()
+    P = P_DIST
+    shared = P > torch.cuda.device_count()
+    say(f"distributed path: P={P} ranks, backend {backend_for(P, 'cuda')}"
+        f"{', ranks share one card' if shared else ''}; collective timeout 60 s")
+    with tempfile.TemporaryDirectory(prefix="cqt_ckpt_") as ck:
+        ranks = run_ranks(P, dist_rank, smi, {**DIST_SIZES, "checkpoint_dir": ck},
+                          join_timeout=DIST_JOIN_S)
+    total = {}
+    for name in ranks[0]:
+        per = [r[name]["counts"] for r in ranks]
+        summed = {}
+        for c in per:
+            add_counts(summed, c)
+        add_counts(total, summed)
+        hops = {}
+        for r in ranks:
+            add_counts(hops, r[name]["hops"])
+        say(f"  dist {name}: {counts_str(summed)} (over ranks); per rank geqrt "
+            f"{[c['geqrt'] for c in per]}, geqrt_batched {[c['geqrt_batched'] for c in per]}, "
+            f"chol_inv {[c['chol_inv'] for c in per]}; through host memory: "
+            f"{', '.join(f'{op} x{k}' for op, k in hops.items()) or 'none'}; "
+            f"{ranks[0][name]['seconds']:.3f} s")
+        if name == "caqr":
+            require(all(c["geqrt"] > 0 for c in per), "caqr: a rank launched no geqrt kernel")
+        if name.startswith("tsqr_dist"):
+            kernel = "chol_inv" if name.endswith("cholqr2") else "geqrt_batched"
+            require(all(c[kernel] > 0 for c in per), f"{name}: a rank launched no {kernel}")
+    nccl = run_ranks(1, dist_nccl_rank, smi, N_NCCL, join_timeout=DIST_JOIN_S)[0]
+    require(nccl["backend"] == "nccl", f"the one-rank run took {nccl['backend']}, not NCCL")
+    require(nccl["counts"]["geqrt"] > 0, "caqr over NCCL launched no geqrt kernel")
+    add_counts(total, nccl["counts"])
+    say(f"  dist caqr over NCCL (P=1): {counts_str(nccl['counts'])}; {nccl['seconds']:.3f} s")
+    return total
+
+
 def gate(name, chk) -> None:
     say(f"{name}: residual {chk.residual:.3e} (< {chk.n * chk.eps:.3e}), "
         f"orthogonality {chk.orthogonality:.3e} (< {4 * chk.n * chk.eps:.3e}), "
@@ -1117,12 +1584,16 @@ def main() -> int:
                "rsvd": phase_rsvd(torch, np, ct, cfg, dev, smi),
                "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
                "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
+
+    # ---- the distributed path (launches summed over its ranks)
+    by_path["dist"] = phase_dist(torch, smi)
     for name, path_counts in by_path.items():
         say(f"path {name}: {counts_str({'host_syncs': '-', **path_counts})}")
     for kernel in launches:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
     for name, needs in (("rsvd", ("geqrt_batched", "select_pivots")),
-                        ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",))):
+                        ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",)),
+                        ("dist", ("chol_inv", "geqrt", "geqrt_batched"))):
         for kernel in needs:
             if by_path[name][kernel] == 0:
                 raise AssertionError(f"path {name} launched no {kernel} kernel")

@@ -12,18 +12,24 @@ factorization.  With z solving A^T A z = xbar and rhat the unit residual:
   Abar = r z^T - (A z) x^T - rhat diag(rhobar) x^T
 (the A dx term of d||r|| vanishes because A^T r = 0 at the solution).
 
-The distributed ``lstsq_dist`` is not ported yet (ROADMAP.md, Queue A).
+``lstsq_dist`` is the distributed counterpart over the row mesh (BASELINE
+config 4 at mesh scale), through the R-only CAQR of [A | b].
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from ..ops.blocked import _require_real, as_tensor, extract_r, ormqr, qr_blocked
+from ..parallel.mesh import as_row_sharded, shard_rows
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
+from .caqr import caqr_r
 
 
 class LstsqResult(NamedTuple):
@@ -105,3 +111,39 @@ def solve(A, b, config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
     if m != n:
         raise QRShapeError(f"solve requires square A, got {m}x{n}")
     return lstsq(A, b, config).x
+
+
+def lstsq_dist(A, b, mesh, config: QRConfig = DEFAULT_CONFIG,
+               combine: str = "bk") -> LstsqResult:
+    """Distributed least squares over the row mesh, min ||A x - b||, called
+    by every rank; x and the residual norms come back replicated.
+
+    Augmented-matrix CAQR: one R-only factorization of [A | b] gives
+    R_aug = [[R, Q^T b], [0, rho]], so x = R^{-1} R_aug[:n, n:] and the
+    residual norm of each right-hand side is a column norm of the rho
+    block; b never moves between ranks.  (Both are invariant to R's
+    row-sign ambiguity.)  A (m x n, m >= n, full rank) and b ((m,) or
+    (m, k)) are full arrays on every rank, or row-sharded DTensors.
+    """
+    m, n = A.shape
+    vec = len(b.shape) == 1
+    if b.shape[0] != m:
+        raise QRShapeError(f"b rows {b.shape[0]} != A rows {m}")
+    if isinstance(A, DTensor) or isinstance(b, DTensor):
+        a, _ = shard_rows(A, mesh)
+        bl, _ = shard_rows(b, mesh)
+        aug = as_row_sharded(torch.cat([a, (bl[:, None] if vec else bl).to(a.dtype)], 1),
+                             mesh, m)
+    elif isinstance(A, torch.Tensor):
+        B = torch.as_tensor(b, device=A.device)
+        aug = torch.cat([A, (B[:, None] if vec else B).to(A.dtype)], 1)
+    else:
+        A, B = np.asarray(A), np.asarray(b)
+        aug = np.concatenate([A, (B[:, None] if vec else B).astype(A.dtype)], 1)
+    Raug = caqr_r(aug, mesh, config, combine=combine)
+    R, Z = Raug[:n, :n], Raug[:n, n:]
+    x = torch.linalg.solve_triangular(R, Z, upper=True)
+    resid = torch.linalg.norm(Raug[n:, n:], dim=0)
+    if vec:
+        return LstsqResult(x[:, 0], resid[0])
+    return LstsqResult(x, resid)

@@ -24,9 +24,8 @@ Both are algebraically X (aI + b X^T X)(I + c X^T X)^{-1}; the QR form is
 inverse-free and stable for the huge early c_k, the Cholesky form costs
 about half once c_k is O(1).
 
-Real input only.  The distributed ``polar_dist`` and ``svd_dist`` of the
-reference are not ported yet: they wait for the distributed layer
-(ROADMAP.md, Queue A).
+Real input only.  ``polar_dist`` and ``svd_dist`` run the same iteration on
+a row-sharded matrix over the row mesh (``parallel/``).
 """
 
 from __future__ import annotations
@@ -36,10 +35,14 @@ import math
 import numpy as np
 import torch
 
-from ..ops.blocked import as_real_matrix
+from ..ops.blocked import _require_real, as_real_matrix
 from ..ops.chol_kernel import supported
-from ..ops.smalllinalg import _eye, chol_with_inv_auto, library_eigh
+from ..ops.smalllinalg import _eye, chol_with_inv_auto, cholesky_with_inv, library_eigh
+from ..parallel.collectives import pmax, psum
+from ..parallel.mesh import as_row_sharded, shard_rows
+from ..parallel.tsqr_dist import _small_qr_q, _tsqr_dist_local
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
 from .qr import qr
 from .tsqr import tsqr
@@ -293,3 +296,99 @@ def _form_h(U, A, side: str, config: QRConfig) -> torch.Tensor:
     with matmul_precision(config.precision):
         Hm = U.T @ A if side == "right" else A @ U.T
     return (Hm + Hm.T) * 0.5
+
+
+def _prep_dist(a: torch.Tensor, mesh) -> torch.Tensor:
+    """``_prep`` of a row-sharded A (a: this rank's rows): alpha from the
+    all-reduced column sums and the largest row sum over the ranks."""
+    absA = a.abs()
+    alpha = torch.sqrt(psum(absA.sum(0), mesh).max() * pmax(absA.sum(1).max(), mesh))
+    alpha = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
+    return a / alpha
+
+
+def _qdwh_dist(X: torch.Tensor, schedule, mesh, config: QRConfig, strategy: str):
+    """The QDWH schedule on a row-sharded X (this rank's rows).  QR step:
+    X = Q_d R_d by ``tsqr_dist``, then the small replicated stack
+    [sqrt(c) R_d; I] = [Q1; Q2] R2, so the Halley update is one rank-local
+    GEMM Q_d (Q1 Q2^T).  Cholesky step: one all_reduce of X^T X and the
+    plain ``cholesky_with_inv``, as the reference's distributed iteration."""
+    n = X.shape[1]
+    eye = _eye(n, X)
+    for a, b, c, use_qr in schedule:
+        a, b, c = float(a), float(b), float(c)
+        bc = b / c
+        if use_qr:
+            sc = math.sqrt(c)
+            Qd, Rd = _tsqr_dist_local(X, mesh, config, strategy)
+            with matmul_precision(config.precision):
+                Qs, _ = _small_qr_q(torch.cat([sc * Rd, eye], 0), config)
+                X = bc * X + ((a - bc) / sc) * (Qd @ (Qs[:n] @ Qs[n:].T))
+        else:
+            with matmul_precision(config.precision):
+                Z = eye + c * psum(X.T @ X, mesh)
+                _, Li = cholesky_with_inv(Z)
+                X = bc * X + (a - bc) * ((X @ Li.T) @ Li)
+    return X
+
+
+def polar_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONFIG,
+               strategy: str | None = None, max_iter: int = 24):
+    """Distributed QDWH polar decomposition of a row-sharded tall matrix,
+    called by every rank: A = U H with U (m x n, orthonormal columns) a
+    row-sharded DTensor and H (n x n symmetric PSD) replicated.
+
+    The QR steps factor X with ``tsqr_dist`` (``strategy``, default
+    "allgather": the unconditionally stable combine, since early iterates
+    have cond up to 1/l0) and the replicated (2n x n) stack; the Cholesky
+    steps all-reduce the Gram; H = U^T A is one all-reduced GEMM.  A: the
+    full matrix on every rank or a row-sharded DTensor; m >= n, m % P == 0.
+    """
+    if len(A.shape) != 2:
+        raise QRShapeError(f"polar_dist needs a 2-D matrix, got {tuple(A.shape)}")
+    m, n = A.shape
+    P = mesh.size(0)
+    if m < n:
+        raise QRShapeError(f"polar_dist needs a tall matrix (m >= n), got {m}x{n}; "
+                           "transpose on the host for the wide case")
+    if m % P:
+        raise QRShapeError(f"polar_dist needs m % P == 0, got m={m} P={P}")
+    a, _ = shard_rows(A, mesh)
+    _require_real(a)
+    dt = a.dtype
+    if config.dtype != dt:
+        config = config.replace(dtype=dt)
+    eps = float(torch.finfo(_real_dtype(dt)).eps)
+    if l0 is None:
+        l0 = eps / 10.0
+    schedule = _qdwh_schedule(l0 / (m * n) ** 0.25, eps, max_iter)
+    U = _qdwh_dist(_prep_dist(a, mesh), schedule, mesh, config, strategy or "allgather")
+    with matmul_precision(config.precision):
+        Hm = psum(U.T @ a, mesh)
+    return as_row_sharded(U, mesh, m), (Hm + Hm.T) * 0.5
+
+
+def svd_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONFIG,
+             strategy: str | None = None, eigh_impl: str = "torch", max_iter: int = 24):
+    """Distributed SVD of a row-sharded tall matrix via QDWH, called by
+    every rank: A = U diag(s) V^T with U (m x n) a row-sharded DTensor, s
+    descending and V^T (n x n) replicated.
+
+    The polar factor comes from ``polar_dist`` (its only collectives), the
+    replicated n x n factor H is diagonalized on every rank (``eigh_impl``
+    as in ``svd``), and U = U_polar V is one rank-local GEMM.  No
+    ``full_matrices``: a distributed complement of range(A) is all
+    communication.
+    """
+    if len(A.shape) != 2:
+        raise QRShapeError(f"svd_dist needs a 2-D matrix, got {tuple(A.shape)}")
+    if eigh_impl not in EIGH_IMPLS:
+        raise ValueError(f"eigh_impl must be one of {EIGH_IMPLS}, got {eigh_impl!r}")
+    Up, H = polar_dist(A, mesh, l0=l0, config=config, strategy=strategy, max_iter=max_iter)
+    if eigh_impl == "qdwh":
+        from .eigh import eigh
+        w, V = eigh(H, config.replace(dtype=H.dtype))
+    else:
+        w, V = library_eigh(H)                      # ascending
+    U, s, Vh = _svd_finish(Up.to_local(), w, V, config)
+    return as_row_sharded(U, mesh, A.shape[0]), s, Vh

@@ -19,16 +19,19 @@ numbers torch cannot reproduce; here ``generator`` (default: seeded 12 on
 the input's device) takes the key's place, and ``omega`` hands the sketch in
 directly, which is how the two packages are compared on one input.
 
-The distributed ``rsvd_dist`` and ``eigh_rand_dist`` of the reference are
-not ported yet: they wait for the distributed layer (ROADMAP.md, Queue A).
+``rsvd_dist`` and ``eigh_rand_dist`` run the same range finders over the
+row mesh (``parallel/``), their sketches shared from rank 0.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.blocked import as_real_matrix, orgqr
+from ..ops.blocked import _require_real, as_real_matrix, orgqr
 from ..ops.smalllinalg import library_eigh
+from ..parallel.collectives import broadcast, coord, psum
+from ..parallel.mesh import as_row_sharded, shard_rows
+from ..parallel.tsqr_dist import _tsqr_dist_local
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
 from .qr import qr
@@ -206,3 +209,88 @@ def cond_est(A, n_iter: int = 12, generator: torch.Generator | None = None,
     # one (R^-1 R^-T) application grows vectors by sigma_min^{-2}
     smin = 1.0 / torch.sqrt(_growth(apply_inv(X), X))
     return smax / smin
+
+
+def _dist_setup(A, k: int, name: str, mesh, config: QRConfig, square: bool):
+    """(this rank's rows of A in the working dtype, m, config) for the
+    distributed range finders."""
+    m, n = A.shape
+    if square and m != n:
+        raise QRShapeError(f"{name} needs a square matrix, got {tuple(A.shape)}")
+    if not 1 <= k <= min(m, n):
+        raise QRShapeError(f"rank k must be in [1, {min(m, n)}], got {k}")
+    if m % mesh.size(0):
+        raise QRShapeError(f"{name} needs m % P == 0; got {m} rows on {mesh.size(0)} shards")
+    a, _ = shard_rows(A, mesh)
+    _require_real(a)
+    if a.dtype == torch.float64:
+        # float64 keeps its precision, as the single-device functions do
+        config = config.replace(dtype=torch.float64)
+    return a.to(config.dtype), m, config
+
+
+def _shared_sketch(shape, a, generator, omega, mesh) -> torch.Tensor:
+    """The sketch, the same on every rank: rank 0's draw (or ``omega``)
+    broadcast to all."""
+    return broadcast(_sketch(shape, a, generator, omega), mesh)
+
+
+def rsvd_dist(A, k: int, mesh, p: int = 8, n_iter: int = 2,
+              generator: torch.Generator | None = None,
+              config: QRConfig = DEFAULT_CONFIG, omega=None):
+    """Distributed randomized rank-k SVD of a row-sharded tall matrix,
+    called by every rank.  Returns (U (m x k) row-sharded DTensor, s (k,),
+    Vt (k x n)), the last two replicated.
+
+    ``rsvd``'s algorithm with the tall factors on the mesh: the sketch and
+    projection GEMMs are rank-local, the thin QRs of tall blocks go through
+    ``tsqr_dist`` (CholeskyQR2 combine), and the small n x ell
+    intermediates are all-reduced; no row of A crosses between ranks.
+    Needs m % P == 0.  The (n x ell) sketch is rank 0's (``generator`` or
+    ``omega``), broadcast.
+    """
+    m, n = A.shape
+    ell = min(k + p, min(m, n))
+    a, m, config = _dist_setup(A, k, "rsvd_dist", mesh, config, square=False)
+    Om = _shared_sketch((n, ell), a, generator, omega, mesh)
+    Q = _tsqr_dist_local(_mm(a, Om, config), mesh, config, "cholesky")[0]
+    for _ in range(n_iter):
+        Z = qr(psum(_mm(a.T, Q, config), mesh), config, mode="reduced")[0]   # replicated
+        Q = _tsqr_dist_local(_mm(a, Z, config), mesh, config, "cholesky")[0]
+    B = psum(_mm(a.T, Q, config), mesh).T               # (ell x n) = Q^T A
+    Ub, s, Vt = torch.linalg.svd(B, full_matrices=False)
+    U = _mm(Q, Ub, config)
+    return as_row_sharded(U[:, :k], mesh, m), s[:k], Vt[:k]
+
+
+def eigh_rand_dist(A, k: int, mesh, p: int = 8, n_iter: int = 2,
+                   generator: torch.Generator | None = None,
+                   config: QRConfig = DEFAULT_CONFIG, omega=None):
+    """Distributed randomized rank-k eigendecomposition of a row-sharded
+    symmetric A (m x m, m % P == 0), called by every rank.  Returns
+    (w (k,) replicated, V (m x k) row-sharded DTensor), by descending |w|.
+
+    The communication of ``rsvd_dist``: rank-local sketch GEMMs, thin QRs
+    through ``tsqr_dist``, and all-reduced (m x ell) and (ell x ell)
+    intermediates.  Symmetry makes the all-reduced A^T Q the next
+    application of A.  The (m x ell) sketch is rank 0's, broadcast.
+    """
+    m = A.shape[0]
+    ell = min(k + p, m)
+    a, m, config = _dist_setup(A, k, "eigh_rand_dist", mesh, config, square=True)
+    mloc, i = a.shape[0], coord(mesh)
+
+    def mine(W):                                        # this rank's rows
+        return W[i * mloc:(i + 1) * mloc]
+
+    Om = _shared_sketch((m, ell), a, generator, omega, mesh)
+    Q = _tsqr_dist_local(_mm(a, Om, config), mesh, config, "cholesky")[0]
+    for _ in range(n_iter):
+        W = psum(_mm(a.T, Q, config), mesh)             # = A Q (A symmetric)
+        Q = _tsqr_dist_local(mine(W), mesh, config, "cholesky")[0]
+    AQ = mine(psum(_mm(a.T, Q, config), mesh))          # (m x ell), my rows
+    T = psum(_mm(Q.T, AQ, config), mesh)                # (ell x ell) Rayleigh quotient
+    T = 0.5 * (T + T.T)
+    w, S = library_eigh(T)                              # ascending
+    order = torch.argsort(-w.abs(), stable=True)[:k]
+    return w[order], as_row_sharded(_mm(Q, S[:, order], config), mesh, m)

@@ -34,13 +34,14 @@ from ..utils.geometry import ceildiv
 from .qr import ThinQRFunction
 
 
-def _geqrt(A: torch.Tensor, config: QRConfig):
-    """geqr2 + larft of one (b, n) block, or of every block of a stack
-    (L, b, n) at once: on the geqrt kernel (its batch grid for a stack) when
-    eligible, else the plain version."""
+def _geqrt(A: torch.Tensor, config: QRConfig, off: int = 0):
+    """geqr2 + larft of rows >= off of one (b, n) block (a column slice is
+    read in place), or of every block of a stack (L, b, n) at once: on the
+    geqrt kernel (its batch grid for a stack) when eligible, else the plain
+    version."""
     if config.use_kernels and supported(A.shape, A.dtype):
-        return (geqrt_base if A.dim() == 2 else geqrt_batched)(A, 0)
-    return geqrt_batched_plain(A, 0)
+        return (geqrt_base if A.dim() == 2 else geqrt_batched)(A, off)
+    return geqrt_batched_plain(A, off)
 
 
 def _batched_qr(blocks: torch.Tensor, config: QRConfig):

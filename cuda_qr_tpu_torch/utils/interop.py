@@ -3,7 +3,8 @@
 A QR library has no weights; its state is the packed factorization and the
 configuration that produced it.  These helpers let a caller factor with the
 JAX package, carry the factors over as numpy arrays, and run this package's
-orgqr/ormqr/extract_r on the same factors.  Nothing here imports JAX: the
+orgqr/ormqr/extract_r (for distributed CAQR factors, caqr_orgqr and
+caqr_ormqr) on the same factors.  Nothing here imports JAX: the
 reference's objects are read by attribute and name.
 """
 
@@ -71,3 +72,24 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
         tsqr_leaf=cfg.tsqr_leaf,
         device=device,
     )
+
+
+def factors_from_reference(factors, mesh):
+    """This package's CAQR factors from the reference's ``CAQRFactors`` or
+    ``CAQRFactorsBK`` (any arrays numpy can read), on every rank of
+    ``mesh``: each rank takes its slice of the row-sharded fields
+    (local_packed, local_taus, local_Ts, Ys), the replicated ones whole."""
+    from ..parallel.caqr import CAQRFactors, CAQRFactorsBK
+    from ..parallel.mesh import as_row_sharded, mesh_device, shard_rows
+
+    type_ = CAQRFactorsBK if hasattr(factors, "Ys") else CAQRFactors
+    sharded = ("local_packed", "local_taus", "local_Ts", "Ys")
+    fields = {}
+    for name in type_._fields:
+        value = np.asarray(getattr(factors, name))
+        if name in sharded:
+            local, rows = shard_rows(value, mesh)
+            fields[name] = as_row_sharded(local, mesh, rows)
+        else:
+            fields[name] = torch.as_tensor(value, device=mesh_device(mesh))
+    return type_(**fields)

@@ -5,8 +5,9 @@
 Profiles, after a warm-up call each, one 8192^2 float32 ``qr_blocked`` at
 DEFAULT_CONFIG, one 1,048,576 x 128 float32 Householder ``tsqr``, one
 8192^2 float32 pivoted ``qrcp_blocked`` at DEFAULT_CONFIG, one 1024^2
-float32 ``eigh`` and one 4096^2 float32 ``svd`` (``--only`` keeps the runs
-whose name starts with TEXT): the
+float32 ``eigh``, one 4096^2 float32 ``svd`` and one 8192^2 float32 ``caqr``
+on one rank over NCCL (``--only`` keeps the runs whose name starts with
+TEXT): the
 call's window on the host clock (ending in a synchronize), the device busy
 time (the union of the CUDA events' intervals), the busy share, the host
 syncs, and the device time and count of each kernel, largest first.  The
@@ -15,6 +16,10 @@ counted in the call (chol_inv, geqrt, select_pivots); a call whose trace
 lost one fails.  Prints
 one summary line per call and writes the full tables as JSON to
 ``DIR/profile.json`` (default ``chiprun_out``).  Fails without a card.
+
+The run "collectives" times all_reduce on 4 gloo ranks sharing card 0, of
+CUDA tensors and of the same data through host memory, at the distributed
+path's sizes.
 """
 
 from __future__ import annotations
@@ -95,6 +100,40 @@ def profile(fn) -> dict:
             "kernels": kernels}
 
 
+def _caqr_rank(mesh, n: int) -> dict:
+    """Rank body: the profile of one caqr of an n^2 Gaussian on this rank."""
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(torch.cuda.current_device())
+    return profile(lambda: ct.caqr(A, mesh))
+
+
+COLLECTIVE_SIZES = {"nb x nb": (128, 128), "nb x 8192 strip": (128, 8192),
+                    "4096 x 4096": (4096, 4096)}
+
+
+def _collectives_rank(mesh, reps: int = 10) -> dict:
+    """Rank body: mean ms of one all_reduce of each COLLECTIVE_SIZES float32
+    tensor, on the card and through host memory."""
+    import torch.distributed as dist
+    out = {}
+    for name, shape in COLLECTIVE_SIZES.items():
+        x = torch.ones(shape, device=torch.cuda.current_device())
+        for via in ("card", "host"):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                if via == "card":
+                    dist.all_reduce(x)
+                else:
+                    h = x.cpu()
+                    dist.all_reduce(h)
+                    x.copy_(h)
+            torch.cuda.synchronize()
+            out[f"{name} via {via}"] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out")
@@ -118,8 +157,18 @@ def main() -> int:
             "svd 4096^2 f32 eigh_impl=torch": lambda: ct.svd(A[:4096, :4096])}
     runs = {name: fn for name, fn in runs.items() if name.startswith(args.only)}
     out = {"device": smi}
+    from ..parallel.launch import run_ranks
+    name = "caqr 8192^2 f32 bk block over NCCL, P=1"
+    if name.startswith(args.only):
+        runs[name] = lambda: None          # listed for the summary loop below
+        out[name] = run_ranks(1, _caqr_rank, 8192)[0]
+    if "collectives".startswith(args.only):
+        rec = run_ranks(4, _collectives_rank)[0]
+        out["collectives"] = rec
+        print("all_reduce ms, 4 gloo ranks on one card: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in rec.items()), flush=True)
     for name, fn in runs.items():
-        rec = profile(fn)
+        rec = out[name] if name in out else profile(fn)
         out[name] = rec
         top = ", ".join(f"{k['name'][:48]} {k['ms']:.3f} ms x{k['count']}"
                         for k in rec["kernels"][:6])
