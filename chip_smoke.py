@@ -60,6 +60,11 @@ SELECT_TILES = ((160, 512, 128, 5), (64, 128, 32, 1), (288, 1024, 256, 0))
 MIN_GAP = 1e-5  # "well separated": float32 rounding moves a downdated norm ~1e-7
 TOL32 = 1e-4    # kernel vs plain, float32: other summation order; L^-1 x cond(G)
 TOL64 = 1e-10
+# A distributed result vs the single-device function on the same input:
+# 20x the largest gap read on an H100 80GB HBM3 at 700 W (caqr 32768^2's R,
+# 4.99e-06), well under what a TF32 product or a missing CholeskyQR2 round
+# would leave
+DIST_TOL = 1e-4
 FP32_PEAK = 67e12   # FLOP/s, H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
 HBM_PEAK = 3.35e12  # bytes/s, H100 SXM HBM3
 # geqrt batch grid (L, m, w, off, float64?, zero panels): the TSQR leaf shape
@@ -1176,10 +1181,10 @@ def dist_rank(mesh, smi: str, sizes: dict):
             Q, R = res
             g = d_qr_gates(torch, f"tsqr_dist {strategy}/{leaf}", a, Q.to_local(), R, mesh)
             e = r_err(torch, R, R1) if i == 0 else 0.0
-            require(e < TOL32, f"tsqr_dist {strategy}/{leaf}: R vs tsqr's {e}")
+            require(e < DIST_TOL, f"tsqr_dist {strategy}/{leaf}: R vs tsqr's {e}")
             return (f"tsqr_dist {m}x{n} f32 {strategy}, {leaf} leaves: residual "
                     f"{g['residual']:.3e}, orthogonality {g['orthogonality']:.3e}, R vs "
-                    f"single-device tsqr {e:.2e} (< {TOL32:g}; tsqr {t1:.3f} s first call)")
+                    f"single-device tsqr {e:.2e} (< {DIST_TOL:g}; tsqr {t1:.3f} s first call)")
         phase(f"tsqr_dist-{strategy}-{leaf}",
               lambda strategy=strategy, leaf=leaf: ct.tsqr_dist(
                   A, mesh, cfg.replace(tsqr_leaf=leaf), strategy=strategy), check)
@@ -1199,10 +1204,10 @@ def dist_rank(mesh, smi: str, sizes: dict):
         R1, t1 = on_rank0(torch, mesh, lambda: ct.qr(d_full(torch, 50, P, mloc, nc, dev, shift),
                                                      cfg, mode="r"))
         e = r_err(torch, R, R1) if i == 0 else 0.0
-        require(e < nc * eps, f"caqr {nc}^2: R vs qr's {e}")
+        require(e < DIST_TOL, f"caqr {nc}^2: R vs qr's {e}")
         return (f"caqr {nc}^2 f32 bk block: residual {g['residual']:.3e} (< {nc * eps:.3e}), "
                 f"orthogonality {g['orthogonality']:.3e} (< {4 * nc * eps:.3e}), R vs "
-                f"single-device qr {e:.2e} (< {nc * eps:.2e}; qr mode='r' {t1:.3f} s)")
+                f"single-device qr {e:.2e} (< {DIST_TOL:g}; qr mode='r' {t1:.3f} s)")
     phase("caqr", lambda: ct.caqr(as_row_sharded(a, mesh, nc), mesh, cfg), check_caqr)
     del a
 
@@ -1217,8 +1222,8 @@ def dist_rank(mesh, smi: str, sizes: dict):
 
     def vs_qr(name, R):
         e = r_err(torch, R, R1) if i == 0 else 0.0
-        require(e < nv * eps, f"{name}: R vs qr's {e}")
-        return f"R vs single-device qr {e:.2e} (< {nv * eps:.2e}; qr mode='r' {t1:.3f} s)"
+        require(e < DIST_TOL, f"{name}: R vs qr's {e}")
+        return f"R vs single-device qr {e:.2e} (< {DIST_TOL:g}; qr mode='r' {t1:.3f} s)"
 
     for layout, combine in (("block", "allgather"), ("cyclic", "bk")):
         def check(res, layout=layout, combine=combine):
@@ -1280,9 +1285,9 @@ def dist_rank(mesh, smi: str, sizes: dict):
         if i == 0:
             ex = float((res.x - want.x).norm() / want.x.norm())
             er = abs(float(res.residual_norm - want.residual_norm)) / float(want.residual_norm)
-        require(ex < nl * eps and er < nl * eps, f"lstsq_dist vs lstsq: {ex}, {er}")
+        require(ex < DIST_TOL and er < DIST_TOL, f"lstsq_dist vs lstsq: {ex}, {er}")
         return (f"lstsq_dist {ml}x{nl} f32: x vs single-device lstsq {ex:.3e}, residual norm "
-                f"{er:.3e} (< {nl * eps:.3e}; lstsq {t1:.3f} s first call)")
+                f"{er:.3e} (< {DIST_TOL:g}; lstsq {t1:.3f} s first call)")
     phase("lstsq_dist", lambda: ct.lstsq_dist(as_row_sharded(a, mesh, ml),
                                               as_row_sharded(b, mesh, ml), mesh, cfg),
           check_lstsq)
@@ -1304,11 +1309,11 @@ def dist_rank(mesh, smi: str, sizes: dict):
         if i == 0:
             eu = max(float((U.to_local() - one[0][:mloc]).abs().max()),
                      float((H - one[1]).abs().max() / one[1].abs().max()))
-        require(ou < 4 * np_ * eps and rel < np_ * eps and eu < np_ * eps,
+        require(ou < 4 * np_ * eps and rel < np_ * eps and eu < DIST_TOL,
                 f"polar_dist: {ou}, {rel}, {eu}")
         return (f"polar_dist {mp}x{np_} f32: ||U^T U - I|| {ou:.3e} (< {4 * np_ * eps:.3e}), "
                 f"||A - U H||/||A|| {rel:.3e} (< {np_ * eps:.3e}), U, H vs single-device polar "
-                f"{eu:.2e} (polar {t1:.3f} s first call)")
+                f"{eu:.2e} (< {DIST_TOL:g}; polar {t1:.3f} s first call)")
     phase("polar_dist", lambda: ct.polar_dist(A, mesh, config=cfg), check_polar)
 
     def check_svd(res):
@@ -1317,10 +1322,10 @@ def dist_rank(mesh, smi: str, sizes: dict):
         ou = d_orth(torch, U.to_local(), mesh)
         one, t1 = on_rank0(torch, mesh, lambda: ct.svd(Af, config=cfg))
         es = float((s - one[1]).abs().max() / one[1][0]) if i == 0 else 0.0
-        require(rel < np_ * eps and ou < 16 * np_ * eps and es < np_ * eps,
+        require(rel < np_ * eps and ou < 16 * np_ * eps and es < DIST_TOL,
                 f"svd_dist: {rel}, {ou}, {es}")
         return (f"svd_dist {mp}x{np_} f32: residual {rel:.3e}, ||U^T U - I|| {ou:.3e}, s vs "
-                f"single-device svd {es:.2e} (< {np_ * eps:.2e}; svd {t1:.3f} s first call)")
+                f"single-device svd {es:.2e} (< {DIST_TOL:g}; svd {t1:.3f} s first call)")
     phase("svd_dist", lambda: ct.svd_dist(A, mesh, config=cfg), check_svd)
     del a, A, Af
 
@@ -1341,11 +1346,11 @@ def dist_rank(mesh, smi: str, sizes: dict):
         es = float(((s.double() - sig[:k]).abs() / (1e-3 * sig[:k] + 50 * eps)).max())
         one, t1 = on_rank0(torch, mesh, lambda: ct.rsvd(Afull, k, p, it, config=cfg))
         e1 = float((s - one[1]).abs().max() / one[1][0]) if i == 0 else 0.0
-        require(err2 < 3 * float(sig[k]) and es < 1 and e1 < 50 * (k + p) * eps,
+        require(err2 < 3 * float(sig[k]) and es < 1 and e1 < DIST_TOL,
                 f"rsvd_dist: {err2}, {es}, {e1}")
         return (f"rsvd_dist {mr}x{nr} k={k} p={p} n_iter={it}: ||A - U S V^T||_2 {err2:.3e} "
                 f"(< 3 sigma_{k + 1} = {3 * float(sig[k]):.3e}), s vs sigma {es:.3f} (< 1), s vs "
-                f"single-device rsvd {e1:.2e} (< {50 * (k + p) * eps:.2e}; rsvd {t1:.3f} s "
+                f"single-device rsvd {e1:.2e} (< {DIST_TOL:g}; rsvd {t1:.3f} s "
                 f"first call)")
     phase("rsvd_dist", lambda: ct.rsvd_dist(as_row_sharded(a, mesh, mr), k, mesh, p, it,
                                             config=cfg), check_rsvd)
@@ -1373,10 +1378,10 @@ def dist_rank(mesh, smi: str, sizes: dict):
         one, t1 = on_rank0(torch, mesh, lambda: ct.eigh_rand(S, ke, pe, ite, config=cfg))
         e1 = float((w - one[0]).abs().max() / one[0].abs().max()) if i == 0 else 0.0
         require(errf < 1.5 * tailf and we < 1 and ov < 16 * (ke + pe) * eps
-                and e1 < 50 * (ke + pe) * eps, f"eigh_rand_dist: {errf}, {we}, {ov}, {e1}")
+                and e1 < DIST_TOL, f"eigh_rand_dist: {errf}, {we}, {ov}, {e1}")
         return (f"eigh_rand_dist {ne}^2 k={ke} p={pe} n_iter={ite}: ||S - V W V^T||_F "
                 f"{errf:.3e} (< 1.5 x the tail's {tailf:.3e}), w vs w_true {we:.3f} (< 1), "
-                f"||V^T V - I|| {ov:.3e}, w vs single-device eigh_rand {e1:.2e} (eigh_rand "
+                f"||V^T V - I|| {ov:.3e}, w vs single-device eigh_rand {e1:.2e} (< {DIST_TOL:g}; eigh_rand "
                 f"{t1:.3f} s first call)")
     phase("eigh_rand_dist", lambda: ct.eigh_rand_dist(as_row_sharded(s_loc, mesh, ne), ke, mesh,
                                                       pe, ite, config=cfg), check_eigh_rand)
@@ -1393,7 +1398,6 @@ def dist_nccl_rank(mesh, smi: str, n: int):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh_device(mesh)
     P, i = mesh.size(0), mesh.get_local_rank(0)
-    eps = float(torch.finfo(torch.float32).eps)
     cfg = ct.DEFAULT_CONFIG
     mloc, shift = n // P, 3.0 * n ** 0.5
     a = d_rows(torch, 51, i, mloc, n, dev, shift)
@@ -1403,10 +1407,10 @@ def dist_nccl_rank(mesh, smi: str, n: int):
     g = d_qr_gates(torch, f"caqr {n}^2 over NCCL", a, Q.to_local(), R, mesh)
     e = r_err(torch, R, ct.qr(d_full(torch, 51, P, mloc, n, dev, shift), cfg, mode="r")) \
         if i == 0 else 0.0
-    require(e < n * eps, f"caqr over NCCL: R vs qr's {e}")
+    require(e < DIST_TOL, f"caqr over NCCL: R vs qr's {e}")
     d_say(mesh, f"caqr {n}^2 f32 bk block over {dist.get_backend()}, P={P}: residual "
           f"{g['residual']:.3e}, orthogonality {g['orthogonality']:.3e}, R vs single-device qr "
-          f"{e:.2e}; {sec:.3f} s ({smi})")
+          f"{e:.2e} (< {DIST_TOL:g}); {sec:.3f} s ({smi})")
     return {"backend": dist.get_backend(), "counts": counts, "seconds": sec}
 
 
@@ -1416,13 +1420,14 @@ def phase_dist(torch, smi):
     launches summed over the ranks and per rank, and which operations went
     through host memory; returns the path's counts summed over ranks."""
     import tempfile
-    from cuda_qr_tpu_torch.parallel.launch import run_ranks
+    from cuda_qr_tpu_torch.parallel.launch import COLLECTIVE_TIMEOUT_S, run_ranks
     from cuda_qr_tpu_torch.parallel.mesh import backend_for
     torch.cuda.empty_cache()
     P = P_DIST
     shared = P > torch.cuda.device_count()
     say(f"distributed path: P={P} ranks, backend {backend_for(P, 'cuda')}"
-        f"{', ranks share one card' if shared else ''}; collective timeout 60 s")
+        f"{', ranks share one card' if shared else ''}; collective timeout "
+        f"{COLLECTIVE_TIMEOUT_S} s")
     with tempfile.TemporaryDirectory(prefix="cqt_ckpt_") as ck:
         ranks = run_ranks(P, dist_rank, smi, {**DIST_SIZES, "checkpoint_dir": ck},
                           join_timeout=DIST_JOIN_S)

@@ -12,35 +12,58 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 
-from ..parallel.caqr import caqr_factor, caqr_orgqr, cyclic_permutation
-from ..parallel.collectives import gather_rows
-from ..parallel.mesh import row_sharding
+from ..parallel.caqr import _logical_rows, caqr_factor, caqr_orgqr
+from ..parallel.collectives import coord, redistribute_rows
+from ..parallel.mesh import as_row_sharded, mesh_device
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
-from ..utils.geometry import round_up
+from ..utils.geometry import ceildiv, round_up
 
 
-def _full(A, mesh: DeviceMesh):
-    """A as a full matrix: a row-sharded DTensor is gathered on every rank,
-    anything else is returned as it is."""
-    return gather_rows(A, mesh) if isinstance(A, DTensor) else A
+def _padded_shape(m: int, n: int, P: int, nb: int) -> tuple[int, int]:
+    """(m_pad, n_pad): rows a multiple of P*nb (at least n_pad), columns a
+    multiple of nb."""
+    n_pad = round_up(n, nb)
+    return max(round_up(m, P * nb), round_up(n_pad, P * nb)), n_pad
 
 
-def _pad_for_mesh(A, mesh: DeviceMesh, nb: int):
-    """A zero-padded to (m_pad, n_pad): rows a multiple of P*nb (at least
-    n_pad), columns a multiple of nb.  A row-sharded DTensor that needs no
-    padding is returned as it is."""
+def _chunk_rows(m: int, P: int):
+    """rank -> its logical rows of an m-row DTensor with Shard(0) (torch's
+    split: ceil(m / P) rows a rank, the last ranks fewer or none)."""
+    c = ceildiv(m, P)
+    return lambda r: np.arange(min(r * c, m), min((r + 1) * c, m))
+
+
+def _storage_rows(layout: str, nb: int, mloc: int, P: int):
+    """rank -> its logical rows in the layout's storage order."""
+    return lambda r: _logical_rows(layout, nb, mloc, P, r, mloc).numpy()
+
+
+def _pad_for_mesh(A, mesh: DeviceMesh, nb: int, layout: str = "block"):
+    """A zero-padded to ``_padded_shape``, as a row-sharded DTensor in the
+    layout's storage order.  A full A (on every rank) gives each rank its
+    own rows; a row-sharded DTensor is moved by one all-to-all
+    (``redistribute_rows``) unless it is already in place."""
     m, n = A.shape
-    P, n_pad = mesh.size(0), round_up(n, nb)
-    shape = (max(round_up(m, P * nb), round_up(n_pad, P * nb)), n_pad)
-    if shape == (m, n):
-        return A
-    A = _full(A, mesh)
-    if isinstance(A, torch.Tensor):
-        return torch.nn.functional.pad(A, (0, shape[1] - n, 0, shape[0] - m))
-    return np.pad(np.asarray(A), ((0, shape[0] - m), (0, shape[1] - n)))
+    P = mesh.size(0)
+    m_pad, n_pad = _padded_shape(m, n, P, nb)
+    rows = _storage_rows(layout, nb, m_pad // P, P)
+    if isinstance(A, DTensor):
+        if layout == "block" and (m_pad, n_pad) == (m, n):
+            return A
+        a = redistribute_rows(A.to_local(), _chunk_rows(m, P), rows, mesh)
+    else:
+        idx = rows(coord(mesh))
+        live = idx < m                                  # the others are padding
+        if isinstance(A, torch.Tensor):
+            src = A[torch.as_tensor(idx[live], device=A.device)]
+        else:
+            src = torch.as_tensor(np.asarray(A)[idx[live]], device=mesh_device(mesh))
+        a = torch.zeros((idx.size, n), dtype=src.dtype, device=src.device)
+        a[torch.as_tensor(live, device=a.device)] = src
+    return as_row_sharded(torch.nn.functional.pad(a, (0, n_pad - n)), mesh, m_pad)
 
 
 def _check(A) -> None:
@@ -55,29 +78,23 @@ def caqr(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
     replicated).  Any m >= n; pads internally to the mesh grid.
 
     layout="cyclic" deals nb-row blocks round-robin over the ranks (the
-    ScaLAPACK-style distribution of BASELINE config 5); rows are permuted
-    into and out of the cyclic storage order here.  combine="bk" (default)
-    applies each panel's tree Q in basis-kernel form (one nb x trailing
-    all_reduce per panel); "allgather" is the one-round redundant
-    stacked-QR combine.
+    ScaLAPACK-style distribution of BASELINE config 5); rows move into and
+    out of the cyclic storage order by one all-to-all each way, so no rank
+    holds more than its share of A or Q.  combine="bk" (default) applies
+    each panel's tree Q in basis-kernel form (one nb x trailing all_reduce
+    per panel); "allgather" is the one-round redundant stacked-QR combine.
     """
     _check(A)
     m, n = A.shape
-    nb = config.panel_width
-    Ap = _pad_for_mesh(A, mesh, nb)
-    perm = inv = None
-    if layout == "cyclic":
-        perm, inv = cyclic_permutation(Ap.shape[0], nb, mesh.size(0))
-        Ap = _full(Ap, mesh)[perm]
+    nb, P = config.panel_width, mesh.size(0)
+    Ap = _pad_for_mesh(A, mesh, nb, layout)
     factors, R = caqr_factor(Ap, mesh, config, layout=layout, combine=combine)
-    Q = caqr_orgqr(factors, mesh, Ap.shape[1], config, layout=layout)
-    if inv is None and tuple(Ap.shape) == (m, n):
-        return Q, R
-    Qf = _full(Q, mesh)
-    if inv is not None:
-        Qf = Qf[torch.as_tensor(inv, device=Qf.device)]
-    return distribute_tensor(Qf[:m, :n].contiguous(), mesh, row_sharding(mesh),
-                             src_data_rank=None), R[:n, :n]
+    Q = caqr_orgqr(factors, mesh, n, config, layout=layout)
+    if Q.shape[0] == m and layout == "block":
+        return Q, R[:n, :n]
+    rows = _storage_rows(layout, nb, Ap.shape[0] // P, P)
+    q = redistribute_rows(Q.to_local(), rows, _chunk_rows(m, P), mesh)
+    return as_row_sharded(q, mesh, m), R[:n, :n]
 
 
 def caqr_r(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,

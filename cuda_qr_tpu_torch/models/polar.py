@@ -40,7 +40,7 @@ from ..ops.chol_kernel import supported
 from ..ops.smalllinalg import _eye, chol_with_inv_auto, cholesky_with_inv, library_eigh
 from ..parallel.collectives import pmax, psum
 from ..parallel.mesh import as_row_sharded, shard_rows
-from ..parallel.tsqr_dist import _small_qr_q, _tsqr_dist_local
+from ..parallel.tsqr_dist import _check as _check_tsqr, _small_qr_q, _tsqr_dist_local
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
@@ -353,6 +353,8 @@ def polar_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONF
                            "transpose on the host for the wide case")
     if m % P:
         raise QRShapeError(f"polar_dist needs m % P == 0, got m={m} P={P}")
+    strategy = strategy or "allgather"
+    _check_tsqr(strategy, m, P)              # before any collective, as tsqr_dist
     a, _ = shard_rows(A, mesh)
     _require_real(a)
     dt = a.dtype
@@ -362,7 +364,7 @@ def polar_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONF
     if l0 is None:
         l0 = eps / 10.0
     schedule = _qdwh_schedule(l0 / (m * n) ** 0.25, eps, max_iter)
-    U = _qdwh_dist(_prep_dist(a, mesh), schedule, mesh, config, strategy or "allgather")
+    U = _qdwh_dist(_prep_dist(a, mesh), schedule, mesh, config, strategy)
     with matmul_precision(config.precision):
         Hm = psum(U.T @ a, mesh)
     return as_row_sharded(U, mesh, m), (Hm + Hm.T) * 0.5

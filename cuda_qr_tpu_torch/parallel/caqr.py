@@ -40,12 +40,13 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..models.tsqr import _geqrt
 from ..ops.blocked import _require_real
 from ..ops.householder import larfb, unpack_v
-from ..ops.smalllinalg import _eye, cholesky_with_inv, lu_with_inv
+from ..ops.smalllinalg import _eye, lu_with_inv
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
 from ..utils.geometry import ceildiv
 from .collectives import agree, all_gather, coord, psum
 from .mesh import as_row_sharded, shard_rows
+from .tsqr_dist import _cholesky_combine, _gathered_combine
 
 COMBINES = ("bk", "allgather")
 LAYOUTS = ("block", "cyclic")
@@ -186,38 +187,17 @@ def _bk_combine(Rl: torch.Tensor, owner: int, c: _Ctx):
 
     Returns (Y_i, N, s, Rfin): this rank's kernel block, the replicated
     nb x nb compact-WY factor N, the sign vector s and the combined panel
-    R.  M is computed by CholeskyQR2 on the all-reduced Gram of the R
-    blocks (two nb x nb all_reduces); on Cholesky breakdown, or a round-1
-    orthogonality defect too large for round 2 (> 0.3), an explicit stacked
-    Householder QR gives M instead.  The tree transform is built by
-    Householder reconstruction on the owner's block of M (Ballard et al.,
-    IPDPS 2014): its LU is of Y_J = I - M_J S with |diag| >= 1.
+    R.  M is the CholeskyQR2 combine of ``tsqr_dist`` (two nb x nb
+    all_reduces); on its breakdown, the explicit stacked Householder QR of
+    the gathered R blocks.  The tree transform is built by Householder
+    reconstruction on the owner's block of M (Ballard et al., IPDPS 2014):
+    its LU is of Y_J = I - M_J S with |diag| >= 1.
     """
     nb, dt = Rl.shape[0], Rl.dtype
     eye = _eye(nb, Rl)
-    G_R = psum(Rl.T @ Rl, c.mesh)
-    L1, L1i = cholesky_with_inv(G_R)
-    M0 = Rl @ L1i.T                                     # Rl L1^-T
-    # Round 2 on the true Gram of M0 (one more all_reduce): it captures the
-    # Gram-formation error of round 1.
-    G2 = psum(M0.T @ M0, c.mesh)
-    E = G2 - eye
-    emax = E.abs().max()
-    tol = 3e-4 if dt == torch.float32 else 3e-8
-    if agree(emax < tol, c.mesh):
-        C = torch.tril(E, -1) + 0.5 * torch.diag(torch.diagonal(E))
-        L2, L2i = eye + C, eye - C
-    else:
-        L2, L2i = cholesky_with_inv(E + eye)
-    bad = ~torch.isfinite(L2i.sum() + M0.sum()) | (emax > 0.3)
+    M_i, Rfin, bad = _cholesky_combine(Rl, c.mesh)
     if agree(bad, c.mesh):
-        # Unconditionally stable: explicit Q of the gathered R stack.
-        stacked = all_gather(Rl, c.mesh).reshape(c.P * nb, nb)
-        tp, _, T2 = _geqrt(stacked, c.config)
-        M_stack = larfb(_eye(c.P * nb, Rl)[:, :nb], unpack_v(tp), T2, transpose=False)
-        M_i, Rfin = M_stack[c.i * nb:(c.i + 1) * nb], torch.triu(tp[:nb])
-    else:
-        M_i, Rfin = M0 @ L2i.T, L2.T @ L1.T
+        M_i, Rfin = _gathered_combine(Rl, c.mesh, c.config)
     MJ = all_gather(M_i, c.mesh)[owner]
     s = torch.where(torch.diagonal(MJ) >= 0, -1.0, 1.0).to(dt)
     _, W, VJi, Wi = lu_with_inv(eye - MJ * s[None, :])

@@ -40,6 +40,17 @@ def ormqr_roundtrip(mesh, A, B, config: QRConfig, layout: str, combine: str):
     return R, Q, QtB, back
 
 
+def caqr_sharded(mesh, A, config: QRConfig, layout: str, combine: str):
+    """Rank body: ``caqr`` of A handed over as a row-sharded DTensor (torch's
+    split of the rows, uneven when the rank count does not divide them)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..models.caqr import caqr
+    from .mesh import row_sharding
+    Ad = distribute_tensor(torch.as_tensor(A), mesh, row_sharding(mesh), src_data_rank=None)
+    return caqr(Ad, mesh, config, layout=layout, combine=combine)
+
+
 def carried(mesh, fields: dict, B, n_cols: int, config: QRConfig, layout: str):
     """Rank body: the reference's CAQR factors (``fields``, as numpy) carried
     across with ``factors_from_reference``; returns (Q, Q^T B, Q B)."""

@@ -3,7 +3,8 @@
 
 ``run_ranks(P, target, *args, device=...)`` spawns P processes.  Each sets
 one thread, joins a process group through a ``file://`` store in a
-temporary directory (no ports) with a collective timeout, builds
+temporary directory (no ports) with a collective timeout of
+``COLLECTIVE_TIMEOUT_S``, builds
 ``row_mesh`` and calls ``target(mesh, *args)``.  The results come back in
 rank order, converted for the host (``to_host``); the first failing rank's
 exception is raised in the caller.  If the ranks have not finished within
@@ -34,6 +35,7 @@ from .collectives import gather_rows
 from .mesh import backend_for, rank_device, row_mesh
 
 GRACE_SECONDS = 2.0   # how long the other ranks may finish after one fails
+COLLECTIVE_TIMEOUT_S = 60   # a collective that waits longer fails its rank
 
 
 def to_host(obj, mesh):
@@ -60,7 +62,7 @@ def _write(path: str, payload) -> None:
     os.replace(path + ".tmp", path)
 
 
-def _rank_main(rank, P, tmp, backend, device, timeout):
+def _rank_main(rank, P, tmp, backend, device):
     try:
         target, args = _load(os.path.join(tmp, "job.pkl"))
         torch.set_num_threads(1)
@@ -68,7 +70,7 @@ def _rank_main(rank, P, tmp, backend, device, timeout):
             torch.cuda.set_device(rank_device(backend, device, rank))
         dist.init_process_group(backend, init_method=f"file://{os.path.join(tmp, 'store')}",
                                 rank=rank, world_size=P,
-                                timeout=timedelta(seconds=timeout))
+                                timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
         mesh = row_mesh(P, device)
         out = to_host(target(mesh, *args), mesh)
         if device != "cpu":
@@ -94,13 +96,12 @@ def _kill(procs) -> None:
 
 
 def run_ranks(P: int, target, *args, device: str = DEFAULT_CONFIG.device,
-              backend: str | None = None, timeout: float = 60.0,
-              join_timeout: float = 600.0) -> list:
+              backend: str | None = None, join_timeout: float = 600.0) -> list:
     """``target(mesh, *args)`` on P spawned ranks; its results in rank order.
 
     ``device`` "cuda" (default) or "cpu"; ``backend`` defaults to
-    ``mesh.backend_for(P, device)``; ``timeout`` bounds each collective (s);
-    ``join_timeout`` bounds the whole run (s).
+    ``mesh.backend_for(P, device)``; ``join_timeout`` bounds the whole run
+    (s).
     """
     backend = backend or backend_for(P, device)
     ctx = mp.get_context("spawn")
@@ -109,7 +110,7 @@ def run_ranks(P: int, target, *args, device: str = DEFAULT_CONFIG.device,
         # spawned child's pipe would hold up each start until that child
         # has imported torch, and the ranks would start one by one.
         _write(os.path.join(tmp, "job.pkl"), (target, args))
-        procs = [ctx.Process(target=_rank_main, args=(r, P, tmp, backend, device, timeout))
+        procs = [ctx.Process(target=_rank_main, args=(r, P, tmp, backend, device))
                  for r in range(P)]
         for p in procs:
             p.start()

@@ -64,11 +64,15 @@ COMBINES = ("bk", "allgather")
 LAYOUTS = ("block", "cyclic")
 # (P, combine, layout, m, n): every combine and layout at each mesh size,
 # over three shapes (two panel rows a rank; square, whose last panels live
-# on the last rank only; one that needs padding)
+# on the last rank only; one that needs padding), the full A on every rank
 CAQR = [(4, "bk", "block", 128, 64), (4, "bk", "cyclic", 64, 64),
         (4, "allgather", "block", 200, 50), (4, "allgather", "cyclic", 128, 64),
         (8, "bk", "block", 128, 128), (8, "bk", "cyclic", 200, 50),
         (8, "allgather", "block", 128, 64), (8, "allgather", "cyclic", 128, 128)]
+# (P, combine, layout, m, n) handed to the port as a row-sharded DTensor:
+# uneven shards with padding, and an even one that only changes layout
+SHARDED = [(4, "bk", "cyclic", 202, 50), (8, "allgather", "block", 130, 40),
+           (8, "bk", "cyclic", 128, 64)]
 # (P, combine, layout) of the reference's factors carried across
 CARRIED = [(4, "bk", "block"), (4, "allgather", "cyclic"),
            (8, "bk", "cyclic"), (8, "allgather", "block")]
@@ -82,6 +86,11 @@ def caqr_cases(P):
             cases.append((f"caqr-{combine}-{layout}-{m}x{n}",
                            ("caqr", (gaussian(m + n, m, n), MESH, port_cfg(RCFG), layout,
                                      combine), {})))
+    for P_, combine, layout, m, n in SHARDED:
+        if P_ == P:
+            cases.append((f"sharded-{combine}-{layout}-{m}x{n}",
+                           ("parallel.dryrun:caqr_sharded",
+                            (MESH, gaussian(m + n, m, n), port_cfg(RCFG), layout, combine), {})))
     if P == 4:
         cases.append(("caqr-f32", ("caqr", (gaussian(3, 256, 128, np.float32), MESH,
                                             port_cfg(RCFG32_16)), {})))
@@ -179,8 +188,7 @@ def port(carried_fields, tmp_path_factory):
     for P in (4, 8):
         cases = (caqr_cases(P) + ormqr_cases(P, carried_fields) + resumable_cases(P, tmp)
                  + error_cases())
-        out = run_ranks(P, call_many, [call for _, call in cases], device="cpu",
-                        timeout=60, join_timeout=300)[0]
+        out = run_ranks(P, call_many, [call for _, call in cases], device="cpu", join_timeout=300)[0]
         results.update({(P, cid): res for (cid, _), res in zip(cases, out)})
     return results
 
@@ -203,6 +211,18 @@ def gates(A, Q, R, n, orth=8):
 def test_caqr_matches_reference(port, ref_meshes, P, combine, layout, m, n):
     A = gaussian(m + n, m, n)
     Q, R = port[(P, f"caqr-{combine}-{layout}-{m}x{n}")]
+    rQ, rR = ref_models.caqr(jnp.asarray(A), ref_meshes[P], RCFG, layout=layout, combine=combine)
+    gates(A, Q, R, n)
+    close(Q, rQ, TOLS[np.float64])
+    close(R, rR, TOLS[np.float64], np.abs(A).max())
+
+
+@pytest.mark.parametrize("P,combine,layout,m,n", SHARDED)
+def test_caqr_sharded_input_matches_reference(port, ref_meshes, P, combine, layout, m, n):
+    """A row-sharded DTensor in, rows moved to the padded storage layout
+    and Q moved back by all-to-all: the same Q and R as the reference."""
+    A = gaussian(m + n, m, n)
+    Q, R = port[(P, f"sharded-{combine}-{layout}-{m}x{n}")]
     rQ, rR = ref_models.caqr(jnp.asarray(A), ref_meshes[P], RCFG, layout=layout, combine=combine)
     gates(A, Q, R, n)
     close(Q, rQ, TOLS[np.float64])

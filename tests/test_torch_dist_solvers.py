@@ -103,8 +103,7 @@ def port():
     results = {}
     for P in (4, 8):
         cs = cases(P)
-        out = run_ranks(P, call_many, [c for _, c in cs], device="cpu",
-                        timeout=60, join_timeout=300)[0]
+        out = run_ranks(P, call_many, [c for _, c in cs], device="cpu", join_timeout=300)[0]
         results.update({(P, cid): r for (cid, _), r in zip(cs, out)})
     return results
 
@@ -210,8 +209,12 @@ def stand_in(P):
     (lambda: polar_dist(np.zeros((66, 8)), stand_in(4)), QRShapeError),
     (lambda: svd_dist(np.zeros((16, 32)), stand_in(4)), QRShapeError),
     (lambda: svd_dist(np.zeros((64, 8)), stand_in(4), eigh_impl="nope"), ValueError),
+    (lambda: polar_dist(np.zeros((64, 8)), stand_in(4), strategy="tree"), ValueError),
+    (lambda: polar_dist(np.zeros((48, 8)), stand_in(6), strategy="butterfly"), ValueError),
+    (lambda: svd_dist(np.zeros((64, 8)), stand_in(4), strategy="tree"), ValueError),
 ], ids=["lstsq-rows", "rsvd-k", "rsvd-m", "eigh_rand-square", "eigh_rand-m", "polar-wide",
-        "polar-m", "svd-wide", "svd-eigh_impl"])
+        "polar-m", "svd-wide", "svd-eigh_impl", "polar-strategy", "polar-butterfly-P6",
+        "svd-strategy"])
 def test_error_paths(call, exc):
     """The reference's exception types, before any collective."""
     with pytest.raises(exc):

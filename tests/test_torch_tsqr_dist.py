@@ -64,8 +64,7 @@ def port():
                                          "cholesky"), {})),
                   ("complex", ("tsqr_dist", (gaussian(8, 64, 8) * (1 + 1j), MESH,
                                              port_cfg(RCFG)), {}))]
-        out = run_ranks(P, call_many, [c for _, c in cases], device="cpu",
-                        timeout=60, join_timeout=300)[0]
+        out = run_ranks(P, call_many, [c for _, c in cases], device="cpu", join_timeout=300)[0]
         results.update({(P, cid): r for (cid, _), r in zip(cases, out)})
     return results
 
