@@ -44,16 +44,17 @@ def _storage_rows(layout: str, nb: int, mloc: int, P: int):
 def _pad_for_mesh(A, mesh: DeviceMesh, nb: int, layout: str = "block"):
     """A zero-padded to ``_padded_shape``, as a row-sharded DTensor in the
     layout's storage order.  A full A (on every rank) gives each rank its
-    own rows; a row-sharded DTensor is moved by one all-to-all
-    (``redistribute_rows``) unless it is already in place."""
+    own rows; a row-sharded DTensor's rows move by one all-to-all
+    (``redistribute_rows``) unless they are in place already (block
+    layout, no padding rows)."""
     m, n = A.shape
     P = mesh.size(0)
     m_pad, n_pad = _padded_shape(m, n, P, nb)
     rows = _storage_rows(layout, nb, m_pad // P, P)
     if isinstance(A, DTensor):
-        if layout == "block" and (m_pad, n_pad) == (m, n):
-            return A
-        a = redistribute_rows(A.to_local(), _chunk_rows(m, P), rows, mesh)
+        a = A.to_local()
+        if layout == "cyclic" or m_pad != m:            # else the rows are in place
+            a = redistribute_rows(a, _chunk_rows(m, P), rows, mesh)
     else:
         idx = rows(coord(mesh))
         live = idx < m                                  # the others are padding
@@ -63,7 +64,9 @@ def _pad_for_mesh(A, mesh: DeviceMesh, nb: int, layout: str = "block"):
             src = torch.as_tensor(np.asarray(A)[idx[live]], device=mesh_device(mesh))
         a = torch.zeros((idx.size, n), dtype=src.dtype, device=src.device)
         a[torch.as_tensor(live, device=a.device)] = src
-    return as_row_sharded(torch.nn.functional.pad(a, (0, n_pad - n)), mesh, m_pad)
+    if n_pad != n:
+        a = torch.nn.functional.pad(a, (0, n_pad - n))
+    return as_row_sharded(a, mesh, m_pad)
 
 
 def _check(A) -> None:

@@ -70,9 +70,10 @@ CAQR = [(4, "bk", "block", 128, 64), (4, "bk", "cyclic", 64, 64),
         (8, "bk", "block", 128, 128), (8, "bk", "cyclic", 200, 50),
         (8, "allgather", "block", 128, 64), (8, "allgather", "cyclic", 128, 128)]
 # (P, combine, layout, m, n) handed to the port as a row-sharded DTensor:
-# uneven shards with padding, and an even one that only changes layout
+# uneven shards with padding, even ones that pad only columns or only
+# change layout
 SHARDED = [(4, "bk", "cyclic", 202, 50), (8, "allgather", "block", 130, 40),
-           (8, "bk", "cyclic", 128, 64)]
+           (4, "bk", "block", 128, 60), (8, "bk", "cyclic", 128, 64)]
 # (P, combine, layout) of the reference's factors carried across
 CARRIED = [(4, "bk", "block"), (4, "allgather", "cyclic"),
            (8, "bk", "cyclic"), (8, "allgather", "block")]
