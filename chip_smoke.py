@@ -18,11 +18,15 @@ on known spectra, ``norm2_est``/``cond_est``, ``orth(rcond=...)``, QDWH
 eigensolvers, and ``eigh`` at 2,048^2 plus a clustered spectrum and
 ``eigh_batched`` on 4,096 x 64 x 64; then the distributed path on 4 ranks,
 sharing the card over gloo when there is one card: ``tsqr_dist`` at
-1,048,576 x 128 with every strategy, ``caqr`` at 32,768^2, the CAQR variants,
+1,048,576 x 128 with every strategy, ``caqr`` at 16,384^2, the CAQR variants,
 ``caqr_ormqr`` and a crash-and-resume at 8,192^2, ``lstsq_dist``,
-``polar_dist``/``svd_dist``, ``rsvd_dist`` and ``eigh_rand_dist``, each also
-against the single-device function on the same input, and ``caqr`` on one
-rank over NCCL),
+``polar_dist``/``svd_dist``, ``rsvd_dist`` and ``eigh_rand_dist``, a complex64
+``caqr`` on the allgather combine, each also against the single-device
+function on the same input, and ``caqr`` on one rank over NCCL), the command
+line (``cli.main`` in process for every command, at full width for factor,
+compare, tsqr, pivoted, lstsq, batched and the oracle, then one ``python -m
+cuda_qr_tpu_torch``) and complex QR (complex64/128 ``qr`` in every mode,
+``lstsq``, ``lq``, ``tsqr``/``tsqr_r``, with no kernel launch),
 checks the results against the residual and orthogonality gates and known
 answers, and prints timings beside the card's name and power limit.  The
 main path factors a numpy array with no config: the entry points place it
@@ -91,15 +95,62 @@ N_EIGH_CLUSTER = 512
 N_EIGH_BATCHED = (4096, 64)
 N_CHOL_PAD = 509                  # a QDWH Cholesky step on an exact-size eigh node
 # The distributed path: P_DIST ranks (sharing the card when there are fewer
-# cards), at BASELINE config 3 (tsqr), config 5 cut to 32,768^2 on 4 ranks
-# (caqr), 8,192^2 for the CAQR variants, config 4 (lstsq), and the spectral
-# phases' shapes; then caqr at N_NCCL^2 on one rank over NCCL.
+# cards), at BASELINE config 3 (tsqr), config 5 cut to 16,384^2 on 4 ranks
+# (caqr; 32,768^2 until the command line and complex phases came, which
+# the time limit made room for), 8,192^2 for the CAQR variants, config 4
+# (lstsq), and the spectral phases' shapes; then caqr at N_NCCL^2 on one
+# rank over NCCL.
 P_DIST = 4
-N_CAQR_LEAF = 8192   # rows of a rank's leaf in caqr at 32,768^2 on 4 ranks
-DIST_SIZES = {"tsqr": N_TSQR, "caqr": 32768, "variants": 8192, "lstsq": N_RANK[:2],
-              "polar": N_POLAR[0], "rsvd": N_RSVD, "eigh_rand": N_EIGH_RAND}
+N_CAQR_LEAF = 8192   # rows of a rank's leaf in caqr at N_NCCL^2 on one rank
+DIST_SIZES = {"tsqr": N_TSQR, "caqr": 16384, "variants": 8192, "lstsq": N_RANK[:2],
+              "polar": N_POLAR[0], "rsvd": N_RSVD, "eigh_rand": N_EIGH_RAND,
+              "complex": (8192, 2048)}
 N_NCCL = 8192
 DIST_JOIN_S = 700
+# The command line (PR 8), in process: (argv, kernels each call must launch).
+# Full width first; then every other command once at a size of seconds.
+CLI_TRIALS = 3
+CLI_FULL = ((["factor", "8192", "8192"], ("chol_inv",)),
+            (["--mixed", "factor", "8192", "8192"], ("chol_inv",)),
+            (["compare", "8192", "8192"], ("chol_inv",)),
+            (["tsqr", "1048576", "128"], ("geqrt_batched",)),
+            (["--tsqr-leaf", "cholqr2", "tsqr", "1048576", "128"], ("chol_inv",)),
+            (["pivoted", "8192", "8192"], ("select_pivots", "chol_inv")),
+            (["lstsq", "8192", "2048", "1"], ("chol_inv",)),
+            (["batched", "8192", "256", "64"], ("chol_inv",)),
+            (["oracle", "1024", "1024", "64", "16"], ()),        # BASELINE config 1
+            (["--dtype", "f64", "factor", "1024", "1024"], ()))
+CLI_SMALL = tuple((["--trials", "1", *argv], needs) for argv, needs in (
+    (["update", "4096", "512"], ()),
+    (["decomp", "lq", "1024", "4096"], ("chol_inv",)),
+    (["decomp", "rq", "1024", "4096"], ("chol_inv",)),
+    (["decomp", "ql", "4096", "1024"], ("chol_inv",)),
+    (["rsvd", "8192", "1024"], ("geqrt_batched",)),
+    (["rsvd", "2048", "2048", "--sym"], ()),
+    (["polar", "4096", "1024"], ("chol_inv",)),
+    # QDWH-eig's eigenvector orthogonality floors at ~1e3 eps a Jacobi leaf
+    # whatever n, and the command's gate is 4 n eps: n >= 1024, smaller leaves
+    (["eigh", "1024", "--base-n", "64"], ("chol_inv",)),
+    (["svd", "1024", "512"], ("chol_inv",)),
+    (["svd", "2048", "2048", "--eigh-impl", "qdwh"], ("chol_inv",)),
+    (["caqr", "8192", "4096", "--devices", "4"], ()),     # ranks: their own counts
+    (["dist", "tsqr", "262144", "128", "--devices", "4"], ()),
+    (["dist", "lstsq", "8192", "1024", "--devices", "4"], ()),
+    (["dist", "polar", "8192", "256", "--devices", "4"], ()),
+    (["dist", "svd", "8192", "256", "--devices", "4"], ()),
+    (["dist", "rsvd", "8192", "1024", "--devices", "4"], ()),
+    (["dist", "eigh-rand", "2048", "2048", "--devices", "4"], ())))
+CLI_SUBPROCESS = ["--trials", "1", "factor", "4096", "4096"]
+N_ORACLE = (1024, 64, 16)           # BASELINE config 1: n, pr, pc (float64)
+ORACLE_R_TOL = 1e-9                 # R vs the oracle's, relative to max |R|, float64
+# Complex QR (PR 8) on the card: no kernel may launch.
+N_CX_QR = 8192                      # complex64 qr, reduced
+N_CX_COMPLETE = (8192, 1024, 16)    # mode="complete"; apply_q(apply_qt(B)) with 16 columns
+N_CX128 = 4096
+N_CX_LSTSQ = (8192, 1024, 4)
+N_CX_LQ = (1024, 8192)
+N_CX_TSQR = (262144, 64)
+N_CX_MIXED = 4096                   # complex64 qr at MIXED_CONFIG: gate values measured, not gated
 
 
 def say(*parts) -> None:
@@ -539,9 +590,9 @@ def require(ok: bool, what: str) -> None:
 
 
 def orth_defect(torch, Q) -> float:
-    """||Q^T Q - I||_F in float64 on Q's device."""
-    Q64 = Q.double()
-    G = Q64.T @ Q64
+    """||Q^H Q - I||_F in float64 on Q's device."""
+    Q64 = wide(torch, Q)
+    G = Q64.mH @ Q64
     G.diagonal().sub_(1.0)
     return float(G.norm())
 
@@ -1050,22 +1101,27 @@ def d_timed(torch, fn):
     return out, time.perf_counter() - t0
 
 
+def wide(torch, x):
+    """x in float64, or complex128 for complex x."""
+    return x.to(torch.complex128 if x.is_complex() else torch.float64)
+
+
 def d_norm(torch, x, mesh) -> float:
     """Frobenius norm of a row-sharded matrix (x this rank's rows), float64."""
     from cuda_qr_tpu_torch.parallel.collectives import psum
-    return float(psum(x.double().square().sum(), mesh).sqrt())
+    return float(psum(wide(torch, x).abs().square().sum(), mesh).sqrt())
 
 
 def d_orth(torch, Q, mesh, blk: int = 2048) -> float:
-    """||Q^T Q - I||_F of a row-sharded Q, in float64, the Gram all-reduced
+    """||Q^H Q - I||_F of a row-sharded Q, in float64, the Gram all-reduced
     one block of columns at a time."""
     from cuda_qr_tpu_torch.parallel.collectives import psum
-    Q64 = Q.double()
+    Q64 = wide(torch, Q)
     total = 0.0
     for c0 in range(0, Q.shape[1], blk):
-        G = psum(Q64.T @ Q64[:, c0:c0 + blk], mesh)
+        G = psum(Q64.mH @ Q64[:, c0:c0 + blk], mesh)
         G[c0:c0 + blk].diagonal().sub_(1.0)
-        total += float(G.square().sum())
+        total += float(G.abs().square().sum())
         del G
     return total ** 0.5
 
@@ -1074,10 +1130,11 @@ def d_resid(torch, a, Q, R, mesh, blk: int = 2048) -> float:
     """||A - Q R||_F / ||A||_F of row-sharded A and Q, R replicated, in float64
     by blocks of columns."""
     from cuda_qr_tpu_torch.parallel.collectives import psum
-    Q64 = Q.double()
+    Q64 = wide(torch, Q)
     num = torch.zeros((), dtype=torch.float64, device=a.device)
     for c0 in range(0, R.shape[1], blk):
-        num += (a[:, c0:c0 + blk].double() - Q64 @ R[:, c0:c0 + blk].double()).square().sum()
+        num += (wide(torch, a[:, c0:c0 + blk]) - Q64 @ wide(torch, R[:, c0:c0 + blk])
+                ).abs().square().sum()
     return float(psum(num, mesh).sqrt()) / d_norm(torch, a, mesh)
 
 
@@ -1101,11 +1158,13 @@ def r_err(torch, R, R1) -> float:
     return float((pos(R) - pos(R1)).abs().max() / R1.double().abs().max())
 
 
-def d_rows(torch, seed: int, i: int, mloc: int, n: int, dev, shift: float = 0.0):
-    """Rank i's rows of a seeded Gaussian (block i from seed + i), plus
-    ``shift`` on the global diagonal: the full matrix is the blocks in order."""
+def d_rows(torch, seed: int, i: int, mloc: int, n: int, dev, shift: float = 0.0,
+           dtype=None):
+    """Rank i's rows of a seeded Gaussian (block i from seed + i; float32
+    unless ``dtype``), plus ``shift`` on the global diagonal: the full matrix
+    is the blocks in order."""
     g = torch.Generator(device=dev).manual_seed(seed * 1000 + i)
-    a = torch.randn(mloc, n, generator=g, dtype=torch.float32, device=dev)
+    a = torch.randn(mloc, n, generator=g, dtype=dtype or torch.float32, device=dev)
     if shift:
         r = torch.arange(mloc, device=dev)
         cols = r + i * mloc
@@ -1114,8 +1173,8 @@ def d_rows(torch, seed: int, i: int, mloc: int, n: int, dev, shift: float = 0.0)
     return a
 
 
-def d_full(torch, seed, P, mloc, n, dev, shift=0.0):
-    return torch.cat([d_rows(torch, seed, j, mloc, n, dev, shift) for j in range(P)])
+def d_full(torch, seed, P, mloc, n, dev, shift=0.0, dtype=None):
+    return torch.cat([d_rows(torch, seed, j, mloc, n, dev, shift, dtype) for j in range(P)])
 
 
 def d_say(mesh, line: str) -> None:
@@ -1271,6 +1330,37 @@ def dist_rank(mesh, smi: str, sizes: dict):
                                              every=4, path=sizes["checkpoint_dir"]),
           check_resume)
     del a, A, R1
+
+    # -- complex caqr: routed to the allgather combine with no kernel; the
+    # bk combine rejected
+    mc, ncx = sizes["complex"]
+    mloc = mc // P
+    a = d_rows(torch, 56, i, mloc, ncx, dev, dtype=torch.complex64)
+    A = as_row_sharded(a, mesh, mc)
+    try:
+        caqr_factor(A, mesh, cfg.replace(dtype=torch.complex64), combine="bk")
+    except ct.QRShapeError as exc:
+        d_say(mesh, f"caqr_factor complex64 combine='bk' raises QRShapeError: {exc}")
+    else:
+        raise AssertionError("caqr_factor took a complex matrix with combine='bk'")
+
+    def check_complex(res):
+        Q, R = res
+        g = d_qr_gates(torch, f"caqr {mc}x{ncx} complex64", a, Q.to_local(), R, mesh)
+        R1, t1 = on_rank0(torch, mesh, lambda: ct.qr(
+            d_full(torch, 56, P, mloc, ncx, dev, dtype=torch.complex64), cfg, mode="r"))
+        e = 0.0
+        if i == 0:
+            d, d1 = R.diagonal().abs().double(), R1.diagonal().abs().double()
+            e = float((d - d1).abs().max() / d1.max())
+        require(e < DIST_TOL, f"complex caqr: |diag R| vs qr's {e}")
+        return (f"caqr {mc}x{ncx} complex64 (allgather, routed): residual "
+                f"{g['residual']:.3e}, orthogonality {g['orthogonality']:.3e}, |diag R| vs "
+                f"single-device complex qr {e:.2e} (< {DIST_TOL:g}; qr mode='r' {t1:.3f} s)")
+    phase("caqr-complex", lambda: ct.caqr(A, mesh, cfg), check_complex)
+    require(all(v == 0 for k, v in out["caqr-complex"]["counts"].items() if k != "host_syncs"),
+            f"complex caqr launched a kernel: {out['caqr-complex']['counts']}")
+    del a, A
 
     # -- lstsq_dist at BASELINE config 4
     ml, nl = sizes["lstsq"]
@@ -1459,6 +1549,207 @@ def phase_dist(torch, smi):
     return total
 
 
+def phase_cli(torch, np, ct, dev, smi):
+    """The command line in process (``cli.main``), stdout captured, every
+    record's ``ok`` true; the kernels each call must launch; the factor's
+    chol_inv launches per qr_blocked call equal to the main path's (``qr`` of
+    a numpy array at DEFAULT_CONFIG) on the command's own input: the count
+    depends on the data (a panel's fallback adds one); float64 R against the
+    C oracle's; then one ``python -m cuda_qr_tpu_torch``.  Returns the
+    path's counts."""
+    import contextlib
+    import io
+    from cuda_qr_tpu_torch import cli
+    from cuda_qr_tpu_torch.oracle import binding
+    A = np.random.default_rng(12).standard_normal((N_MAIN, N_MAIN))   # the command's input
+    _, main_counts, _ = run_counted(torch, lambda: ct.qr(A.astype(np.float32)))
+    chol_per_qr = main_counts["chol_inv"]
+    del A
+    total = {}
+    for argv, needs in CLI_FULL + CLI_SMALL:
+        argv = (["--trials", str(CLI_TRIALS)] if "--trials" not in argv else []) + argv
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, counts, sec = run_counted(torch, lambda: cli.main(argv))
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        add_counts(total, counts)
+        say(f"  cli {' '.join(argv)}: {json.dumps(rec)}; {counts_str(counts)}; {sec:.3f} s "
+            f"({smi})")
+        require(rc == 0 and rec.get("ok", True), f"cli {argv}: rc {rc}, record {rec}")
+        for kernel in needs:
+            require(counts[kernel] > 0, f"cli {argv} launched no {kernel} kernel")
+        if argv[-3:] == ["factor", "8192", "8192"] and "--mixed" not in argv:
+            calls = CLI_TRIALS + 3      # first, warm-up, trials, verification
+            require(counts["chol_inv"] == chol_per_qr * calls,
+                    f"cli factor: chol_inv {counts['chol_inv']} launches in {calls} calls, "
+                    f"main path {chol_per_qr} a call")
+            say(f"  cli factor: chol_inv {counts['chol_inv'] // calls} launches a call, as the "
+                f"main path's {chol_per_qr}")
+    # float64 R of the port against the oracle's on BASELINE config 1's input
+    n, pr, pc = N_ORACLE
+    A = np.random.default_rng(12).standard_normal((n, n))
+    packed, _ = binding.mmqr(A, pr, pc)
+    cfg = ct.DEFAULT_CONFIG.replace(dtype=torch.float64)
+    R = ct.extract_r(ct.qr_blocked(torch.as_tensor(A, device=dev), cfg), n)
+    e = r_err(torch, R, torch.as_tensor(np.triu(packed[:n]), device=dev))
+    say(f"  float64 qr_blocked {n}^2 R vs the C oracle's (pr {pr}, pc {pc}), rows sign-"
+        f"normalized: {e:.3e} of max |R| (< {ORACLE_R_TOL:g})")
+    require(e < ORACLE_R_TOL, f"float64 R vs the oracle's: {e}")
+    # the real entry point, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cuda_qr_tpu_torch", *CLI_SUBPROCESS],
+                          cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if lines else {}
+    say(f"  python -m cuda_qr_tpu_torch {' '.join(CLI_SUBPROCESS)}: rc {proc.returncode}, "
+        f"{json.dumps(rec)}; {time.perf_counter() - t0:.3f} s")
+    require(proc.returncode == 0 and rec.get("ok") is True,
+            f"python -m cuda_qr_tpu_torch: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    return total
+
+
+def crandn(torch, shape, seed: int, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, generator=g, dtype=dtype, device=dev)
+
+
+def phase_complex(torch, ct, dev, smi):
+    """Complex QR on the Householder family, inputs made on the card: each
+    call gated, timed beside the library call on the same input, and held
+    to zero kernel launches; each kernel wrapper raises on a complex CUDA
+    tensor.  Returns the path's counts (all kernels 0)."""
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+    from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
+    from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    cfg = ct.DEFAULT_CONFIG
+    c64, c128 = torch.complex64, torch.complex128
+    total = {}
+
+    def run(name, fn, lib_fn):
+        out, counts, first = run_counted(torch, fn)
+        add_counts(total, counts)
+        require(all(v == 0 for k, v in counts.items() if k != "host_syncs"),
+                f"{name}: a kernel launched on complex input ({counts})")
+        t = cuda_time_ms(fn, reps=1, warmup=0)
+        t_lib = cuda_time_ms(lib_fn, reps=3, warmup=1)
+        return out, (f"{t:.2f} ms ({first:.3f} s first call) beside {t_lib:.2f} ms library; "
+                     f"{counts_str(counts)} ({smi})")
+
+    n = N_CX_QR
+    A = crandn(torch, (n, n), 60, c64, dev)
+    (Q, R), t = run(f"qr {n}^2 c64", lambda: ct.qr(A, cfg), lambda: torch.linalg.qr(A))
+    gate(f"complex qr {n}^2 c64", ct.check_qr_device(A, Q, R))
+    im = float(R.diagonal().imag.abs().max() / R.abs().max())
+    say(f"  complex qr {n}^2 c64: max |Im diag R| / max |R| {im:.1e} (<= 1e-05); {t}")
+    require(im <= 1e-5, f"complex qr: R's diagonal is not real ({im})")
+    del A, Q, R
+
+    m, n, k = N_CX_COMPLETE
+    A = crandn(torch, (m, n), 61, c64, dev)
+    (Qc, Rc), t = run(f"qr complete {m}x{n} c64", lambda: ct.qr(A, cfg, mode="complete"),
+                      lambda: torch.linalg.qr(A, mode="complete"))
+    require(Qc.shape == (m, m) and Rc.shape == (m, n), f"complete: {Qc.shape}, {Rc.shape}")
+    gate(f"complex qr complete {m}x{n} c64 (first n columns)",
+         ct.check_qr_device(A, Qc[:, :n], Rc[:n]))
+    orth = orth_defect(torch, Qc)
+    say(f"  complex qr complete: ||Q^H Q - I||_F of the whole {m}^2 Q {orth:.3e} "
+        f"(< {4 * m * 1.2e-7:.3e}); {t}")
+    require(orth < 4 * m * 1.2e-7, f"complete Q not unitary: {orth}")
+    del Qc, Rc
+    res = ct.qr_factor(A, cfg)
+    B = crandn(torch, (m, k), 62, c64, dev)
+    back, t = run("apply_q(apply_qt(B))", lambda: res.apply_q(res.apply_qt(B)),
+                  lambda: torch.linalg.qr(A))
+    e = float((back - B).norm() / B.norm())
+    say(f"  complex apply_q(apply_qt(B)) {m}x{k}: ||. - B|| / ||B|| {e:.3e} "
+        f"(< {n * 1.2e-7:.3e}); {t}")
+    require(e < n * 1.2e-7, f"complex ormqr round trip: {e}")
+    del A, B, back, res
+
+    n = N_CX128
+    A = crandn(torch, (n, n), 63, c128, dev)
+    (Q, R), t = run(f"qr {n}^2 c128", lambda: ct.qr(A, cfg), lambda: torch.linalg.qr(A))
+    gate(f"complex qr {n}^2 c128", ct.check_qr_device(A, Q, R))
+    say(f"  complex qr {n}^2 c128: {t}")
+    del A, Q, R
+
+    m, n, k = N_CX_LSTSQ
+    A = crandn(torch, (m, n), 64, c64, dev)
+    b = crandn(torch, (m, k), 65, c64, dev)
+    res, t = run(f"lstsq {m}x{n} c64", lambda: ct.lstsq(A, b, cfg),
+                 lambda: torch.linalg.lstsq(A, b))
+    want = torch.linalg.lstsq(A.to(c128), b.to(c128)).solution
+    e = float((res.x.to(c128) - want).norm() / want.norm())
+    say(f"  complex lstsq {m}x{n}, {k} right-hand sides: x vs torch.linalg.lstsq (complex128) "
+        f"{e:.3e} (< {DIST_TOL:g}); {t}")
+    require(e < DIST_TOL, f"complex lstsq: {e}")
+    del A, b, res, want
+
+    m, n = N_CX_LQ
+    A = crandn(torch, (m, n), 66, c64, dev)
+    (L, Q), t = run(f"lq {m}x{n} c64", lambda: ct.lq(A, cfg), lambda: torch.linalg.qr(A.mH))
+    gate(f"complex lq {m}x{n} c64 (as the QR of A^H)", ct.check_qr_device(A.mH, Q.mH, L.mH))
+    say(f"  complex lq {m}x{n}: {t}")
+    del A, L, Q
+
+    m, n = N_CX_TSQR
+    A = crandn(torch, (m, n), 67, c64, dev)
+    (Q, R), t = run(f"tsqr {m}x{n} c64", lambda: ct.tsqr(A, cfg), lambda: torch.linalg.qr(A))
+    gate(f"complex tsqr {m}x{n} c64", ct.check_qr_device(A, Q, R))
+    say(f"  complex tsqr {m}x{n}: {t}")
+    Rr, t = run(f"tsqr_r {m}x{n} c64", lambda: ct.tsqr_r(A, cfg),
+                lambda: torch.linalg.qr(A, mode="r"))
+    e = float((Rr.abs() - R.abs()).abs().max() / R.abs().max())
+    say(f"  complex tsqr_r: |R| vs tsqr's {e:.1e} (< 1e-05); {t}")
+    require(e < 1e-5, f"complex tsqr_r vs tsqr: {e}")
+    (Q3, R3), t = run(f"tsqr cholqr2 config {m}x{n} c64",
+                      lambda: ct.tsqr(A, cfg.replace(tsqr_leaf="cholqr2")),
+                      lambda: torch.linalg.qr(A))
+    gate(f"complex tsqr tsqr_leaf='cholqr2' (Householder leaves) {m}x{n} c64",
+         ct.check_qr_device(A, Q3, R3))
+    say(f"  complex tsqr, tsqr_leaf='cholqr2' routed to Householder leaves: {t}")
+    del A, Q, R, Rr, Q3, R3
+
+    # Does MIXED_CONFIG's TF32 reach complex64 GEMMs (cuBLAS math mode)?
+    from cuda_qr_tpu_torch.utils.config import matmul_precision
+    X, Y = crandn(torch, (2048, 2048), 71, c64, dev), crandn(torch, (2048, 2048), 72, c64, dev)
+    exact = X.to(c128) @ Y.to(c128)
+    errs = {}
+    for prec in ("highest", "tf32"):
+        with matmul_precision(prec):
+            errs[prec] = float((X @ Y - exact).abs().max() / exact.abs().max())
+    say(f"  complex64 GEMM 2048^2 vs complex128: 'highest' {errs['highest']:.2e}, 'tf32' "
+        f"{errs['tf32']:.2e}: TF32 {'reaches' if errs['tf32'] > 10 * errs['highest'] else 'does not reach'}"
+        f" complex64 GEMMs")
+    del X, Y, exact
+    n = N_CX_MIXED
+    A = crandn(torch, (n, n), 73, c64, dev)
+    (Q, R), counts, first = run_counted(torch, lambda: ct.qr(A, ct.MIXED_CONFIG))
+    add_counts(total, counts)
+    chk = ct.check_qr_device(A, Q, R)
+    say(f"  complex qr {n}^2 c64 at MIXED_CONFIG (trailing update under 'tf32'), measured, not "
+        f"gated: residual {chk.residual:.3e} (n eps {n * chk.eps:.3e}, ok={chk.residual_ok}), "
+        f"orthogonality {chk.orthogonality:.3e} (4n eps {4 * n * chk.eps:.3e}, "
+        f"ok={chk.orthogonality_ok}); {first:.3f} s first call; {counts_str(counts)}")
+    del A, Q, R
+
+    for name, call in (
+            ("chol_inv", lambda: chol_with_inv_kernel(torch.eye(64, dtype=c64, device=dev))),
+            ("geqrt", lambda: geqrt_base(crandn(torch, (256, 64), 68, c64, dev), 0)),
+            ("geqrt_batched", lambda: geqrt_batched(crandn(torch, (4, 256, 64), 69, c64, dev), 0)),
+            ("select_pivots", lambda: select_pivots_kernel(
+                crandn(torch, (160, 512), 70, c64, dev), torch.ones(512, dtype=c64, device=dev),
+                128))):
+        try:
+            call()
+        except (TypeError, ValueError) as exc:
+            say(f"  {name} on a complex CUDA tensor raises {type(exc).__name__}: {exc}")
+        else:
+            raise AssertionError(f"{name} took a complex CUDA tensor")
+    return total
+
+
 def gate(name, chk) -> None:
     say(f"{name}: residual {chk.residual:.3e} (< {chk.n * chk.eps:.3e}), "
         f"orthogonality {chk.orthogonality:.3e} (< {4 * chk.n * chk.eps:.3e}), "
@@ -1590,6 +1881,12 @@ def main() -> int:
                "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
                "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
 
+    # ---- the command line (in process, then one subprocess) and complex QR
+    say("command line (python -m cuda_qr_tpu_torch), in process:")
+    by_path["cli"] = phase_cli(torch, np, ct, dev, smi)
+    say("complex QR (Householder family; no kernel):")
+    by_path["complex"] = phase_complex(torch, ct, dev, smi)
+
     # ---- the distributed path (launches summed over its ranks)
     by_path["dist"] = phase_dist(torch, smi)
     for name, path_counts in by_path.items():
@@ -1598,10 +1895,13 @@ def main() -> int:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
     for name, needs in (("rsvd", ("geqrt_batched", "select_pivots")),
                         ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",)),
-                        ("dist", ("chol_inv", "geqrt", "geqrt_batched"))):
+                        ("dist", ("chol_inv", "geqrt", "geqrt_batched")),
+                        ("cli", ("chol_inv", "geqrt_batched", "select_pivots"))):
         for kernel in needs:
             if by_path[name][kernel] == 0:
                 raise AssertionError(f"path {name} launched no {kernel} kernel")
+    require(all(by_path["complex"][k] == 0 for k in launches),
+            f"path complex launched a kernel: {by_path['complex']}")
 
     # ---- timings (informational)
     flops = qr_flops(N_MAIN, N_MAIN)

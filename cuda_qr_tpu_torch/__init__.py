@@ -4,7 +4,11 @@ QR, the LQ/RQ/QL family, QR updating, the single-device spectral family
 (randomized range finders, QDWH polar and SVD, QDWH-eig) and the
 distributed layer over ``torch.distributed`` (row mesh, TSQR and CAQR
 across ranks, and the ``*_dist`` solvers), in PyTorch, with hand-written
-CUDA kernels for an NVIDIA H100 (sm_90a).
+CUDA kernels for an NVIDIA H100 (sm_90a).  Complex input (cgeqrf
+conventions) runs the Householder family: ``qr``, ``qr_factor``,
+``orgqr``/``ormqr``, ``lstsq``/``solve``, LQ/RQ/QL, ``tsqr`` and CAQR/TSQR
+across ranks.  ``python -m cuda_qr_tpu_torch`` is the command line
+(``cli.py``); ``oracle/`` holds the C99 sliding-panel oracle.
 
 The JAX package ``cuda_qr_tpu`` is the reference; this package keeps its
 factor storage and conventions so the two compare piece by piece.  It
@@ -32,6 +36,7 @@ from .parallel.mesh import row_mesh, row_sharding
 from .parallel.tsqr_dist import tsqr_dist
 from .utils.config import DEFAULT_CONFIG, MIXED_CONFIG, QRConfig
 from .utils.errors import QRError, QRNumericalError, QRShapeError
+from .utils.hostio import to_device, to_host
 from .utils.verify import QRCheck, check_qr, check_qr_device
 
 __all__ = [
@@ -46,4 +51,7 @@ __all__ = [
     "qr_col_delete", "orth", "rsvd", "eigh_rand", "norm2_est", "cond_est", "polar", "svd",
     "eigh", "eigh_batched", "caqr", "caqr_r", "caqr_ormqr", "tsqr_dist", "lstsq_dist",
     "rsvd_dist", "eigh_rand_dist", "polar_dist", "svd_dist", "row_mesh", "row_sharding",
+    "to_device", "to_host",
 ]
+
+__version__ = "0.3.0"

@@ -4,7 +4,9 @@
 Every rank calls these with the same arguments.  A is the full matrix on
 every rank (tensor or numpy; only this rank's rows reach its device) or a
 row-sharded DTensor.  Q comes back as a row-sharded DTensor of the
-logical (m x n) Q, R as a plain tensor, the same on every rank.
+logical (m x n) Q, R as a plain tensor, the same on every rank.  Complex A
+runs at its own dtype with the "allgather" combine and no kernel, whatever
+``combine`` says (the reference's routing, ``cuda_qr_tpu/models/caqr.py:49-52``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
+from ..ops.blocked import complex_config, is_complex
 from ..parallel.caqr import _logical_rows, caqr_factor, caqr_orgqr
 from ..parallel.collectives import coord, redistribute_rows
 from ..parallel.mesh import as_row_sharded, mesh_device
@@ -69,10 +72,15 @@ def _pad_for_mesh(A, mesh: DeviceMesh, nb: int, layout: str = "block"):
     return as_row_sharded(a, mesh, m_pad)
 
 
-def _check(A) -> None:
+def _check(A, config: QRConfig, combine: str):
+    """(config, combine) A runs at, after the shape check: complex A takes
+    its own dtype, no kernel and the "allgather" combine."""
     m, n = A.shape
     if m < n:
         raise QRShapeError(f"caqr requires m >= n, got {m}x{n}")
+    if is_complex(A):
+        return complex_config(A, config), "allgather"
+    return config, combine
 
 
 def caqr(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
@@ -87,7 +95,7 @@ def caqr(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
     each panel's tree Q in basis-kernel form (one nb x trailing all_reduce
     per panel); "allgather" is the one-round redundant stacked-QR combine.
     """
-    _check(A)
+    config, combine = _check(A, config, combine)
     m, n = A.shape
     nb, P = config.panel_width, mesh.size(0)
     Ap = _pad_for_mesh(A, mesh, nb, layout)
@@ -103,7 +111,7 @@ def caqr(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
 def caqr_r(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
            combine: str = "bk") -> torch.Tensor:
     """R-only distributed factorization: R (n x n), replicated."""
-    _check(A)
+    config, combine = _check(A, config, combine)
     n = A.shape[1]
     Ap = _pad_for_mesh(A, mesh, config.panel_width)
     _, R = caqr_factor(Ap, mesh, config, combine=combine)

@@ -1,13 +1,13 @@
 """Triangular-orthogonal decompositions derived from QR: LQ, RQ, QL and
 ``qr_multiply`` (counterpart of ``cuda_qr_tpu/models/decomp.py``).
 
-Each is a reduction onto the port's blocked QR by transposes and row/column
-reversals, so every member runs the same panels and kernels as ``qr`` and
-inherits its gradient.  Conventions match scipy.linalg:
+Each is a reduction onto the port's blocked QR by conjugate transposes and
+row/column reversals, so every member runs the same panels and kernels as
+``qr`` and inherits its gradient (real input) and its complex support.  Conventions match scipy.linalg:
   lq: A = L Q          L (m x k) lower-trapezoidal, Q (k x n) orthonormal rows
   rq: A = R Q          R (m x k) upper-trapezoidal (k = n when m >= n)
   ql: A = Q L          Q (m x k) orthonormal cols,  L (k x n) lower
-with k = min(m, n) in economic ("reduced") mode.  Real dtypes only.
+with k = min(m, n) in economic ("reduced") mode.
 """
 
 from __future__ import annotations
@@ -21,35 +21,40 @@ from ..utils.errors import QRShapeError
 from .qr import qr, qr_factor
 
 
+def _ct(X: torch.Tensor) -> torch.Tensor:
+    """Conjugate transpose, resolved (a real X gives the plain transpose view)."""
+    return X.mH.resolve_conj()
+
+
 def lq(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
     """LQ decomposition: A = L @ Q with Q's rows orthonormal.
 
-    The transpose of qr(A^T): A^T = Q~ R~ gives A = R~^T Q~^T.
+    The conjugate transpose of qr(A^H): A^H = Q~ R~ gives A = R~^H Q~^H.
     mode='reduced' gives L (m x k), Q (k x n); mode='l' returns L only;
     mode='complete' gives L (m x n), Q (n x n).
     """
     A = as_tensor(A, config)
     if mode == "l":
-        return qr(A.mT, config, mode="r").mT
+        return _ct(qr(A.mH, config, mode="r"))
     qmode = "complete" if mode == "complete" else "reduced"
-    Qt, Rt = qr(A.mT, config, mode=qmode)
-    return Rt.mT, Qt.mT
+    Qt, Rt = qr(A.mH, config, mode=qmode)
+    return _ct(Rt), _ct(Qt)
 
 
 def rq(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
     """RQ decomposition: A = R @ Q with Q's rows orthonormal, R upper.
 
-    With J the exchange matrix, (J_m A)^T = Q~ R~ gives
-    A = (J R~^T J)(J Q~^T), and J L J of a lower-triangular L is upper.
+    With J the exchange matrix, (J_m A)^H = Q~ R~ gives
+    A = (J R~^H J)(J Q~^H), and J L J of a lower-triangular L is upper.
     mode='r' returns R only; mode='complete' gives R (m x n), Q (n x n).
     """
     A = as_tensor(A, config)
-    B = torch.flip(A, (0,)).mT        # (J_m A)^T, n x m
+    B = torch.flip(A, (0,)).mH        # (J_m A)^H, n x m
     if mode == "r":
-        return torch.flip(qr(B, config, mode="r").mT, (0, 1))
+        return torch.flip(_ct(qr(B, config, mode="r")), (0, 1))
     qmode = "complete" if mode == "complete" else "reduced"
     Qt, Rt = qr(B, config, mode=qmode)
-    return torch.flip(Rt.mT, (0, 1)), torch.flip(Qt.mT, (0,))
+    return torch.flip(_ct(Rt), (0, 1)), torch.flip(_ct(Qt), (0,))
 
 
 def ql(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
@@ -73,7 +78,7 @@ def qr_multiply(A, C, mode: str = "left", transpose: bool = False,
 
     Returns (QC, R) for mode='left' (C is (k x p); (m x p) out) or
     (CQ, R) for mode='right' (C is (p x m); (p x k) out), k = min(m, n).
-    transpose=True applies Q^T instead of Q (then mode='left' takes C
+    transpose=True applies Q^H instead of Q (then mode='left' takes C
     (m x p) -> (k x p), mode='right' takes C (p x k) -> (p x m)).
     Everything goes through the compact ormqr panel sweep.
     """
@@ -99,9 +104,9 @@ def qr_multiply(A, C, mode: str = "left", transpose: bool = False,
             out = res.apply_q(F.pad(C2, (0, 0, 0, m - k)))
     elif mode == "right":
         if transpose:
-            out = res.apply_q(F.pad(C2.mT, (0, 0, 0, m - k))).mT
+            out = _ct(res.apply_q(F.pad(C2.mH, (0, 0, 0, m - k))))
         else:
-            out = res.apply_qt(C2.mT)[:k].mT
+            out = _ct(res.apply_qt(C2.mH)[:k])
     else:
         raise QRShapeError(f"mode must be 'left' or 'right', got {mode!r}")
     if C.dim() == 1:

@@ -4,13 +4,15 @@ counterpart of ``cuda_qr_tpu/models/lstsq.py``.
 Pipeline: ``qr_blocked`` -> Q^T b without forming Q (``ormqr``) ->
 back-substitution R x = (Q^T b)[:n].
 
-Differentiation: an ``autograd.Function`` with the reference's
+Differentiation (real input): an ``autograd.Function`` with the reference's
 implicit-function VJP (the adjoint of the normal equations), two n x n
 triangular solves and three GEMMs instead of differentiating through the
 factorization.  With z solving A^T A z = xbar and rhat the unit residual:
   bbar = A z + rhat diag(rhobar)
   Abar = r z^T - (A z) x^T - rhat diag(rhobar) x^T
 (the A dx term of d||r|| vanishes because A^T r = 0 at the solution).
+Complex input takes the plain path, as the reference's complex branch does
+(``cuda_qr_tpu/models/lstsq.py:120-123``).
 
 ``lstsq_dist`` is the distributed counterpart over the row mesh (BASELINE
 config 4 at mesh scale), through the R-only CAQR of [A | b].
@@ -83,12 +85,12 @@ def lstsq(A, b, config: QRConfig = DEFAULT_CONFIG, damp: float = 0.0) -> LstsqRe
     damp > 0 solves the ridge problem min ||A x - b||^2 + damp^2 ||x||^2 by
     factoring the stacked [A; damp I] system (no A^T A); residual_norm is
     then the augmented norm, which includes the damp ||x|| term.  The
-    residual norm comes from ||(Q^T b)[n:]||, with no extra GEMM.
-    Differentiable in (A, b).
+    residual norm comes from ||(Q^H b)[n:]||, with no extra GEMM.
+    Differentiable in (A, b) for real input; complex input is solved on
+    the plain path.
     """
     A = as_tensor(A, config)
     b = as_tensor(b, config).to(A.device)
-    _require_real(b)      # A is checked by qr_blocked
     m, n = A.shape
     if damp:
         A = torch.cat([A, damp * torch.eye(n, dtype=A.dtype, device=A.device)], 0)
@@ -97,7 +99,11 @@ def lstsq(A, b, config: QRConfig = DEFAULT_CONFIG, damp: float = 0.0) -> LstsqRe
     if m < n:
         raise QRShapeError(f"lstsq requires m >= n, got {m}x{n}")
     vec = b.dim() == 1
-    x, resid = _Lstsq.apply(A, b[:, None] if vec else b, config)
+    B = b[:, None] if vec else b
+    if A.is_complex() or B.is_complex():
+        x, resid, _ = _lstsq_math(A, B, config)
+    else:
+        x, resid = _Lstsq.apply(A, B, config)
     if vec:
         x, resid = x[:, 0], resid[0]
     return LstsqResult(x=x, residual_norm=resid)
@@ -123,8 +129,10 @@ def lstsq_dist(A, b, mesh, config: QRConfig = DEFAULT_CONFIG,
     residual norm of each right-hand side is a column norm of the rho
     block; b never moves between ranks.  (Both are invariant to R's
     row-sign ambiguity.)  A (m x n, m >= n, full rank) and b ((m,) or
-    (m, k)) are full arrays on every rank, or row-sharded DTensors.
+    (m, k)) are full arrays on every rank, or row-sharded DTensors.  Real
+    only: complex input is ROADMAP A5b.
     """
+    _require_real(A, b)
     m, n = A.shape
     vec = len(b.shape) == 1
     if b.shape[0] != m:

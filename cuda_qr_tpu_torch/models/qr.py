@@ -3,15 +3,16 @@
 ``qr(A)`` returns explicit (Q, R) in numpy.linalg.qr-style modes;
 ``qr_factor(A)`` returns the packed factorization for later orgqr/ormqr use.
 The reduced mode is differentiable through ``thin_qr_vjp``, an
-``autograd.Function`` that needs only the primal outputs.
+``autograd.Function`` that needs only the primal outputs, for real input;
+complex input (cgeqrf conventions: complex tau, real diagonal of R) takes
+the plain path, as the reference skips its custom VJP there.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.blocked import (PackedQR, _require_real, as_tensor, extract_r, orgqr,
-                           ormqr, qr_blocked)
+from ..ops.blocked import PackedQR, as_tensor, extract_r, orgqr, ormqr, qr_blocked
 from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
@@ -123,10 +124,10 @@ def qr(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
       transposed like numpy's raw mode; Householder-convention panels are
       forced (the basis-kernel default stores a non-LAPACK V block).  2-D
       m >= n input only.
-    Leading batch dimensions are factored one matrix at a time.
+    Leading batch dimensions are factored one matrix at a time.  Complex
+    input works in every mode (geqr2 panels at its dtype; not differentiable).
     """
     A = as_tensor(A, config)
-    _require_real(A)
     if mode == "raw":
         if A.dim() != 2 or A.shape[0] < A.shape[1]:
             raise QRShapeError(
@@ -148,8 +149,10 @@ def qr(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
         return (Qs.reshape(batch + Qs.shape[-2:]), Rs.reshape(batch + Rs.shape[-2:]))
     m, n = A.shape
     if m >= n:
-        if mode == "reduced":
+        if mode == "reduced" and not A.is_complex():
             return ThinQRFunction.apply(A, config, _thin_qr_factor)
+        if mode == "reduced":
+            return _thin_qr_factor(A, config)
         res = qr_factor(A, config)
         if mode == "r":
             return res.R

@@ -17,6 +17,10 @@ back to the Householder tree when its certificates fail.
 Each ``lax.cond`` of the reference is one ``smalllinalg.host_decision``
 here (counted in ``host_syncs``): the direct path's Taylor bypass and its
 fallback, and the cholqr2 leaf fallback of a tree.
+
+Complex input keeps its dtype and takes Householder leaves and tree nodes
+on the plain geqr2 + larft, whatever ``tsqr_leaf`` says
+(``_complex_config``, the reference's routing).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.blocked import _require_real, as_tensor
+from ..ops.blocked import as_tensor, complex_config, is_complex
 from ..ops.geqrt import geqrt_base, geqrt_batched, geqrt_batched_plain, supported
 from ..ops.householder import larfb, unpack_r, unpack_v
 from ..ops.smalllinalg import _eye, chol_with_inv_auto, host_decision
@@ -53,10 +57,10 @@ def _batched_qr(blocks: torch.Tensor, config: QRConfig):
 
 def _batched_orgqr(packed: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Explicit thin Q (L, b, n) from batched packed factors: larfb of
-    I (b x n), whose V^T I is the top n x n block of V^T."""
+    I (b x n), whose V^H I is the top n x n block of V^H."""
     n = packed.shape[-1]
     V = unpack_v(packed)
-    Q = -(V @ (T @ V[..., :n, :].mT))
+    Q = -(V @ (T @ V[..., :n, :].mH))
     Q[..., :n, :] += _eye(n, Q)
     return Q
 
@@ -136,12 +140,21 @@ def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
     return Q, R, bad
 
 
-def _prepare(A, config: QRConfig) -> torch.Tensor:
+def _complex_config(A, config: QRConfig) -> QRConfig:
+    """Complex A keeps its dtype and takes Householder leaves with no kernel
+    (``cuda_qr_tpu/models/tsqr.py:105-111``); real A keeps ``config``."""
+    if is_complex(A):
+        return complex_config(A, config).replace(tsqr_leaf="householder")
+    return config
+
+
+def _prepare(A, config: QRConfig):
+    """(A as a matrix in the working dtype, the configuration it runs at)."""
     A = as_tensor(A, config)
-    _require_real(A)
     if A.dim() != 2:
         raise QRShapeError(f"tsqr needs a matrix, got shape {tuple(A.shape)}")
-    return A.to(config.dtype)
+    config = _complex_config(A, config)
+    return A.to(config.dtype), config
 
 
 def tsqr(A, config: QRConfig = DEFAULT_CONFIG):
@@ -154,9 +167,13 @@ def tsqr(A, config: QRConfig = DEFAULT_CONFIG):
     ~sqrt(m)*eps (the Gram accumulation error); the default Householder
     leaves give n*eps-class orthogonality at any m.
 
-    Differentiable through the shared thin-QR VJP (``models/qr.py``).
+    Differentiable through the shared thin-QR VJP (``models/qr.py``) for
+    real input; complex input takes Householder leaves, not differentiated.
     """
-    return ThinQRFunction.apply(_prepare(A, config), config, _tsqr_impl)
+    A, config = _prepare(A, config)
+    if A.is_complex():
+        return _tsqr_impl(A, config)
+    return ThinQRFunction.apply(A, config, _tsqr_impl)
 
 
 def _householder_small(A: torch.Tensor, config: QRConfig, with_q: bool = True):
@@ -225,7 +242,7 @@ def _tsqr_tree(A: torch.Tensor, config: QRConfig):
 def tsqr_r(A, config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """R-only TSQR (no Q build-down; the direct cholqr2 path skips its Q
     pass): the cheap path for normal-equation style uses."""
-    return _tsqr_r_impl(_prepare(A, config), config)
+    return _tsqr_r_impl(*_prepare(A, config))
 
 
 def _tsqr_r_impl(A: torch.Tensor, config: QRConfig) -> torch.Tensor:

@@ -13,6 +13,12 @@ on rows >= its first panel's offset, since the rows above are final.
 Storage is ``PackedQR`` (packed V/R, taus, Ts, VJs), the reference's, so
 factors compare one to one and carry across (``utils/interop.py``).  The
 trailing, merge, Gram and orgqr GEMMs are plain ``torch.matmul``.
+
+Complex input (LAPACK cgeqrf conventions) runs the plain geqr2 panels at its
+own dtype whatever ``panel_method`` says, as the reference routes it
+(``cuda_qr_tpu/ops/blocked.py:381-386``): the CholeskyQR2 panels and the
+kernels are real-only.  The route is chosen here, before any kernel wrapper
+is reached; every transpose of V and T is the conjugate one.
 """
 
 from __future__ import annotations
@@ -48,14 +54,36 @@ def as_tensor(A, config: QRConfig) -> torch.Tensor:
     return torch.tensor(np.asarray(A), device=config.device)
 
 
-def _require_real(*tensors: torch.Tensor) -> None:
-    if any(t.is_complex() for t in tensors):
+def is_complex(A) -> bool:
+    """Whether A (a tensor, DTensor or numpy array) has a complex dtype."""
+    dt = A.dtype
+    return dt.is_complex if isinstance(dt, torch.dtype) else np.dtype(dt).kind == "c"
+
+
+def _require_real(*tensors) -> None:
+    """Raise for complex input to an entry point whose complex form is not
+    ported yet (ROADMAP.md, Queue A, A5b)."""
+    if any(is_complex(t) for t in tensors):
         raise NotImplementedError(
-            "complex QR is not ported yet (ROADMAP.md, Queue A: complex support)")
+            "complex input to this function is not ported yet (ROADMAP.md, Queue A, A5b: "
+            "complex Givens updates, QRCP and the rank solvers, the spectral family, "
+            "the complex *_dist solvers)")
+
+
+def complex_config(A, config: QRConfig) -> QRConfig:
+    """The configuration complex A runs at: its own dtype, the plain geqr2
+    panels and no kernel (the reference's ``use_pallas=False,
+    use_chol_kernel=False``).  Real A keeps ``config``."""
+    if not is_complex(A):
+        return config
+    dtype = A.dtype if isinstance(A.dtype, torch.dtype) else torch.from_numpy(
+        np.empty(0, A.dtype)).dtype
+    return config.replace(dtype=dtype, use_kernels=False, use_chol_kernel=False)
 
 
 def as_real_matrix(A, config: QRConfig, name: str) -> torch.Tensor:
-    """``as_tensor`` for an entry point ``name`` that takes one real matrix."""
+    """``as_tensor`` for an entry point ``name`` that takes one real matrix
+    (its complex form is ROADMAP A5b)."""
     A = as_tensor(A, config)
     _require_real(A)
     if A.dim() != 2:
@@ -104,10 +132,11 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
 
     Any m, n: A is zero-padded to the panel grid.  A is not modified.
     bfloat16 storage keeps the packed panels in bfloat16 and taus/Ts/VJs and
-    the GEMMs in float32.
+    the GEMMs in float32.  Complex A is factored at its own dtype on geqr2
+    panels (``complex_config``).
     """
     A = as_tensor(A, config)
-    _require_real(A)
+    config = complex_config(A, config)
     m, n = A.shape
     if m < n:
         raise QRShapeError(f"qr_blocked requires m >= n, got {m}x{n}")
@@ -145,7 +174,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
         if rest.shape[1]:
             with matmul_precision(config.resolved_trailing_precision()):
                 V, T = _merge_group(Vs, Tg)
-                rest -= V @ (T.T @ (V.T @ rest))
+                rest -= V @ (T.mH @ (V.mH @ rest))
             if sdt != cdt:
                 rest.copy_(rest.to(sdt))
     return PackedQR(packed=Ap.to(sdt), taus=taus, Ts=Ts, VJs=VJs)
@@ -193,7 +222,7 @@ def orgqr(factors: PackedQR, m: int, n: int,
 
 def ormqr(factors: PackedQR, B, transpose: bool = True,
           config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
-    """Q^T B (transpose=True) or Q B for B (m x p), without forming Q."""
+    """Q^H B (transpose=True) or Q B for B (m x p), without forming Q."""
     packed = factors.packed
     B = as_tensor(B, config)
     m_pad, n_pad = packed.shape

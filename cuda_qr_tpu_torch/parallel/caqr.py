@@ -26,7 +26,11 @@ Every data-dependent branch is one rank-uniform decision
 
 The Q operator is kept in two-level form: per-rank packed V/T (leaf level)
 plus per-panel tree factors; ``caqr_orgqr`` forms the thin Q and
-``caqr_ormqr`` applies Q or Q^T to a row-sharded B.
+``caqr_ormqr`` applies Q or Q^H to a row-sharded B.
+
+Complex input needs the "allgather" combine and a complex config dtype
+(``models.caqr`` routes both): the "bk" combine's CholeskyQR2 takes real
+Grams, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.tsqr import _geqrt
-from ..ops.blocked import _require_real
+from ..ops.blocked import is_complex
 from ..ops.householder import larfb, unpack_v
 from ..ops.smalllinalg import _eye, lu_with_inv
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
@@ -311,12 +315,19 @@ def _check_factor(A, mesh: DeviceMesh, config: QRConfig, layout: str, combine: s
         raise ValueError(f"unknown combine {combine!r}")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}")
+    if is_complex(A):
+        if combine == "bk":
+            raise QRShapeError(
+                "complex CAQR needs combine='allgather' (the basis-kernel "
+                "combine's CholeskyQR2 takes real Grams); models.caqr.caqr "
+                "routes this automatically")
+        if not config.dtype.is_complex:
+            raise QRShapeError(f"complex CAQR needs a complex config dtype, got {config.dtype}")
 
 
 def _local_copy(A, mesh: DeviceMesh, config: QRConfig) -> torch.Tensor:
     """This rank's rows of A in config.dtype, as a fresh tensor."""
     a, _ = shard_rows(A, mesh)
-    _require_real(a)
     return a.to(config.dtype, copy=True)
 
 
@@ -414,7 +425,6 @@ def caqr_ormqr(factors, B, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
     m, n = factors.local_packed.shape
     bk, ap, lTs, tree = _factors_local(factors)
     b, mb = shard_rows(B, mesh)
-    _require_real(b)
     if mb != m:
         raise QRShapeError(f"B has {mb} rows, the factors {m}")
     b = b.to(ap.dtype, copy=True)

@@ -15,6 +15,8 @@ ranks, and the thin Q is recovered by one n x n GEMM per rank:
                breaks down; the fallback is one rank-uniform decision.
 
 Only n x n triangles cross between ranks; every GEMM is rank-local.
+Complex input runs "allgather" and "butterfly" on Householder leaves and
+nodes at its own dtype; "cholesky" is real-only, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,8 +24,8 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.tsqr import _geqrt, tsqr as tsqr_local
-from ..ops.blocked import _require_real
+from ..models.tsqr import _complex_config, _geqrt, tsqr as tsqr_local
+from ..ops.blocked import is_complex
 from ..ops.householder import larfb, unpack_r, unpack_v
 from ..ops.smalllinalg import _eye, cholesky_with_inv
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
@@ -107,11 +109,16 @@ def _tsqr_dist_local(a: torch.Tensor, mesh: DeviceMesh, config: QRConfig,
         return Q_l @ mine, R
 
 
-def _check(strategy: str, m: int, P: int) -> None:
+def _check(strategy: str, m: int, P: int, complex_input: bool = False) -> None:
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}")
     if m % P:
         raise ValueError(f"m={m} must divide the mesh ({P} shards)")
+    if strategy == "cholesky" and complex_input:
+        # _cholesky_combine's Grams are real-only; the Householder combines
+        # are conjugation-correct throughout.
+        raise ValueError("strategy='cholesky' is real-only; use 'allgather' or "
+                         "'butterfly' for complex input")
     if strategy == "butterfly" and (P & (P - 1)) != 0:
         # s ^ step would address partners >= P: a wrong factorization.
         raise ValueError(f"butterfly strategy needs a power-of-two shard count, got {P};"
@@ -124,10 +131,11 @@ def tsqr_dist(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
     Returns (Q, a row-sharded DTensor like A; R, replicated).
 
     A: a row-sharded DTensor, or the full matrix on every rank (tensor or
-    numpy).  Strategies as in the module docstring.  Real input only.
+    numpy).  Strategies as in the module docstring; complex input takes
+    "allgather" or "butterfly".
     """
-    _check(strategy, A.shape[0], mesh.size(0))
+    _check(strategy, A.shape[0], mesh.size(0), is_complex(A))
     a, m = shard_rows(A, mesh)
-    _require_real(a)
+    config = _complex_config(a, config)
     Q, R = _tsqr_dist_local(a.to(config.dtype), mesh, config, strategy)
     return as_row_sharded(Q, mesh, m), R

@@ -1,14 +1,16 @@
-"""FLOP count and a CUDA-event timer.
+"""FLOP count, a CUDA-event timer, and the CLI's benchmark harness.
 
-The reference's harness (``cuda_qr_tpu/utils/timing.py``) subtracted a
-host<->device round trip of a remote TPU link from its loop time; a local
-card has no such link, so the timer here reads CUDA events around a run of
-calls and has no correction term.
+The reference's harness (``cuda_qr_tpu/utils/timing.py``) forced completion
+by fetching a scalar and subtracted a host<->device round trip of a remote
+TPU link from its loop time; a local card has no such link, so the timers
+here read CUDA events around a run of calls and have no correction term.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+import time
+from typing import Any, Callable
 
 import torch
 
@@ -37,3 +39,47 @@ def cuda_time_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> f
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@dataclasses.dataclass
+class BenchResult:
+    compile_s: float         # the first call's seconds, kernel build and load included
+    steady_s: float          # mean seconds per steady call
+    reps: int
+    flops: float | None = None
+
+    @property
+    def gflops(self) -> float | None:
+        if self.flops is None:
+            return None
+        return self.flops / self.steady_s / 1e9
+
+
+def bench(fn: Callable[..., Any], *args, reps: int = 3,
+          flops: float | None = None) -> BenchResult:
+    """Time ``fn(*args)``: the first call by the host clock around a
+    synchronized call (any kernel build and load included), then the mean of
+    ``reps`` steady calls after one untimed call, by CUDA events
+    (``cuda_time_ms``) when a tensor argument (a DTensor too) is on a CUDA
+    device, and by ``time.perf_counter`` only when the caller's tensors are
+    on the CPU."""
+    cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    fn(*args)
+    sync()
+    compile_s = time.perf_counter() - t0
+    if cuda:
+        steady = cuda_time_ms(lambda: fn(*args), reps=reps, warmup=1) / 1e3
+    else:
+        fn(*args)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args)
+        steady = (time.perf_counter() - t0) / reps
+    return BenchResult(compile_s=compile_s, steady_s=steady, reps=reps, flops=flops)

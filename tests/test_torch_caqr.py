@@ -10,8 +10,8 @@ Both packages run the same Householder leaves and the same combines, so Q
 and R agree directly: float64 to 1e-10 (R relative to max|A|), float32 to
 1e-4.  Every result also passes the reference's own gates (residual
 4 n eps, orthogonality 8 n eps).  Error paths raise the reference's
-exception types; complex input raises NotImplementedError in the port
-(complex support is not ported yet).
+exception types.  Complex CAQR is compared in tests/test_torch_complex.py;
+here only its error paths.
 """
 
 import jax
@@ -154,7 +154,7 @@ def error_cases():
         ("err-layout", ("parallel.caqr:caqr_factor", (A, MESH, cfg), {"layout": "2d"})),
         ("err-shape", ("parallel.caqr:caqr_factor", (gaussian(42, 68, 16), MESH, cfg), {})),
         ("err-wide", ("caqr", (gaussian(43, 16, 32), MESH, cfg), {})),
-        ("err-complex", ("caqr", (A + 1j * A, MESH, cfg), {})),
+        ("err-complex", ("lstsq_dist", (A + 1j * A, A[:, 0], MESH, cfg), {})),
         ("err-complex-factor", ("parallel.caqr:caqr_factor",
                                 (np.ones((64, 16), np.complex64), MESH, cfg), {})),
     ]
@@ -349,9 +349,11 @@ def test_resume_rejects_mismatched_problem(port, P):
 @pytest.mark.parametrize("case,exc", [("err-combine", ValueError), ("err-layout", ValueError),
                                       ("err-shape", QRShapeError), ("err-wide", QRShapeError),
                                       ("err-complex", NotImplementedError),
-                                      ("err-complex-factor", NotImplementedError)])
+                                      ("err-complex-factor", QRShapeError)])
 def test_error_paths(port, ref_meshes, P, case, exc):
-    """The reference's exception types (complex input: not ported yet)."""
+    """The reference's exception types: complex caqr_factor needs the
+    allgather combine (QRShapeError); lstsq_dist's complex form is still
+    to port (ROADMAP A5b)."""
     assert isinstance(port[(P, case)], exc), port[(P, case)]
     if case in ("err-combine", "err-shape"):
         A = gaussian(41, 64, 16) if case == "err-combine" else gaussian(42, 68, 16)

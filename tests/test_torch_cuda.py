@@ -403,3 +403,54 @@ def test_library_eigh_at_its_float64_threshold(dev, n):
     assert float((w.double() - w_ref).abs().max()) < n * eps * float(w_ref[-1])
     H64, V64 = H.double(), V.double()
     assert float((H64 @ V64 - V64 * w.double()).norm() / H64.norm()) < n * eps
+
+
+def _launch_counts():
+    return (chol_with_inv_kernel.launches, geqrt_base.launches, geqrt_batched.launches,
+            select_pivots_kernel.launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_qr_on_the_card_launches_no_kernel(dev, dtype):
+    """Complex QR takes the plain geqr2 panels (the reference's routing):
+    the gates hold, R's diagonal is real, and no kernel launches."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    A = torch.randn(1000, 300, generator=g, dtype=dtype, device=dev)
+    before = _launch_counts()
+    Q, R = ct.qr(A)
+    x = ct.lstsq(A, A[:, :3]).x
+    Qt, Rt = ct.tsqr(A, ct.DEFAULT_CONFIG.replace(tsqr_leaf="cholqr2", block_rows=256))
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    assert ct.check_qr_device(A, Q, R).ok and ct.check_qr_device(A, Qt, Rt).ok
+    assert float(R.diagonal().imag.abs().max()) == 0.0
+    eye = torch.eye(300, 3, dtype=dtype, device=dev)
+    assert float((x - eye).abs().max()) < (1e-4 if dtype == torch.complex64 else 1e-10)
+
+
+@pytest.mark.parametrize("name", ["chol_inv", "geqrt", "geqrt_batched", "select_pivots"])
+def test_kernel_wrappers_raise_on_complex(dev, name):
+    c64 = torch.complex64
+    call = {"chol_inv": lambda: chol_with_inv_kernel(torch.eye(64, dtype=c64, device=dev)),
+            "geqrt": lambda: geqrt_base(torch.ones(256, 64, dtype=c64, device=dev), 0),
+            "geqrt_batched": lambda: geqrt_batched(torch.ones(4, 256, 64, dtype=c64, device=dev), 0),
+            "select_pivots": lambda: select_pivots_kernel(
+                torch.ones(160, 512, dtype=c64, device=dev), torch.ones(512, dtype=c64, device=dev),
+                128)}[name]
+    before = _launch_counts()
+    with pytest.raises(TypeError):
+        call()
+    assert _launch_counts() == before
+
+
+def test_cli_factor_on_the_card(dev, capsys):
+    """``python -m cuda_qr_tpu_torch factor 1024 1024`` in process, on the
+    card by default: rc 0, the record's gates ok, chol_inv launched."""
+    import json
+
+    from cuda_qr_tpu_torch import cli
+    before = chol_with_inv_kernel.launches
+    assert cli.main(["--trials", "1", "factor", "1024", "1024"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["cmd"] == "factor" and rec["ok"] is True
+    assert chol_with_inv_kernel.launches > before

@@ -105,5 +105,7 @@ def test_qr_multiply_vector_and_errors(rng):
         ct.qr_multiply(A, rng.standard_normal((41, 2)), config=CFG)
     with pytest.raises(ct.QRShapeError):
         ct.qr_multiply(A, c, mode="middle", config=CFG)
-    with pytest.raises(NotImplementedError):
-        ct.lq(torch.zeros((8, 16), dtype=torch.complex64), config=CFG)
+    Z = torch.complex(torch.ones((8, 16)), torch.arange(128.0).reshape(8, 16))
+    L, Q = ct.lq(Z, config=CFG)             # complex input works (conjugate transposes)
+    assert L.dtype == torch.complex64
+    assert float((L @ Q - Z).abs().max()) < 1e-3

@@ -63,7 +63,7 @@ def port():
         cases += [("ill", ("tsqr_dist", (ill_conditioned(7, 1024, 16), MESH, port_cfg(RCFG32),
                                          "cholesky"), {})),
                   ("complex", ("tsqr_dist", (gaussian(8, 64, 8) * (1 + 1j), MESH,
-                                             port_cfg(RCFG)), {}))]
+                                             port_cfg(RCFG), "cholesky"), {}))]
         out = run_ranks(P, call_many, [c for _, c in cases], device="cpu", join_timeout=300)[0]
         results.update({(P, cid): r for (cid, _), r in zip(cases, out)})
     return results
@@ -109,7 +109,10 @@ def test_tsqr_dist_cholesky_fallback_ill_conditioned(port, P):
 
 @pytest.mark.parametrize("P", [4, 8])
 def test_tsqr_dist_complex_not_ported(port, P):
-    assert isinstance(port[(P, "complex")], NotImplementedError)
+    """Complex input runs "allgather" and "butterfly" (tests/test_torch_complex.py);
+    the CholeskyQR2 combine is real-only, as in the reference."""
+    err = port[(P, "complex")]
+    assert isinstance(err, ValueError) and "real-only" in str(err), err
 
 
 def stand_in(P):
