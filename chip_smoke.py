@@ -21,12 +21,18 @@ sharing the card over gloo when there is one card: ``tsqr_dist`` at
 1,048,576 x 128 with every strategy, ``caqr`` at 16,384^2, the CAQR variants,
 ``caqr_ormqr`` and a crash-and-resume at 8,192^2, ``lstsq_dist``,
 ``polar_dist``/``svd_dist``, ``rsvd_dist`` and ``eigh_rand_dist``, a complex64
-``caqr`` on the allgather combine, each also against the single-device
-function on the same input, and ``caqr`` on one rank over NCCL), the command
-line (``cli.main`` in process for every command, at full width for factor,
-compare, tsqr, pivoted, lstsq, batched and the oracle, then one ``python -m
-cuda_qr_tpu_torch``) and complex QR (complex64/128 ``qr`` in every mode,
-``lstsq``, ``lq``, ``tsqr``/``tsqr_r``, with no kernel launch),
+``caqr`` on the allgather combine, the complex64 ``lstsq_dist``,
+``polar_dist``/``svd_dist``, ``rsvd_dist`` and ``eigh_rand_dist``, each also
+against the single-device function on the same input, and ``caqr`` on one
+rank over NCCL), the command line (``cli.main`` in process for every
+command, at full width for factor, compare, tsqr, pivoted, lstsq, batched
+and the oracle, then one ``python -m cuda_qr_tpu_torch``), complex QR
+(complex64/128 ``qr`` in every mode and at MIXED_CONFIG, ``lstsq``, ``lq``,
+``tsqr``/``tsqr_r``) and the rest of complex input (``qr_pivoted`` at
+8,192^2, the rank solvers, the six Givens updates, ``rsvd``/``orth``,
+``eigh_rand``, ``norm2_est``/``cond_est``, ``polar`` in complex64 and
+complex128, ``svd``, ``eigh``, ``eigh_batched``), every complex call with no
+kernel launch,
 checks the results against the residual and orthogonality gates and known
 answers, and prints timings beside the card's name and power limit.  The
 main path factors a numpy array with no config: the entry points place it
@@ -104,7 +110,10 @@ P_DIST = 4
 N_CAQR_LEAF = 8192   # rows of a rank's leaf in caqr at N_NCCL^2 on one rank
 DIST_SIZES = {"tsqr": N_TSQR, "caqr": 16384, "variants": 8192, "lstsq": N_RANK[:2],
               "polar": N_POLAR[0], "rsvd": N_RSVD, "eigh_rand": N_EIGH_RAND,
-              "complex": (8192, 2048)}
+              "complex": (8192, 2048),
+              # the complex *_dist solvers, complex64
+              "cx_lstsq": (8192, 1024), "cx_polar": (16384, 256), "cx_rsvd": N_RSVD,
+              "cx_eigh_rand": N_EIGH_RAND}
 N_NCCL = 8192
 DIST_JOIN_S = 700
 # The command line (PR 8), in process: (argv, kernels each call must launch).
@@ -150,7 +159,20 @@ N_CX128 = 4096
 N_CX_LSTSQ = (8192, 1024, 4)
 N_CX_LQ = (1024, 8192)
 N_CX_TSQR = (262144, 64)
-N_CX_MIXED = 4096                   # complex64 qr at MIXED_CONFIG: gate values measured, not gated
+N_CX_MIXED = 4096                   # complex64 qr at MIXED_CONFIG: gated (C3 repaired)
+# The rest of complex input, complex64 unless noted: pivoted QR at the
+# main path's width, the rank solvers on an exactly rank-r input, the Givens
+# updates, the randomized tools on known spectra, QDWH polar / svd, eigh.
+N_CX_PIVOTED = 8192
+N_CX_RANK = (2048, 1024, 768)       # m, n, rank; rcond 1e-4 (cut from 4096 x 2048 for the time limit)
+N_CX_UPDATE = (2048, 512, 100)      # thin QR; insert/delete index
+N_CX_RSVD = (32768, 2048, 64, 8, 2)  # m, n, k, p, n_iter; singular values DECAY^i
+N_CX_EIGH_RAND = (4096, 64, 8, 4)    # n, k, p, n_iter; eigenvalues (-1)^i DECAY^i
+N_CX_COND = (2048, 1e3)             # n; singular values geomspace(1, 1/cond) (cut from 4096)
+N_CX_POLAR = ((16384, 512, "complex64"), (4096, 256, "complex128"))
+N_CX_SVD = 1024                     # cut from 2048^2 for the time limit
+N_CX_EIGH = (512, 128)              # n, base_n (1024^2 took 23.2 s: cut for the time limit)
+N_CX_EIGH_BATCHED = (1024, 64)
 
 
 def say(*parts) -> None:
@@ -1475,7 +1497,153 @@ def dist_rank(mesh, smi: str, sizes: dict):
                 f"{t1:.3f} s first call)")
     phase("eigh_rand_dist", lambda: ct.eigh_rand_dist(as_row_sharded(s_loc, mesh, ne), ke, mesh,
                                                       pe, ite, config=cfg), check_eigh_rand)
+    del s_loc, S
+    dist_complex_solvers(mesh, sizes, phase, out)
     return out
+
+
+def dist_complex_solvers(mesh, sizes: dict, phase, out: dict) -> None:
+    """The complex *_dist solvers (complex64) inside ``dist_rank``: Householder
+    leaves and the allgather combine, all-reduced A^H Q, QR steps throughout
+    QDWH; no kernel.  Each is held to the single-device complex function on
+    the same input (rank 0) at DIST_TOL, and to zero launches."""
+    import torch
+    import cuda_qr_tpu_torch as ct
+    from cuda_qr_tpu_torch.parallel.collectives import gather_rows, psum
+    from cuda_qr_tpu_torch.parallel.mesh import as_row_sharded, mesh_device
+
+    dev = mesh_device(mesh)
+    P, i = mesh.size(0), mesh.get_local_rank(0)
+    eps = float(torch.finfo(torch.float32).eps)
+    cfg = ct.DEFAULT_CONFIG
+    c64, c128 = torch.complex64, torch.complex128
+
+    def no_kernel(name):
+        c = out[name]["counts"]
+        require(all(v == 0 for k, v in c.items() if k != "host_syncs"),
+                f"{name} launched a kernel on complex input: {c}")
+
+    # -- lstsq_dist
+    ml, nl = sizes["cx_lstsq"]
+    mloc = ml // P
+    a = d_rows(torch, 62, i, mloc, nl, dev, dtype=c64)
+    b = d_rows(torch, 63, i, mloc, 1, dev, dtype=c64)[:, 0]
+
+    def check_lstsq(res):
+        want, t1 = on_rank0(torch, mesh, lambda: ct.lstsq(
+            d_full(torch, 62, P, mloc, nl, dev, dtype=c64),
+            d_full(torch, 63, P, mloc, 1, dev, dtype=c64)[:, 0], cfg))
+        ex = er = 0.0
+        if i == 0:
+            ex = float((res.x - want.x).norm() / want.x.norm())
+            er = abs(float(res.residual_norm - want.residual_norm)) / float(want.residual_norm)
+        require(ex < DIST_TOL and er < DIST_TOL and res.x.dtype == c64,
+                f"complex lstsq_dist vs lstsq: {ex}, {er}")
+        return (f"lstsq_dist {ml}x{nl} complex64: x vs single-device lstsq {ex:.3e}, residual "
+                f"norm {er:.3e} (< {DIST_TOL:g}; lstsq {t1:.3f} s first call)")
+    phase("lstsq_dist-complex", lambda: ct.lstsq_dist(as_row_sharded(a, mesh, ml),
+                                                      as_row_sharded(b, mesh, ml), mesh, cfg),
+          check_lstsq)
+    no_kernel("lstsq_dist-complex")
+    del a, b
+
+    # -- polar_dist and svd_dist
+    mp, np_ = sizes["cx_polar"]
+    mloc = mp // P
+    a = d_rows(torch, 64, i, mloc, np_, dev, dtype=c64)
+    A = as_row_sharded(a, mesh, mp)
+    Af = d_full(torch, 64, P, mloc, np_, dev, dtype=c64) if i == 0 else None
+
+    def check_polar(res):
+        U, H = res
+        ou = d_orth(torch, U.to_local(), mesh)
+        rel = d_norm(torch, a - U.to_local() @ H, mesh) / d_norm(torch, a, mesh)
+        one, t1 = on_rank0(torch, mesh, lambda: ct.polar(Af, config=cfg))
+        eu = 0.0
+        if i == 0:
+            eu = max(float((U.to_local() - one[0][:mloc]).abs().max()),
+                     float((H - one[1]).abs().max() / one[1].abs().max()))
+        require(ou < 4 * np_ * eps and rel < np_ * eps and eu < DIST_TOL,
+                f"complex polar_dist: {ou}, {rel}, {eu}")
+        return (f"polar_dist {mp}x{np_} complex64: ||U^H U - I|| {ou:.3e} "
+                f"(< {4 * np_ * eps:.3e}), ||A - U H||/||A|| {rel:.3e} (< {np_ * eps:.3e}), U, H "
+                f"vs single-device polar {eu:.2e} (< {DIST_TOL:g}; polar {t1:.3f} s first call)")
+    phase("polar_dist-complex", lambda: ct.polar_dist(A, mesh, config=cfg), check_polar)
+    no_kernel("polar_dist-complex")
+
+    def check_svd(res):
+        U, s, Vh = res
+        rel = d_norm(torch, a - (U.to_local() * s) @ Vh, mesh) / d_norm(torch, a, mesh)
+        ou = d_orth(torch, U.to_local(), mesh)
+        one, t1 = on_rank0(torch, mesh, lambda: ct.svd(Af, config=cfg))
+        es = float((s - one[1]).abs().max() / one[1][0]) if i == 0 else 0.0
+        require(rel < np_ * eps and ou < 16 * np_ * eps and es < DIST_TOL and not s.is_complex(),
+                f"complex svd_dist: {rel}, {ou}, {es}")
+        return (f"svd_dist {mp}x{np_} complex64: residual {rel:.3e}, ||U^H U - I|| {ou:.3e}, s "
+                f"vs single-device svd {es:.2e} (< {DIST_TOL:g}; svd {t1:.3f} s first call)")
+    phase("svd_dist-complex", lambda: ct.svd_dist(A, mesh, config=cfg), check_svd)
+    no_kernel("svd_dist-complex")
+    del a, A, Af
+
+    # -- rsvd_dist and eigh_rand_dist on known spectra
+    mr, nr, k, p, it = sizes["cx_rsvd"]
+    mloc = mr // P
+    sig = DECAY ** torch.arange(nr, dtype=torch.float64, device=dev)
+    Afull = ((chaar(torch, mr, nr, 70, dev) * sig) @ chaar(torch, nr, nr, 71, dev).mH).to(c64)
+    a = Afull[i * mloc:(i + 1) * mloc].clone()
+    if i:
+        del Afull
+        Afull = None
+
+    def check_rsvd(res):
+        U, s, Vh = res
+        E = wide(torch, a) - (wide(torch, U.to_local()) * s.double()) @ wide(torch, Vh)
+        err2 = float(torch.linalg.eigvalsh(psum(E.mH @ E, mesh))[-1].clamp_min(0).sqrt())
+        es = float(((s.double() - sig[:k]).abs() / (1e-3 * sig[:k] + 50 * eps)).max())
+        one, t1 = on_rank0(torch, mesh, lambda: ct.rsvd(Afull, k, p, it, config=cfg))
+        e1 = float((s - one[1]).abs().max() / one[1][0]) if i == 0 else 0.0
+        require(err2 < 3 * float(sig[k]) and es < 1 and e1 < DIST_TOL,
+                f"complex rsvd_dist: {err2}, {es}, {e1}")
+        return (f"rsvd_dist {mr}x{nr} complex64 k={k} p={p} n_iter={it}: ||A - U S V^H||_2 "
+                f"{err2:.3e} (< 3 sigma_{k + 1} = {3 * float(sig[k]):.3e}), s vs sigma {es:.3f} "
+                f"(< 1), s vs single-device rsvd {e1:.2e} (< {DIST_TOL:g}; rsvd {t1:.3f} s "
+                f"first call)")
+    phase("rsvd_dist-complex", lambda: ct.rsvd_dist(as_row_sharded(a, mesh, mr), k, mesh, p, it,
+                                                    config=cfg), check_rsvd)
+    no_kernel("rsvd_dist-complex")
+    del a, Afull
+
+    ne, ke, pe, ite = sizes["cx_eigh_rand"]
+    mloc = ne // P
+    w_true = (DECAY ** torch.arange(ne, dtype=torch.float64, device=dev)
+              * (1 - 2 * (torch.arange(ne, device=dev) % 2)))
+    Ve = chaar(torch, ne, ne, 72, dev)
+    S = (Ve * w_true) @ Ve.mH
+    S = ((S + S.mH) * 0.5).to(c64)
+    del Ve
+    s_loc = S[i * mloc:(i + 1) * mloc].clone()
+
+    def check_eigh_rand(res):
+        w, V = res
+        V_all = wide(torch, gather_rows(V, mesh))
+        errf = d_norm(torch, wide(torch, s_loc) - (wide(torch, V.to_local()) * w.double())
+                      @ V_all.mH, mesh)
+        tailf = float(w_true[ke:].norm())
+        we = float(((w.double() - w_true[:ke]).abs()
+                    / (1e-3 * w_true[:ke].abs() + 50 * eps)).max())
+        ov = d_orth(torch, V.to_local(), mesh)
+        one, t1 = on_rank0(torch, mesh, lambda: ct.eigh_rand(S, ke, pe, ite, config=cfg))
+        e1 = float((w - one[0]).abs().max() / one[0].abs().max()) if i == 0 else 0.0
+        require(errf < 1.5 * tailf and we < 1 and ov < 16 * (ke + pe) * eps and e1 < DIST_TOL,
+                f"complex eigh_rand_dist: {errf}, {we}, {ov}, {e1}")
+        return (f"eigh_rand_dist {ne}^2 complex64 k={ke} p={pe} n_iter={ite}: ||S - V W V^H||_F "
+                f"{errf:.3e} (< 1.5 x the tail's {tailf:.3e}), w vs w_true {we:.3f} (< 1), "
+                f"||V^H V - I|| {ov:.3e}, w vs single-device eigh_rand {e1:.2e} "
+                f"(< {DIST_TOL:g}; eigh_rand {t1:.3f} s first call)")
+    phase("eigh_rand_dist-complex", lambda: ct.eigh_rand_dist(as_row_sharded(s_loc, mesh, ne), ke,
+                                                              mesh, pe, ite, config=cfg),
+          check_eigh_rand)
+    no_kernel("eigh_rand_dist-complex")
 
 
 def dist_nccl_rank(mesh, smi: str, n: int):
@@ -1723,15 +1891,17 @@ def phase_complex(torch, ct, dev, smi):
         f"{errs['tf32']:.2e}: TF32 {'reaches' if errs['tf32'] > 10 * errs['highest'] else 'does not reach'}"
         f" complex64 GEMMs")
     del X, Y, exact
+    # complex_config runs every GEMM of a complex input at "highest", so
+    # MIXED_CONFIG's TF32 trailing update does not reach this call (C3)
     n = N_CX_MIXED
     A = crandn(torch, (n, n), 73, c64, dev)
     (Q, R), counts, first = run_counted(torch, lambda: ct.qr(A, ct.MIXED_CONFIG))
     add_counts(total, counts)
-    chk = ct.check_qr_device(A, Q, R)
-    say(f"  complex qr {n}^2 c64 at MIXED_CONFIG (trailing update under 'tf32'), measured, not "
-        f"gated: residual {chk.residual:.3e} (n eps {n * chk.eps:.3e}, ok={chk.residual_ok}), "
-        f"orthogonality {chk.orthogonality:.3e} (4n eps {4 * n * chk.eps:.3e}, "
-        f"ok={chk.orthogonality_ok}); {first:.3f} s first call; {counts_str(counts)}")
+    require(all(v == 0 for k, v in counts.items() if k != "host_syncs"),
+            f"complex qr at MIXED_CONFIG launched a kernel ({counts})")
+    gate(f"complex qr {n}^2 c64 at MIXED_CONFIG (every GEMM 'highest')",
+         ct.check_qr_device(A, Q, R))
+    say(f"  complex qr {n}^2 c64 at MIXED_CONFIG: {first:.3f} s first call; {counts_str(counts)}")
     del A, Q, R
 
     for name, call in (
@@ -1747,6 +1917,298 @@ def phase_complex(torch, ct, dev, smi):
             say(f"  {name} on a complex CUDA tensor raises {type(exc).__name__}: {exc}")
         else:
             raise AssertionError(f"{name} took a complex CUDA tensor")
+    return total
+
+
+def chaar(torch, rows: int, cols: int, seed: int, dev):
+    """An orthonormal (rows x cols) complex128 factor: Q of a seeded complex
+    Gaussian."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.linalg.qr(torch.randn(rows, cols, generator=g, dtype=torch.complex128,
+                                       device=dev)).Q
+
+
+def timed_counted(torch, fn):
+    """``run_counted`` timed by CUDA events around the call (no kernel is
+    built on a complex path, so the first call is a steady one):
+    (result, counts, device ms)."""
+    reset_counts(torch)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, read_counts(), start.elapsed_time(end)
+
+
+def phase_complex_rest(torch, ct, dev, smi):
+    """The rest of complex input, inputs made on the card: qr_pivoted, the
+    rank solvers, the Givens updates, the randomized tools, QDWH polar and
+    svd, eigh and eigh_batched.  Each call is gated in float64/complex128
+    on the card, held to zero kernel launches, and timed by CUDA events
+    beside the PyTorch call for the same function where there is one.
+    Returns the path's counts (all kernels 0)."""
+    from cuda_qr_tpu_torch.models import eigh as eigh_mod
+    from cuda_qr_tpu_torch.ops.smalllinalg import library_eigh
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    cfg = ct.DEFAULT_CONFIG
+    c64, c128 = torch.complex64, torch.complex128
+    eps = float(torch.finfo(torch.float32).eps)
+    total = {}
+
+    def run(name, fn, lib_fn=None, lib_name="", lib_reps=2):
+        out, counts, ms = timed_counted(torch, fn)
+        add_counts(total, counts)
+        require(all(v == 0 for k, v in counts.items() if k != "host_syncs"),
+                f"{name}: a kernel launched on complex input ({counts})")
+        lib = ""
+        if lib_fn is not None:
+            lib = (f" beside {lib_name} {cuda_time_ms(lib_fn, reps=lib_reps, warmup=1):.2f} ms")
+        return out, f"{ms:.2f} ms{lib}; {counts_str(counts)} ({smi})"
+
+    def defect(X, Y):
+        """||X - Y||_F / ||Y||_F in float64/complex128."""
+        return float((wide(torch, X) - wide(torch, Y)).norm() / wide(torch, Y).norm())
+
+    # -- pivoted QR at the main path's width
+    n = N_CX_PIVOTED
+    A = crandn(torch, (n, n), 80, c64, dev)
+    (Q, R, piv), t = run(f"qr_pivoted {n}^2 c64", lambda: ct.qr_pivoted(A, cfg),
+                         lambda: torch.linalg.qr(A), "torch.linalg.qr (unpivoted)", 1)
+    require(torch.equal(torch.sort(piv).values, torch.arange(n, device=dev)),
+            "complex qr_pivoted: piv is not a permutation")
+    gate(f"complex qr_pivoted {n}^2 c64", ct.check_qr_device(A[:, piv], Q, R))
+    d = R.diagonal().abs()
+    mono = float((d[1:] / d[:-1]).max())
+    say(f"  complex qr_pivoted {n}^2: max |R_i+1,i+1| / |R_ii| {mono:.3f} (rank-revealing "
+        f"order, < 1.5); {t}")
+    require(mono < 1.5, f"complex qr_pivoted: |diag R| does not decrease ({mono})")
+    del A, Q, R, piv
+
+    # -- the rank solvers on an exactly rank-r A = B C
+    m, n, r = N_CX_RANK
+    B = crandn(torch, (m, r), 81, c128, dev)
+    C = crandn(torch, (r, n), 82, c128, dev)
+    b = crandn(torch, (m,), 83, c128, dev)
+    A = (B @ C).to(c64)
+    rk, t = run(f"matrix_rank {m}x{n} c64", lambda: ct.matrix_rank(A, 1e-4, cfg),
+                lambda: torch.linalg.matrix_rank(A), "torch.linalg.matrix_rank")
+    say(f"  complex matrix_rank {m}x{n} (rank {r} by construction, rcond 1e-4): {rk}; {t}")
+    require(rk == r, f"complex matrix_rank gave {rk}, expected {r}")
+    # the minimum-norm solution and the pseudoinverse from the known factors:
+    # A^+ = C^H (C C^H)^{-1} (B^H B)^{-1} B^H
+    Apinv = C.mH @ torch.linalg.solve(C @ C.mH, torch.linalg.solve(B.mH @ B, B.mH))
+    (x, resid, rk2, _), t = run(f"lstsq_rr {m}x{n} c64",
+                                lambda: ct.lstsq_rr(A, b.to(c64), 1e-4, cfg))
+    ex = defect(x, Apinv @ b)
+    say(f"  complex lstsq_rr: rank {rk2}, x vs the minimum-norm complex128 solution {ex:.3e} "
+        f"(< 1e-3); {t}")
+    require(rk2 == r and ex < 1e-3, f"complex lstsq_rr: rank {rk2}, error {ex}")
+    P, t = run(f"pinv {m}x{n} c64", lambda: ct.pinv(A, 1e-4, cfg),
+               lambda: torch.linalg.pinv(A, rtol=1e-4), "torch.linalg.pinv")
+    ep = defect(P, Apinv)
+    say(f"  complex pinv: vs the complex128 pseudoinverse from the factors {ep:.3e} (< 1e-3); {t}")
+    require(ep < 1e-3, f"complex pinv: {ep}")
+    del P, Apinv
+    N, t = run(f"null_space {m}x{n} c64", lambda: ct.null_space(A, 1e-4, cfg))
+    on = orth_defect(torch, N)
+    an = float((wide(torch, A) @ wide(torch, N)).norm() / wide(torch, A).norm())
+    say(f"  complex null_space: {tuple(N.shape)}, ||N^H N - I|| {on:.3e} (< {4 * n * eps:.3e}), "
+        f"||A N||/||A|| {an:.3e} (< {n * eps:.3e}); {t}")
+    require(N.shape == (n, n - r) and on < 4 * n * eps and an < n * eps,
+            "complex null_space fails its gates")
+    del N, B, C, b
+
+    # -- orth on the same rank-r input (rank-revealing QRCP, plain selection)
+    Qo, t = run(f"orth(rcond=1e-4) {m}x{n} c64", lambda: ct.orth(A, rcond=1e-4, config=cfg),
+                lambda: torch.linalg.qr(A), "torch.linalg.qr")
+    oq = orth_defect(torch, Qo)
+    proj = defect(Qo.to(c128) @ (Qo.to(c128).mH @ A.to(c128)), A)
+    say(f"  complex orth(rcond=1e-4) rank {r}: {tuple(Qo.shape)}, ||Q^H Q - I|| {oq:.3e} "
+        f"(< {4 * n * eps:.3e}), ||Q Q^H A - A||/||A|| {proj:.3e} (< {n * eps:.3e}); {t}")
+    require(tuple(Qo.shape) == (m, r) and oq < 4 * n * eps and proj < n * eps,
+            "complex orth(rcond) fails its gates")
+    del A, Qo
+
+    # -- the six Givens updates of a thin QR, no host sync in a chain
+    m, n, k = N_CX_UPDATE
+    A = crandn(torch, (m, n), 84, c64, dev)
+    Q, R = ct.qr(A, cfg)
+    u1, v1 = crandn(torch, (m,), 85, c64, dev), crandn(torch, (n,), 86, c64, dev)
+    U4, V4 = crandn(torch, (m, 4), 87, c64, dev), crandn(torch, (n, 4), 88, c64, dev)
+    row, col = crandn(torch, (n,), 89, c64, dev), crandn(torch, (m,), 90, c64, dev)
+    cases = (
+        ("qr_rank1_update", lambda: ct.qr_rank1_update(Q, R, u1, v1),
+         A + torch.outer(u1, v1.conj())),
+        ("qr_update rank 4", lambda: ct.qr_update(Q, R, U4, V4), A + U4 @ V4.mH),
+        ("qr_row_insert", lambda: ct.qr_row_insert(Q, R, row, k),
+         torch.cat([A[:k], row[None], A[k:]])),
+        ("qr_row_delete", lambda: ct.qr_row_delete(Q, R, k), torch.cat([A[:k], A[k + 1:]])),
+        ("qr_col_insert", lambda: ct.qr_col_insert(Q, R, col, k),
+         torch.cat([A[:, :k], col[:, None], A[:, k:]], 1)),
+        ("qr_col_delete", lambda: ct.qr_col_delete(Q, R, k),
+         torch.cat([A[:, :k], A[:, k + 1:]], 1)),
+    )
+    for name, fn, A1 in cases:
+        torch.cuda.set_sync_debug_mode("error")   # any synchronizing op raises
+        try:
+            (Q1, R1), t = run(f"{name} {m}x{n} c64", fn, lambda A1=A1: torch.linalg.qr(A1),
+                              f"torch.linalg.qr refactor {tuple(A1.shape)}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        gate(f"complex {name} {m}x{n} c64", ct.check_qr_device(A1, Q1, R1))
+        say(f"  complex {name}: {t}")
+    del A, Q, R, Q1, R1
+
+    # -- rsvd on a known spectrum, then norm2_est of the same matrix
+    m, n, k, p, it = N_CX_RSVD
+    sig = DECAY ** torch.arange(n, dtype=torch.float64, device=dev)
+    A = ((chaar(torch, m, n, 91, dev) * sig) @ chaar(torch, n, n, 92, dev).mH).to(c64)
+    (U, s, Vh), t = run(f"rsvd {m}x{n} c64", lambda: ct.rsvd(A, k, p, it, config=cfg),
+                        lambda: torch.svd_lowrank(A, q=k + p, niter=it),
+                        f"torch.svd_lowrank (q={k + p}, niter={it})")
+    E = wide(torch, A) - (wide(torch, U) * s.double()) @ wide(torch, Vh)
+    err2 = float(torch.linalg.eigvalsh(E.mH @ E)[-1].clamp_min(0).sqrt())
+    del E
+    s_err = float(((s.double() - sig[:k]).abs() / (1e-3 * sig[:k] + 50 * eps)).max())
+    ou, ov = orth_defect(torch, U), orth_defect(torch, Vh.mH)
+    say(f"  complex rsvd {m}x{n} k={k} p={p} n_iter={it}: ||A - U S V^H||_2 {err2:.3e} "
+        f"(< 3 sigma_{k + 1} = {3 * float(sig[k]):.3e}), max |s - sigma| / (1e-3 sigma + "
+        f"50 eps) {s_err:.3f} (< 1), ||U^H U - I|| {ou:.3e}, ||V V^H - I|| {ov:.3e} "
+        f"(< {16 * (k + p) * eps:.3e}); {t}")
+    require(err2 < 3 * float(sig[k]) and s_err < 1 and max(ou, ov) < 16 * (k + p) * eps
+            and not s.is_complex(), "complex rsvd fails its gates")
+    del U, Vh
+    Qa, t = run(f"orth {m}x{n} c64", lambda: ct.orth(A, config=cfg),
+                lambda: torch.linalg.qr(A), "torch.linalg.qr")
+    oq = orth_defect(torch, Qa)
+    proj = defect(Qa.to(c128) @ (Qa.to(c128).mH @ A.to(c128)), A)
+    say(f"  complex orth {m}x{n}: ||Q^H Q - I|| {oq:.3e} (< {4 * n * eps:.3e}), "
+        f"||Q Q^H A - A||/||A|| {proj:.3e} (< {n * eps:.3e}); {t}")
+    require(oq < 4 * n * eps and proj < n * eps, "complex orth fails its gates")
+    del Qa, A
+
+    # -- norm2_est and cond_est on a known spectrum
+    n, cond = N_CX_COND
+    sc = torch.logspace(0, -float(torch.log10(torch.tensor(cond))), n, dtype=torch.float64,
+                        device=dev)
+    A = ((chaar(torch, n, n, 93, dev) * sc) @ chaar(torch, n, n, 94, dev).mH).to(c64)
+    est, t = run(f"norm2_est {n}^2 c64", lambda: float(ct.norm2_est(A, config=cfg)),
+                 lambda: torch.linalg.matrix_norm(A, ord=2), "torch.linalg.matrix_norm(ord=2)")
+    say(f"  complex norm2_est {n}^2 (sigma_max 1): {est:.6f} (in [0.95, 1.0001]); {t}")
+    require(0.95 <= est <= 1.0001, "complex norm2_est is no lower bound near sigma_max")
+    ce, t = run(f"cond_est {n}^2 c64", lambda: float(ct.cond_est(A, config=cfg)),
+                lambda: torch.linalg.cond(A), "torch.linalg.cond", 1)
+    say(f"  complex cond_est {n}^2 (cond {cond:g}): {ce:.2f} (in [{0.8 * cond:g}, "
+        f"{1.05 * cond:g}]); {t}")
+    require(0.8 * cond <= ce <= 1.05 * cond, "complex cond_est misses the known spectrum")
+    del A
+
+    # -- eigh_rand on a known indefinite spectrum
+    n, k, p, it = N_CX_EIGH_RAND
+    w_true = (DECAY ** torch.arange(n, dtype=torch.float64, device=dev)
+              * (1 - 2 * (torch.arange(n, device=dev) % 2)))
+    Ve = chaar(torch, n, n, 95, dev)
+    S = (Ve * w_true) @ Ve.mH
+    S = ((S + S.mH) * 0.5).to(c64)
+    del Ve
+    (w, V), t = run(f"eigh_rand {n}^2 c64", lambda: ct.eigh_rand(S, k, p, it, config=cfg))
+    E = wide(torch, S) - (wide(torch, V) * w.double()) @ wide(torch, V).mH
+    errf, tailf = float(E.norm()), float(w_true[k:].norm())
+    del E
+    w_err = float(((w.double() - w_true[:k]).abs() / (1e-3 * w_true[:k].abs() + 50 * eps)).max())
+    ov = orth_defect(torch, V)
+    say(f"  complex eigh_rand {n}^2 k={k} p={p} n_iter={it}: ||S - V W V^H||_F {errf:.3e} "
+        f"(< 1.5 x the tail's {tailf:.3e}), max |w - w_true| / (1e-3 |w| + 50 eps) {w_err:.3f} "
+        f"(< 1), ||V^H V - I|| {ov:.3e} (< {16 * (k + p) * eps:.3e}); {t}")
+    require(errf < 1.5 * tailf and w_err < 1 and ov < 16 * (k + p) * eps and not w.is_complex(),
+            "complex eigh_rand fails its gates")
+    del S, V
+
+    # -- QDWH polar: QR steps throughout, in complex64 and complex128
+    for m, n, dname in N_CX_POLAR:
+        dt = getattr(torch, dname)
+        e = float(torch.finfo(torch.float64 if dt == c128 else torch.float32).eps)
+        A = crandn(torch, (m, n), 96, dt, dev)
+        (U, H), t = run(f"polar {m}x{n} {dname}", lambda: ct.polar(A, config=cfg))
+        ou = orth_defect(torch, U)
+        res = float((wide(torch, A) - wide(torch, U) @ wide(torch, H)).norm()
+                    / wide(torch, A).norm())
+        asym = float((H - H.mH).abs().max())
+        ev = torch.linalg.eigvalsh(wide(torch, H))
+        hn = float(ev.abs().max())
+        say(f"  complex polar {m}x{n} {dname}: ||U^H U - I|| {ou:.3e} (< {4 * n * e:.3e}), "
+            f"||A - U H||/||A|| {res:.3e} (< {n * e:.3e}), |H - H^H| {asym:g}, min eig(H) "
+            f"{float(ev[0]):.3e} (>= {-n * e * hn:.3e}); {t}")
+        require(ou < 4 * n * e and res < n * e and asym == 0.0 and float(ev[0]) >= -n * e * hn,
+                f"complex polar {m}x{n} fails its gates")
+        del A, U, H
+
+    # -- svd (QDWH + library_eigh of H)
+    n = N_CX_SVD
+    A = crandn(torch, (n, n), 97, c64, dev)
+    (U, s, Vh), t = run(f"svd {n}^2 c64", lambda: ct.svd(A, config=cfg),
+                        lambda: torch.linalg.svd(A), "torch.linalg.svd", 1)
+    res = defect((wide(torch, U) * s.double()) @ wide(torch, Vh), A)
+    ou, ov = orth_defect(torch, U), orth_defect(torch, Vh.mH)
+    s_ref = torch.linalg.svdvals(A.to(c128))
+    serr = float((s.double() - s_ref).abs().max() / s_ref[0])
+    desc = bool((s[1:] <= s[:-1]).all())
+    say(f"  complex svd {n}^2: residual {res:.3e} (< {n * eps:.3e}), ||U^H U - I|| {ou:.3e}, "
+        f"||V V^H - I|| {ov:.3e} (< {16 * n * eps:.3e}), max |s - svdvals128| / s_max "
+        f"{serr:.3e} (< {n * eps:.3e}), descending {desc}; {t}")
+    require(res < n * eps and max(ou, ov) < 16 * n * eps and serr < n * eps and desc,
+            "complex svd fails its gates")
+    del A, U, Vh
+
+    # -- eigh (QDWH-eig with the phase-factor Jacobi) and eigh_batched
+    n, base_n = N_CX_EIGH
+    G = crandn(torch, (n, n), 98, c64, dev)
+    S = (G + G.mH) * 0.5
+    (w, V), t = run(f"eigh {n}^2 c64", lambda: ct.eigh(S, cfg, base_n=base_n),
+                    lambda: torch.linalg.eigh(S), "torch.linalg.eigh")
+    st = dict(eigh_mod.last_stats)
+    res = float((wide(torch, S) @ wide(torch, V) - wide(torch, V) * w.double()).norm()
+                / wide(torch, S).norm())
+    ov = orth_defect(torch, V)
+    w_ref = torch.linalg.eigvalsh(S.to(c128))
+    werr = float((w.double() - w_ref).abs().max() / w_ref.abs().max().clamp_min(1.0))
+    say(f"  complex eigh {n}^2 base_n={base_n}: ||A V - V W||/||A|| {res:.3e} "
+        f"(< {n * eps:.3e}), ||V^H V - I|| {ov:.3e} (< {32 * n * eps:.3e}), max |w - "
+        f"eigvalsh128| {werr:.3e} (< {n * eps:.3e}); split nodes {st['split_nodes']}, leaves "
+        f"{st['leaves']}, Jacobi sweeps {st['jacobi_sweeps']}; {t}")
+    require(res < n * eps and ov < 32 * n * eps and werr < n * eps and st["split_nodes"] > 0
+            and not w.is_complex(), "complex eigh fails its gates")
+    del G, S, V
+    b, nb = N_CX_EIGH_BATCHED
+    As = crandn(torch, (b, nb, nb), 99, c64, dev)
+    As = (As + As.mH) * 0.5
+    (ws, Vs), t = run(f"eigh_batched {b} x {nb}x{nb} c64", lambda: ct.eigh_batched(As),
+                      lambda: torch.linalg.eigh(As), "batched torch.linalg.eigh")
+    A128, V128 = As.to(c128), Vs.to(c128)
+    res = float(((A128 @ V128 - V128 * ws.double()[:, None, :]).norm(dim=(1, 2))
+                 / A128.norm(dim=(1, 2))).max())
+    ov = float((V128.mH @ V128 - torch.eye(nb, dtype=c128, device=dev)).norm(dim=(1, 2)).max())
+    werr = float((ws.double() - torch.linalg.eigvalsh(A128)).abs().max())
+    tol = 5e-6 * nb
+    say(f"  complex eigh_batched {b} x {nb}x{nb}: max residual {res:.3e}, max orthogonality "
+        f"{ov:.3e} (< {tol:.3e}), max |w - eigvalsh128| {werr:.3e} "
+        f"(< {tol * float(ws.abs().max()):.3e}); Jacobi sweeps "
+        f"{eigh_mod.last_stats['jacobi_sweeps']}; {t}")
+    require(res < tol and ov < tol and werr < tol * float(ws.abs().max()),
+            "complex eigh_batched fails its gates")
+    del As, Vs, A128, V128
+
+    # -- library_eigh on complex64 H (the small core of svd and eigh_rand)
+    for n in (384, 512):
+        H = crandn(torch, (2 * n, n), 100 + n, c64, dev)
+        H = H.mH @ H / (2 * n)
+        w, V = library_eigh(H)
+        w_ref = torch.linalg.eigvalsh(H.to(c128))
+        werr = float((w.double() - w_ref).abs().max() / w_ref.abs().max())
+        say(f"  library_eigh complex64 {n}^2 Gram: max |w - eigvalsh128| / ||H||_2 {werr:.3e} "
+            f"(< n eps {n * eps:.3e})")
+        require(werr < n * eps, f"library_eigh complex64 at {n}: {werr}")
     return total
 
 
@@ -1886,6 +2348,8 @@ def main() -> int:
     by_path["cli"] = phase_cli(torch, np, ct, dev, smi)
     say("complex QR (Householder family; no kernel):")
     by_path["complex"] = phase_complex(torch, ct, dev, smi)
+    say("the rest of complex input (pivoted QR, rank solvers, updates, spectral; no kernel):")
+    by_path["complex_rest"] = phase_complex_rest(torch, ct, dev, smi)
 
     # ---- the distributed path (launches summed over its ranks)
     by_path["dist"] = phase_dist(torch, smi)
@@ -1900,8 +2364,9 @@ def main() -> int:
         for kernel in needs:
             if by_path[name][kernel] == 0:
                 raise AssertionError(f"path {name} launched no {kernel} kernel")
-    require(all(by_path["complex"][k] == 0 for k in launches),
-            f"path complex launched a kernel: {by_path['complex']}")
+    for name in ("complex", "complex_rest"):
+        require(all(by_path[name][k] == 0 for k in launches),
+                f"path {name} launched a kernel: {by_path[name]}")
 
     # ---- timings (informational)
     flops = qr_flops(N_MAIN, N_MAIN)

@@ -1,4 +1,5 @@
-"""Symmetric eigendecomposition built from this package's own pieces.
+"""Symmetric (Hermitian) eigendecomposition built from this package's own
+pieces.
 
 Counterpart of ``cuda_qr_tpu/models/eigh.py``: QDWH-eig spectral divide and
 conquer (Nakatsukasa & Higham 2013) on the QDWH polar iteration
@@ -35,11 +36,14 @@ instead of one small GEMM chain per leaf.
 
 Jacobi (``_jacobi_eigh``) takes a stack from the start: each round
 diagonalizes n/2 disjoint 2x2 blocks in closed form and applies them as one
-rotation matrix J, A <- J^T A J, V <- V J, three batched GEMMs.  A matrix
+rotation matrix J, A <- J^H A J, V <- V J, three batched GEMMs.  A matrix
 of the stack that has converged is frozen while the others go on, so its
 result does not depend on its neighbours.
 
-Real input only (float32, float64).
+float32, float64, complex64 and complex128.  Complex Hermitian input takes
+the reference's route: a phase factor in each Jacobi rotation, conjugate
+transposes throughout, QR steps throughout the QDWH splits, and every GEMM
+at ``complex_config``.  Eigenvalues are real.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.blocked import _require_real, as_tensor
+from ..ops.blocked import as_tensor, complex_config
 from ..ops.smalllinalg import _eye, host_decision, host_values
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
@@ -110,12 +114,12 @@ def _schedule_cached(kind: str, n: int, device: str) -> torch.Tensor:
 
 def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
                  sort: bool = True):
-    """Cyclic Jacobi with parallel ordering on a symmetric matrix (n x n) or
+    """Cyclic Jacobi with parallel ordering on a Hermitian matrix (n x n) or
     a stack (L x n x n), n even.  Returns (w, V) of the input's leading
-    shape.
+    shape, w real.
 
     One round: closed-form diagonalization of the n/2 disjoint 2x2 blocks
-    {(p,q)} -> one sparse rotation matrix J -> A <- J^T A J, V <- V J as
+    {(p,q)} -> one sparse rotation matrix J -> A <- J^H A J, V <- V J as
     GEMMs.  Sweeps (n-1 rounds each) run until off(A) <= 4 sqrt(n) eps
     ||A||_F or max_sweeps; the stop is one host decision per sweep.  In a
     stack, each matrix is held to its own tolerance: the sweeps go on while
@@ -130,38 +134,41 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
         A = A[None]
     n = A.shape[-1]
     dt = A.dtype
+    cplx = A.is_complex()
     eps = torch.finfo(_real_dtype(dt)).eps
     normF = torch.linalg.norm(A, dim=(-2, -1))
     # each GEMM sweep injects O(sqrt(n) eps ||A||) into off(A); below that
     # further sweeps are no-ops, so it is the honest stopping floor
     tol2 = (4.0 * n ** 0.5 * eps * normF) ** 2
-    offmask = 1.0 - _eye(n, A)
+    offmask = 1.0 - _eye(n, A.real)
 
     def off2(A):
         # sum |offdiag|^2 directly: ||A||^2 - ||diag||^2 cancels in float32
         # and can read 0 while the true off-norm is still ~1e-4
-        return ((A * offmask) ** 2).sum((-2, -1))
+        return ((A.abs() * offmask) ** 2).sum((-2, -1))
 
     def one_round(A, V, pq):
         p, q = pq[:, 0], pq[:, 1]
-        app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]
+        app, aqq, apq = A[:, p, p].real, A[:, q, q].real, A[:, p, q]
         ab = apq.abs()
         live = ab > 0
-        tau = (aqq - app) / (2.0 * torch.where(live, ab, 1.0))
+        safe = torch.where(live, ab, 1.0)
+        tau = (aqq - app) / (2.0 * safe)
         t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
         t = torch.where(tau == 0, 1.0, t)   # sign(0) = 0 would stall equal-diagonal pairs
         c = 1.0 / torch.sqrt(1.0 + t * t)
         s = torch.where(live, t * c, 0.0)
-        c = torch.where(live, c, 1.0)
-        # J = diag(1, phi) G with G the rotation and phi = sign(apq):
-        # J^T [[a, apq], [apq, d]] J is diagonal
-        ph = torch.where(live, torch.sign(apq), 1.0)
+        c = torch.where(live, c, 1.0).to(dt)
+        s = s.to(dt)
+        # J = diag(1, phi) G with G the real rotation and phi = conj(apq)/|apq|
+        # (sign(apq) for real A): J^H [[a, apq], [conj(apq), d]] J is diagonal
+        ph = torch.where(live, apq.conj() / safe if cplx else torch.sign(apq), 1.0)
         J = torch.zeros_like(A)
         J[:, p, p] = c
         J[:, p, q] = s
         J[:, q, p] = -s * ph
         J[:, q, q] = c * ph
-        return J.mT @ (A @ J), V @ J
+        return J.mH @ (A @ J), V @ J
 
     V = _eye(n, A).expand_as(A).contiguous()
     sweeps = 0
@@ -173,13 +180,13 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
             A1, V1 = A, V
             for r in range(n - 1):
                 A1, V1 = one_round(A1, V1, schedule[r])
-            A1 = (A1 + A1.mT) * 0.5
+            A1 = (A1 + A1.mH) * 0.5
             keep = active[:, None, None]
             A, V = torch.where(keep, A1, A), torch.where(keep, V1, V)
             sweeps += 1
     last_stats["jacobi_calls"] += 1
     last_stats["jacobi_sweeps"] += sweeps
-    w = torch.diagonal(A, 0, -2, -1)
+    w = torch.diagonal(A, 0, -2, -1).real
     if sort:
         w, order = torch.sort(w, dim=-1, stable=True)
         V = torch.gather(V, 2, order[:, None, :].expand_as(V))
@@ -204,7 +211,7 @@ def _gershgorin(A: torch.Tensor):
     """(lo, hi) enclosing the spectrum, as two 0-d tensors."""
     d = torch.diagonal(A)
     r = A.abs().sum(1) - d.abs()
-    return (d - r).min(), (d + r).max()
+    return (d.real - r).min(), (d.real + r).max()
 
 
 def _eigh_base(A: torch.Tensor, bucket: int, max_sweeps: int, lo: float, hi: float):
@@ -221,13 +228,13 @@ def _eigh_base(A: torch.Tensor, bucket: int, max_sweeps: int, lo: float, hi: flo
 
 
 def _invariant_bases(P: torch.Tensor, H: torch.Tensor, rank: int, config: QRConfig):
-    """Split R^b into range(P) and its complement by subspace iteration.
+    """Split C^b (R^b) into range(P) and its complement by subspace iteration.
 
-    P: symmetric projector (b x b) of rank ``rank``.  Returns (V1 (b x rank),
+    P: Hermitian projector (b x b) of rank ``rank``.  Returns (V1 (b x rank),
     V2 (b x (b - rank))), orthonormal bases of range(P) and its complement.
     One complete blocked-Householder QR of the ``rank`` largest columns of P
     converges almost always in one step (the projector's eigenvalue gap is
-    exactly 1); H supplies the certificate ||V2^T H V1|| <= 10 eps ||H||, and
+    exactly 1); H supplies the certificate ||V2^H H V1|| <= 10 eps ||H||, and
     at most 3 QRs run.
     """
     eps = torch.finfo(_real_dtype(P.dtype)).eps
@@ -238,7 +245,7 @@ def _invariant_bases(P: torch.Tensor, H: torch.Tensor, rank: int, config: QRConf
         Q, _ = qr(X, config, mode="complete")
         V1, V2 = Q[:, :rank], Q[:, rank:]
         with matmul_precision(config.precision):
-            err = torch.linalg.norm(V2.T @ (H @ V1))
+            err = torch.linalg.norm(V2.mH @ (H @ V1))
             if it == 2 or not host_decision(err > thresh):
                 break
             X = P @ V1
@@ -246,7 +253,7 @@ def _invariant_bases(P: torch.Tensor, H: torch.Tensor, rank: int, config: QRConf
 
 
 def _split_node(H: torch.Tensor, config: QRConfig):
-    """One divide step on a symmetric block H (b x b).
+    """One divide step on a Hermitian block H (b x b).
 
     sigma candidates (diagonal median, then Gershgorin midpoint and
     quartiles, clipped into the interval) are tried until the matrix sign
@@ -259,7 +266,7 @@ def _split_node(H: torch.Tensor, config: QRConfig):
     """
     b = H.shape[0]
     eps = float(torch.finfo(_real_dtype(H.dtype)).eps)
-    dre = torch.diagonal(H)
+    dre = torch.diagonal(H).real
     med = torch.quantile(dre, 0.5)
     gr = H.abs().sum(1) - dre.abs()
     lo, hi = (dre - gr).min(), (dre + gr).max()
@@ -274,7 +281,7 @@ def _split_node(H: torch.Tensor, config: QRConfig):
         alpha = torch.sqrt(absHs.sum(0).max() * absHs.sum(1).max())
         alpha = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
         U = _qdwh_dyn_core(Hs / alpha, l0, config)
-        k = host_values(torch.round(torch.trace((eye - U) * 0.5)))
+        k = host_values(torch.round(torch.trace((eye - U) * 0.5).real))
         k = int(k) if np.isfinite(k) else 0     # a broken-down iteration splits nothing
         if 0 < k < b:
             break
@@ -288,8 +295,8 @@ def _split_node(H: torch.Tensor, config: QRConfig):
 
 
 def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
-    """The divide and conquer on an exact-size symmetric A (N x N), N above
-    the leaf size.  Returns (w ascending, V)."""
+    """The divide and conquer on an exact-size Hermitian A (N x N), N above
+    the leaf size.  Returns (w ascending, real; V)."""
     N = A.shape[0]
     dt = A.dtype
     eps = float(torch.finfo(_real_dtype(dt)).eps)
@@ -297,7 +304,7 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
     H0n = torch.linalg.norm(A)
     cutoff = min(N + (N % 2), term)
     dev = str(A.device)
-    w = torch.zeros(N, dtype=dt, device=A.device)
+    w = torch.zeros(N, dtype=A.real.dtype, device=A.device)
     vecs = _eye(N, A)
     leaves = []                                   # (offset, block)
     stack = [(0, A)]
@@ -315,7 +322,7 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
         # noise relative to the input, is done; clustered and rank-deficient
         # spectra need this, since no sigma can split them
         if host_decision((offd <= 5.0 * eps * nrm) | (nrm < eps * H0n)):
-            w[o:o + b] = dvec
+            w[o:o + b] = dvec.real
             last_stats["diag_exits"] += 1
             continue
         V0 = vecs[:, o:o + b]
@@ -335,11 +342,11 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
         V_minus, V_plus, k = split
         last_stats["split_nodes"] += 1
         with matmul_precision(prec):
-            H1 = V_minus.T @ (Hb @ V_minus)
-            H2 = V_plus.T @ (Hb @ V_plus)
+            H1 = V_minus.mH @ (Hb @ V_minus)
+            H2 = V_plus.mH @ (Hb @ V_plus)
             vecs[:, o:o + b] = torch.cat([V0 @ V_minus, V0 @ V_plus], 1)
-        stack.append((o, (H1 + H1.T) * 0.5))
-        stack.append((o + k, (H2 + H2.T) * 0.5))
+        stack.append((o, (H1 + H1.mH) * 0.5))
+        stack.append((o + k, (H2 + H2.mH) * 0.5))
 
     # Batched leaf solve: one Jacobi over the recorded stack, each leaf
     # zero-padded to the cutoff size (its padding rows and columns are zero,
@@ -362,12 +369,13 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
 
 def eigh(A, config: QRConfig = DEFAULT_CONFIG, *, base_n: int = 128,
          bucket: int | None = None, max_sweeps: int = 30):
-    """Full symmetric eigendecomposition A = V diag(w) V^T, w ascending.
+    """Full Hermitian eigendecomposition A = V diag(w) V^H, w ascending (real).
 
     torch.linalg.eigh drop-in built from this package's own pieces (QDWH
     sign-function splits, blocked-Householder subspace bases, Jacobi base
-    case); no library eigensolver anywhere.  A real symmetric, float32 or
-    float64; only the symmetric part (A + A^T)/2 is used.
+    case); no library eigensolver anywhere.  A real symmetric or complex
+    Hermitian (float32, float64, complex64, complex128); only the Hermitian
+    part (A + A^H)/2 is used.
 
     base_n: largest block solved directly by the Jacobi base case (also the
       divide and conquer's leaf size).
@@ -375,7 +383,6 @@ def eigh(A, config: QRConfig = DEFAULT_CONFIG, *, base_n: int = 128,
       multiples of this (default min(base_n, 64)) with sentinel eigenvalues.
     """
     A = as_tensor(A, config)
-    _require_real(A)
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise QRShapeError(f"eigh needs a square matrix, got {tuple(A.shape)}")
     if bucket is None:
@@ -383,9 +390,10 @@ def eigh(A, config: QRConfig = DEFAULT_CONFIG, *, base_n: int = 128,
     bucket = max(2, bucket + (bucket % 2))  # Jacobi pairs need even sizes
     if config.dtype != A.dtype:
         config = config.replace(dtype=A.dtype)
+    config = complex_config(A, config)
     for key in last_stats:
         last_stats[key] = 0
-    A = (A + A.T) * 0.5
+    A = (A + A.mH) * 0.5
     n = A.shape[0]
     if n <= base_n:
         lo, hi = host_values(torch.stack(_gershgorin(A)))
@@ -394,17 +402,16 @@ def eigh(A, config: QRConfig = DEFAULT_CONFIG, *, base_n: int = 128,
 
 
 def eigh_batched(As, max_sweeps: int = 30, config: QRConfig = DEFAULT_CONFIG):
-    """Batched symmetric eigendecomposition of a (B, n, n) stack.
+    """Batched Hermitian eigendecomposition of a (B, n, n) stack.
 
     Parallel-ordered Jacobi over the whole stack: every sweep round is one
     batched GEMM pair, the natural shape for many small eigenproblems (the
     batched analog of ``qr_batched``).  Sizes where one matrix's divide and
     conquer wins (n >> 512) should call ``eigh`` per matrix instead.
-    Returns (ws (B, n) ascending, Vs (B, n, n)).  ``config`` only says where
-    numpy input is placed.
+    Returns (ws (B, n) ascending, real; Vs (B, n, n)).  ``config`` only says
+    where numpy input is placed.
     """
     As = as_tensor(As, config)
-    _require_real(As)
     if As.dim() != 3 or As.shape[1] != As.shape[2]:
         raise QRShapeError(f"eigh_batched needs (B, n, n), got {tuple(As.shape)}")
     for key in last_stats:
@@ -414,7 +421,7 @@ def eigh_batched(As, max_sweeps: int = 30, config: QRConfig = DEFAULT_CONFIG):
     if npad != n:  # Jacobi pairing needs even n; one decoupled pad row
         As = F.pad(As, (0, 1, 0, 1))
         As[:, n, n] = 1.0
-    As = (As + As.mT) * 0.5
+    As = (As + As.mH) * 0.5
     ws, Vs = _jacobi_eigh(As, _schedule("round_robin", npad, str(As.device)),
                           max_sweeps=max_sweeps)
     if npad != n:

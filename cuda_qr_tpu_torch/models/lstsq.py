@@ -27,7 +27,7 @@ import torch
 
 from torch.distributed.tensor import DTensor
 
-from ..ops.blocked import _require_real, as_tensor, extract_r, ormqr, qr_blocked
+from ..ops.blocked import as_tensor, extract_r, ormqr, qr_blocked
 from ..parallel.mesh import as_row_sharded, shard_rows
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
@@ -125,14 +125,14 @@ def lstsq_dist(A, b, mesh, config: QRConfig = DEFAULT_CONFIG,
     by every rank; x and the residual norms come back replicated.
 
     Augmented-matrix CAQR: one R-only factorization of [A | b] gives
-    R_aug = [[R, Q^T b], [0, rho]], so x = R^{-1} R_aug[:n, n:] and the
+    R_aug = [[R, Q^H b], [0, rho]], so x = R^{-1} R_aug[:n, n:] and the
     residual norm of each right-hand side is a column norm of the rho
     block; b never moves between ranks.  (Both are invariant to R's
-    row-sign ambiguity.)  A (m x n, m >= n, full rank) and b ((m,) or
-    (m, k)) are full arrays on every rank, or row-sharded DTensors.  Real
-    only: complex input is ROADMAP A5b.
+    row-phase ambiguity.)  A (m x n, m >= n, full rank) and b ((m,) or
+    (m, k)) are full arrays on every rank, or row-sharded DTensors; b is
+    cast to A's dtype.  Complex A takes the "allgather" combine with no
+    kernel (``caqr_r``).
     """
-    _require_real(A, b)
     m, n = A.shape
     vec = len(b.shape) == 1
     if b.shape[0] != m:

@@ -17,15 +17,18 @@ and the iteration itself takes no host sync.
 
 Iteration (X_0 = A/alpha, alpha >= ||A||_2):
     QR step:    [Q1; Q2] R = qr([sqrt(c) X; I]);
-                X <- (b/c) X + (1/sqrt(c)) (a - b/c) Q1 Q2^T
-    Chol step:  Z = I + c X^T X;  W = chol(Z);
-                X <- (b/c) X + (a - b/c) (X W^{-T}) W^{-1}
-Both are algebraically X (aI + b X^T X)(I + c X^T X)^{-1}; the QR form is
+                X <- (b/c) X + (1/sqrt(c)) (a - b/c) Q1 Q2^H
+    Chol step:  Z = I + c X^H X;  W = chol(Z);
+                X <- (b/c) X + (a - b/c) (X W^{-H}) W^{-1}
+Both are algebraically X (aI + b X^H X)(I + c X^H X)^{-1}; the QR form is
 inverse-free and stable for the huge early c_k, the Cholesky form costs
 about half once c_k is O(1).
 
-Real input only.  ``polar_dist`` and ``svd_dist`` run the same iteration on
-a row-sharded matrix over the row mesh (``parallel/``).
+Complex input takes QR steps throughout (no Cholesky step, so no chol_inv
+kernel), on the blocked Householder QR (never TSQR), at
+``complex_config``: the reference's route.  ``polar_dist`` and ``svd_dist``
+run the same iteration on a row-sharded matrix over the row mesh
+(``parallel/``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.blocked import _require_real, as_real_matrix
+from ..ops.blocked import as_matrix, complex_config
 from ..ops.chol_kernel import supported
 from ..ops.smalllinalg import _eye, chol_with_inv_auto, cholesky_with_inv, library_eigh
 from ..parallel.collectives import pmax, psum
@@ -77,13 +80,14 @@ def _qdwh_schedule(l0: float, eps: float, max_iter: int = 24):
 
 def _real_dtype(dt: torch.dtype) -> torch.dtype:
     """The working real dtype of the scalar recurrences and tolerances."""
-    return torch.float64 if dt == torch.float64 else torch.float32
+    return torch.float64 if dt in (torch.float64, torch.complex128) else torch.float32
 
 
 def _thin_q2(Y: torch.Tensor, config: QRConfig) -> torch.Tensor:
-    """Thin Q of the stacked (m+n) x n QDWH matrix."""
+    """Thin Q of the stacked (m+n) x n QDWH matrix; complex Y never takes
+    TSQR (``cuda_qr_tpu/models/polar.py:80``)."""
     m, n = Y.shape
-    if n <= config.panel_width and m >= 2 * n:
+    if n <= config.panel_width and m >= 2 * n and not Y.is_complex():
         return tsqr(Y, config)[0]
     return qr(Y, config, mode="reduced")[0]
 
@@ -110,18 +114,20 @@ def _chol_inv_padded(Z: torch.Tensor, config: QRConfig):
 
 def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig) -> torch.Tensor:
     """Run a (a, b, c, use_qr) weight schedule on X (m x n, spectrum in
-    [l0, 1]).  GEMMs at config.precision; no host sync of its own."""
+    [l0, 1]); complex X takes the QR step at every weight.  GEMMs at
+    config.precision; no host sync of its own."""
     m, n = X.shape
     dt = X.dtype
+    cplx = X.is_complex()
     eye = _eye(n, X)
     for a, b, c, use_qr in schedule:
         a, b, c = float(a), float(b), float(c)
         bc = b / c
-        if use_qr:
+        if use_qr or cplx:
             sc = math.sqrt(c)
             Q = _thin_q2(torch.cat([sc * X, eye], 0), config).to(dt)
             with matmul_precision(config.precision):
-                X = bc * X + ((a - bc) / sc) * (Q[:m] @ Q[m:].T)
+                X = bc * X + ((a - bc) / sc) * (Q[:m] @ Q[m:].mH)
         else:
             with matmul_precision(config.precision):
                 Z = eye + c * (X.T @ X)
@@ -190,8 +196,10 @@ def _qdwh_dyn_core(X: torch.Tensor, l0: float, config: QRConfig) -> torch.Tensor
     bound for sigma_min(X) (pessimistic is fine: extra iterations are no-ops
     once l reaches 1).  The reference carries l as a device scalar under two
     while-loops; l0 is a host number here, so the weights are all computed
-    on the host first and the iteration takes no host sync."""
-    rdt = np.float64 if X.dtype == torch.float64 else np.float32
+    on the host first and the iteration takes no host sync.  Complex X runs
+    the same weights as QR steps throughout (``_qdwh_core``), as the
+    reference's complex iteration stays in its QR phase until it converges."""
+    rdt = np.float64 if _real_dtype(X.dtype) == torch.float64 else np.float32
     return _qdwh_core(X, _qdwh_dyn_schedule(l0, rdt), config)
 
 
@@ -200,8 +208,8 @@ def polar(A, side: str = "right", l0: float | None = None,
     """Polar decomposition (scipy.linalg.polar analog, QDWH, SVD-free).
 
     side='right': A = U H with U (m x n) having orthonormal columns
-    (m >= n) or orthonormal rows (m < n) and H (n x n) symmetric PSD.
-    side='left':  A = H U with H (m x m) symmetric PSD.
+    (m >= n) or orthonormal rows (m < n) and H (n x n) Hermitian PSD.
+    side='left':  A = H U with H (m x m) Hermitian PSD.
 
     l0: optional lower bound for sigma_min(A)/||A||_2 in (0, 1].  Tighter
     values shorten the schedule; the default (just below machine eps of the
@@ -209,19 +217,20 @@ def polar(A, side: str = "right", l0: float | None = None,
     A the iteration still returns an orthogonal U (the polar factor of a
     nearby full-rank matrix; the polar factor itself is non-unique there).
     """
-    A = as_real_matrix(A, config, "polar")
+    A = as_matrix(A, config, "polar")
     if side not in ("right", "left"):
         raise ValueError(f"side must be 'right' or 'left', got {side!r}")
     m, n = A.shape
     if m < n:
-        # A = U H  <=>  A^T = H U^T: the transposed problem on the other side
-        Ut, Ht = polar(A.T, side="left" if side == "right" else "right", l0=l0,
+        # A = U H  <=>  A^H = H U^H: the transposed problem on the other side
+        Ut, Ht = polar(A.mH, side="left" if side == "right" else "right", l0=l0,
                        config=config, max_iter=max_iter)
-        return Ut.T, Ht.T
+        return Ut.mH.resolve_conj(), Ht.mH.resolve_conj()
     dt = A.dtype
     if config.dtype != dt:
-        # float64 / bfloat16 input: run the QR core in the input dtype
+        # float64 / bfloat16 / complex input: run the QR core in the input dtype
         config = config.replace(dtype=dt)
+    config = complex_config(A, config)
     eps = float(torch.finfo(_real_dtype(dt)).eps)
     if l0 is None:
         l0 = eps / 10.0
@@ -237,9 +246,9 @@ def svd(A, full_matrices: bool = False, l0: float | None = None,
         config: QRConfig = DEFAULT_CONFIG, eigh_impl: str = "torch"):
     """Singular value decomposition via QDWH-SVD (Nakatsukasa-Higham 2013).
 
-    A = U diag(s) V^T with s descending.  The polar factor comes from the
-    QDWH iteration above (all GEMM/QR work), then one symmetric
-    eigendecomposition of the n x n factor H = V S V^T gives the right
+    A = U diag(s) V^H with s descending (real).  The polar factor comes from
+    the QDWH iteration above (all GEMM/QR work), then one Hermitian
+    eigendecomposition of the n x n factor H = V S V^H gives the right
     singular vectors, and U = U_polar V is one GEMM.  No bidiagonalization.
 
     full_matrices=True extends the thin factor on the long side to a full
@@ -253,14 +262,15 @@ def svd(A, full_matrices: bool = False, l0: float | None = None,
     (``models/eigh.py``), so that no stage of the SVD is a library
     factorization.
     """
-    A = as_real_matrix(A, config, "svd")
+    A = as_matrix(A, config, "svd")
+    config = complex_config(A, config)
     if eigh_impl not in EIGH_IMPLS:
         raise ValueError(f"eigh_impl must be one of {EIGH_IMPLS}, got {eigh_impl!r}")
     m, n = A.shape
     if m < n:
-        U, s, Vh = svd(A.T, full_matrices=full_matrices, l0=l0, config=config,
+        U, s, Vh = svd(A.mH, full_matrices=full_matrices, l0=l0, config=config,
                        eigh_impl=eigh_impl)
-        return Vh.T, s, U.T
+        return Vh.mH.resolve_conj(), s, U.mH.resolve_conj()
     Up, H = polar(A, side="right", l0=l0, config=config)
     if eigh_impl == "qdwh":
         from .eigh import eigh
@@ -275,12 +285,13 @@ def svd(A, full_matrices: bool = False, l0: float | None = None,
 
 
 def _svd_finish(Up, w, V, config: QRConfig):
-    """(U, s, V^T) from the polar factor and H's ascending eigenpairs."""
+    """(U, s, V^H) from the polar factor and H's ascending eigenpairs; s in
+    the real dtype."""
     w = w.flip(0).clamp_min(0.0)                    # descending, clipped PSD
     V = V.flip(1)
     with matmul_precision(config.precision):
         U = Up @ V.to(Up.dtype)
-    return U, w.to(Up.dtype), V.T.to(Up.dtype)
+    return U, w.to(Up.real.dtype), V.mH.to(Up.dtype).resolve_conj()
 
 
 def _prep(A: torch.Tensor) -> torch.Tensor:
@@ -294,8 +305,8 @@ def _prep(A: torch.Tensor) -> torch.Tensor:
 
 def _form_h(U, A, side: str, config: QRConfig) -> torch.Tensor:
     with matmul_precision(config.precision):
-        Hm = U.T @ A if side == "right" else A @ U.T
-    return (Hm + Hm.T) * 0.5
+        Hm = U.mH @ A if side == "right" else A @ U.mH
+    return (Hm + Hm.mH) * 0.5
 
 
 def _prep_dist(a: torch.Tensor, mesh) -> torch.Tensor:
@@ -311,19 +322,21 @@ def _qdwh_dist(X: torch.Tensor, schedule, mesh, config: QRConfig, strategy: str)
     """The QDWH schedule on a row-sharded X (this rank's rows).  QR step:
     X = Q_d R_d by ``tsqr_dist``, then the small replicated stack
     [sqrt(c) R_d; I] = [Q1; Q2] R2, so the Halley update is one rank-local
-    GEMM Q_d (Q1 Q2^T).  Cholesky step: one all_reduce of X^T X and the
-    plain ``cholesky_with_inv``, as the reference's distributed iteration."""
+    GEMM Q_d (Q1 Q2^H).  Cholesky step: one all_reduce of X^T X and the
+    plain ``cholesky_with_inv``, as the reference's distributed iteration.
+    Complex X takes the QR step at every weight."""
     n = X.shape[1]
+    cplx = X.is_complex()
     eye = _eye(n, X)
     for a, b, c, use_qr in schedule:
         a, b, c = float(a), float(b), float(c)
         bc = b / c
-        if use_qr:
+        if use_qr or cplx:
             sc = math.sqrt(c)
             Qd, Rd = _tsqr_dist_local(X, mesh, config, strategy)
             with matmul_precision(config.precision):
                 Qs, _ = _small_qr_q(torch.cat([sc * Rd, eye], 0), config)
-                X = bc * X + ((a - bc) / sc) * (Qd @ (Qs[:n] @ Qs[n:].T))
+                X = bc * X + ((a - bc) / sc) * (Qd @ (Qs[:n] @ Qs[n:].mH))
         else:
             with matmul_precision(config.precision):
                 Z = eye + c * psum(X.T @ X, mesh)
@@ -336,13 +349,15 @@ def polar_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONF
                strategy: str | None = None, max_iter: int = 24):
     """Distributed QDWH polar decomposition of a row-sharded tall matrix,
     called by every rank: A = U H with U (m x n, orthonormal columns) a
-    row-sharded DTensor and H (n x n symmetric PSD) replicated.
+    row-sharded DTensor and H (n x n Hermitian PSD) replicated.
 
     The QR steps factor X with ``tsqr_dist`` (``strategy``, default
     "allgather": the unconditionally stable combine, since early iterates
     have cond up to 1/l0) and the replicated (2n x n) stack; the Cholesky
-    steps all-reduce the Gram; H = U^T A is one all-reduced GEMM.  A: the
+    steps all-reduce the Gram; H = U^H A is one all-reduced GEMM.  A: the
     full matrix on every rank or a row-sharded DTensor; m >= n, m % P == 0.
+    Complex A takes QR steps throughout on Householder leaves
+    (``cuda_qr_tpu/models/polar.py:305-345``).
     """
     if len(A.shape) != 2:
         raise QRShapeError(f"polar_dist needs a 2-D matrix, got {tuple(A.shape)}")
@@ -356,25 +371,25 @@ def polar_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONF
     strategy = strategy or "allgather"
     _check_tsqr(strategy, m, P)              # before any collective, as tsqr_dist
     a, _ = shard_rows(A, mesh)
-    _require_real(a)
     dt = a.dtype
     if config.dtype != dt:
         config = config.replace(dtype=dt)
+    config = complex_config(a, config)
     eps = float(torch.finfo(_real_dtype(dt)).eps)
     if l0 is None:
         l0 = eps / 10.0
     schedule = _qdwh_schedule(l0 / (m * n) ** 0.25, eps, max_iter)
     U = _qdwh_dist(_prep_dist(a, mesh), schedule, mesh, config, strategy)
     with matmul_precision(config.precision):
-        Hm = psum(U.T @ a, mesh)
-    return as_row_sharded(U, mesh, m), (Hm + Hm.T) * 0.5
+        Hm = psum(U.mH @ a, mesh)
+    return as_row_sharded(U, mesh, m), (Hm + Hm.mH) * 0.5
 
 
 def svd_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONFIG,
              strategy: str | None = None, eigh_impl: str = "torch", max_iter: int = 24):
     """Distributed SVD of a row-sharded tall matrix via QDWH, called by
-    every rank: A = U diag(s) V^T with U (m x n) a row-sharded DTensor, s
-    descending and V^T (n x n) replicated.
+    every rank: A = U diag(s) V^H with U (m x n) a row-sharded DTensor, s
+    descending and V^H (n x n) replicated.
 
     The polar factor comes from ``polar_dist`` (its only collectives), the
     replicated n x n factor H is diagonalized on every rank (``eigh_impl``
@@ -386,6 +401,7 @@ def svd_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONFIG
         raise QRShapeError(f"svd_dist needs a 2-D matrix, got {tuple(A.shape)}")
     if eigh_impl not in EIGH_IMPLS:
         raise ValueError(f"eigh_impl must be one of {EIGH_IMPLS}, got {eigh_impl!r}")
+    config = complex_config(A, config)
     Up, H = polar_dist(A, mesh, l0=l0, config=config, strategy=strategy, max_iter=max_iter)
     if eigh_impl == "qdwh":
         from .eigh import eigh

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.blocked import PackedQR, as_tensor, extract_r, orgqr, ormqr, qr_blocked
+from ..ops.blocked import PackedQR, as_tensor, complex_config, extract_r, orgqr, ormqr, qr_blocked
 from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
@@ -43,6 +43,7 @@ class QRResult:
 
 def qr_factor(A, config: QRConfig = DEFAULT_CONFIG) -> QRResult:
     A = as_tensor(A, config)
+    config = complex_config(A, config)
     m, n = A.shape
     return QRResult(qr_blocked(A, config), m, n, config)
 
@@ -97,8 +98,11 @@ def qr_pivoted(A, config: QRConfig = DEFAULT_CONFIG, rank: int | None = None,
       blocks, Q (m x r), R (r x n), piv (n,) with A[:, piv] ~= Q R up to
       the neglected singular values.
     generator / omega: the sketch's source, as for ``qrcp_blocked``.
+    Complex input runs at ``complex_config`` (geqr2 panels, the plain pivot
+    selection on |column|^2 sketch norms, no kernel).
     """
     A = as_tensor(A, config)
+    config = complex_config(A, config)
     m, n = A.shape
     num_panels = None
     if rank is not None:

@@ -8,17 +8,17 @@ bring the R diagonal over (one transfer), count the diagonal entries above
 rcond * |R_00|, then run the algebra for that rank.
 
 COD: A P = Q [R1; 0] with R1 (r x n); the LQ step R1 = T Z (from the QR of
-R1^T) gives A P = Q1 T Z with T (r x r) lower-triangular and Z (r x n)
+R1^H) gives A P = Q1 T Z with T (r x r) lower-triangular and Z (r x n)
 with orthonormal rows, and the minimum-norm solution of min ||Ax - b|| is
-x = P Z^T T^{-1} Q1^T b.
+x = P Z^H T^{-1} Q1^H b.  Complex A runs at ``complex_config`` throughout
+(the reference's ``_complexify``).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..ops.blocked import as_tensor, extract_r, orgqr, ormqr, qr_blocked
+from ..ops.blocked import as_tensor, complex_config, extract_r, orgqr, ormqr, qr_blocked
 from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
@@ -27,18 +27,19 @@ from .qr import qr_factor
 
 def _qrcp_with_rank(A: torch.Tensor, config: QRConfig, rcond):
     """QRCP factors and the host-side rank decision:
-    (factors, piv (n_pad,), R (kb x n_pad), r)."""
+    (factors, piv (n_pad,), R (kb x n_pad), r, the configuration A runs at)."""
+    config = complex_config(A, config)
     m, n = A.shape
     factors, jpvt, R12 = qrcp_blocked(A, config)
     kb = factors.packed.shape[1]
     R = torch.cat([extract_r(factors, kb), R12], 1)
     # float64 on the host whatever R's dtype: a float32 copy would flush a
     # float64 diagonal outside float32's range to 0 or inf (rank 0)
-    d = np.abs(torch.diagonal(R)[:n].double().cpu().numpy())
+    d = torch.diagonal(R)[:n].abs().double().cpu().numpy()
     if rcond is None:
         rcond = max(m, n) * float(torch.finfo(R.dtype).eps)
     r = int((d > rcond * (d[0] if d.size else 0.0)).sum())
-    return factors, jpvt, R, r
+    return factors, jpvt, R, r, config
 
 
 def _unpermute(Y: torch.Tensor, piv: torch.Tensor) -> torch.Tensor:
@@ -47,10 +48,10 @@ def _unpermute(Y: torch.Tensor, piv: torch.Tensor) -> torch.Tensor:
 
 
 def _lq(R1: torch.Tensor, config: QRConfig):
-    """LQ of R1 (r x n) through the QR of R1^T: (QR handle, Z^T (n x r),
+    """LQ of R1 (r x n) through the QR of R1^H: (QR handle, Z^H (n x r),
     T (r x r) lower)."""
-    lq = qr_factor(R1.T, config)
-    return lq, lq.Q, lq.R.T
+    lq = qr_factor(R1.mH, config)
+    return lq, lq.Q, lq.R.mH
 
 
 def matrix_rank(A, rcond: float | None = None,
@@ -72,7 +73,7 @@ def lstsq_rr(A, b, rcond: float | None = None,
     """
     A = as_tensor(A, config)
     m, n = A.shape
-    factors, jpvt, R, r = _qrcp_with_rank(A, config, rcond)
+    factors, jpvt, R, r, config = _qrcp_with_rank(A, config, rcond)
     b = as_tensor(b, config).to(A.device)
     vec = b.dim() == 1
     B = (b[:, None] if vec else b).to(factors.packed.dtype)
@@ -94,15 +95,15 @@ def lstsq_rr(A, b, rcond: float | None = None,
 def pinv(A, rcond: float | None = None,
          config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """Moore-Penrose pseudoinverse of A (m >= n) through the COD:
-    A^+ = P Z^T T^{-1} Q1^T, O(mn^2), no SVD."""
+    A^+ = P Z^H T^{-1} Q1^H, O(mn^2), no SVD."""
     A = as_tensor(A, config)
     m, n = A.shape
-    factors, jpvt, R, r = _qrcp_with_rank(A, config, rcond)
+    factors, jpvt, R, r, config = _qrcp_with_rank(A, config, rcond)
     if r == 0:
         return torch.zeros((n, m), dtype=factors.packed.dtype, device=A.device)
     _, Zt, T_low = _lq(R[:r, :n], config)
     Q1 = orgqr(factors, m, factors.packed.shape[1], config)[:, :r]
-    W = torch.linalg.solve_triangular(T_low, Q1.T, upper=False)      # (r, m)
+    W = torch.linalg.solve_triangular(T_low, Q1.mH, upper=False)     # (r, m)
     return _unpermute(Zt @ W, jpvt[:n])
 
 
@@ -112,7 +113,7 @@ def null_space(A, rcond: float | None = None,
     trailing complete-Q columns of the COD's LQ step, unpermuted."""
     A = as_tensor(A, config)
     m, n = A.shape
-    factors, jpvt, R, r = _qrcp_with_rank(A, config, rcond)
+    factors, jpvt, R, r, config = _qrcp_with_rank(A, config, rcond)
     dtype = factors.packed.dtype
     if r >= n:
         return torch.zeros((n, 0), dtype=dtype, device=A.device)

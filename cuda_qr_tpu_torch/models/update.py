@@ -13,8 +13,10 @@ element of a CUDA tensor synchronizes).  It
 is launch-bound on a GPU (a few launches per rotation), so updating beats
 refactoring only while the chain is shorter than the refactor: callers
 choose by measurement.  Every function returns new tensors and leaves its
-inputs unchanged.  Real dtypes only; ``qr_rank1_update`` computes
-A + u v^T (scipy.linalg.qr_update's convention).
+inputs unchanged.  Complex factors follow LAPACK's clartg convention, as
+the reference's: G = [[c, -s], [conj(s), c]] with real c, applied as
+M <- G M and Q <- Q G^H; ``qr_rank1_update`` computes A + u v^H
+(scipy.linalg.qr_update's convention; v^H = v^T for real v).
 """
 
 from __future__ import annotations
@@ -22,36 +24,49 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops.blocked import _require_real
 from ..utils.config import matmul_precision
 
 
 def _givens(a: torch.Tensor, b: torch.Tensor):
-    """(c, s, r) with [[c, -s], [s, c]] @ [a, b] = [r, 0]: c = a/r, s = -b/r,
-    r = hypot(a, b) >= 0.  Safe at a = b = 0 (the identity, r = a)."""
-    r = torch.hypot(a, b)
-    safe = r > 0
-    rs = torch.where(safe, r, 1.0)
-    c = torch.where(safe, a / rs, 1.0)
-    s = torch.where(safe, -b / rs, 0.0)
-    return c, s, torch.where(safe, r, a)
+    """(c, s, r) with G @ [a, b] = [r, 0] for G = [[c, -s], [conj(s), c]],
+    c real.  Safe at a = b = 0 (the identity, r = a).
+
+    Real: c = a/r, s = -b/r, r = hypot(a, b) >= 0.  Complex (clartg):
+    c = |a|/h, s = -(a/|a|) conj(b)/h, r = (a/|a|) h with
+    h = sqrt(|a|^2 + |b|^2), so r carries a's phase.
+    """
+    if not (a.is_complex() or b.is_complex()):
+        r = torch.hypot(a, b)
+        safe = r > 0
+        rs = torch.where(safe, r, 1.0)
+        c = torch.where(safe, a / rs, 1.0)
+        s = torch.where(safe, -b / rs, 0.0)
+        return c, s, torch.where(safe, r, a)
+    absa = a.abs()
+    h = torch.sqrt(absa * absa + b.abs() ** 2)
+    safe = h > 0
+    hs = torch.where(safe, h, 1.0)
+    siga = torch.where(absa > 0, a / torch.where(absa > 0, absa, 1.0), 1.0)
+    c = torch.where(safe, absa / hs, 1.0)                          # real
+    s = torch.where(safe, -siga * b.conj() / hs, 0.0)
+    return c, s, torch.where(safe, siga * h, a)
 
 
 def _rotate(M: torch.Tensor, Q: torch.Tensor, i: int, j: int, c, s) -> None:
     """In place: rows (i, j) of M <- G [M_i; M_j] and columns (i, j) of Q
-    <- [Q_i, Q_j] G^T, for G = [[c, -s], [s, c]]."""
-    G = torch.stack([c, -s, s, c]).reshape(2, 2)
+    <- [Q_i, Q_j] G^H, for G = [[c, -s], [conj(s), c]]."""
+    G = torch.stack([c.to(s.dtype), -s, s.conj(), c.to(s.dtype)]).reshape(2, 2)
     rows = G @ torch.stack([M[i], M[j]])
     M[i], M[j] = rows[0], rows[1]
-    cols = torch.stack([Q[:, i], Q[:, j]], 1) @ G.T
+    cols = torch.stack([Q[:, i], Q[:, j]], 1) @ G.mH
     Q[:, i], Q[:, j] = cols[:, 0], cols[:, 1]
 
 
 def _orthogonal_complement(Q: torch.Tensor, u: torch.Tensor):
-    """(q, Q^T u, rho): q is the unit residual of u against span(Q) (zero
+    """(q, Q^H u, rho): q is the unit residual of u against span(Q) (zero
     when u already lies in the span -- the chains then never mix the dead
-    column in, because its Givens weight is zero), rho its norm."""
-    w = Q.T @ u
+    column in, because its Givens weight is zero), rho its norm (real)."""
+    w = Q.mH @ u
     r = u - Q @ w
     rho = torch.linalg.norm(r)
     safe = rho > 0
@@ -61,27 +76,26 @@ def _orthogonal_complement(Q: torch.Tensor, u: torch.Tensor):
 
 def qr_rank1_update(Q: torch.Tensor, R: torch.Tensor, u: torch.Tensor,
                     v: torch.Tensor, precision: str = "highest"):
-    """Thin QR of A + u v^T from the thin QR of A (m x n, m >= n).
+    """Thin QR of A + u v^H from the thin QR of A (m x n, m >= n).
 
-    With w = Q^T u, q the unit residual and rho its norm,
-    A + u v^T = [Q q] ([[R], [0]] + [w; rho] v^T).  A bottom-up Givens
+    With w = Q^H u, q the unit residual and rho its norm,
+    A + u v^H = [Q q] ([[R], [0]] + [w; rho] v^H).  A bottom-up Givens
     chain maps [w; rho] to tau e_0 and [[R], [0]] to upper Hessenberg;
-    adding (tau e_0) v^T touches row 0 only; a top-down chain restores
+    adding (tau e_0) v^H touches row 0 only; a top-down chain restores
     triangularity.  2n rotations.
     """
-    _require_real(Q, R, u, v)
     m, n = Q.shape
     with matmul_precision(precision):
         q, w, rho = _orthogonal_complement(Q, u.to(Q.dtype))
         Q1 = torch.cat([Q, q[:, None]], 1)
         M = torch.cat([R, R.new_zeros(1, n)], 0)
-        we = torch.cat([w, rho[None]])
+        we = torch.cat([w, rho.to(w.dtype)[None]])
         for i in range(n - 1, -1, -1):
             c, s, r = _givens(we[i], we[i + 1])
             we[i] = r
             we[i + 1].zero_()
             _rotate(M, Q1, i, i + 1, c, s)
-        M[0] += we[0] * v.to(M.dtype)
+        M[0] += we[0] * v.to(M.dtype).conj()
         for i in range(n):
             c, s, _ = _givens(M[i, i], M[i + 1, i])
             _rotate(M, Q1, i, i + 1, c, s)
@@ -90,7 +104,7 @@ def qr_rank1_update(Q: torch.Tensor, R: torch.Tensor, u: torch.Tensor,
 
 def qr_update(Q: torch.Tensor, R: torch.Tensor, u: torch.Tensor,
               v: torch.Tensor, precision: str = "highest"):
-    """Thin QR of A + u v^T (rank 1) or A + U V^T (rank k, U (m, k),
+    """Thin QR of A + u v^H (rank 1) or A + U V^H (rank k, U (m, k),
     V (n, k)), as k sequential rank-1 chains."""
     if u.dim() == 1:
         return qr_rank1_update(Q, R, u, v, precision)
@@ -110,7 +124,6 @@ def qr_row_insert(Q: torch.Tensor, R: torch.Tensor, a: torch.Tensor,
     left-to-right chain folds the bottom row into R (n rotations); the
     insertion position only permutes rows of Q afterwards.
     """
-    _require_real(Q, R, a)
     m, n = Q.shape
     if k is None:
         k = m
@@ -134,7 +147,6 @@ def qr_row_delete(Q: torch.Tensor, R: torch.Tensor, k: int,
     row k of the shrunken Q is zero, and dropping both leaves the
     orthonormal factor of the deleted-row matrix.
     """
-    _require_real(Q, R)
     m, n = Q.shape
     if m <= n:
         raise ValueError(f"row_delete needs m > n (thin QR after deletion), got {m}x{n}")
@@ -144,8 +156,9 @@ def qr_row_delete(Q: torch.Tensor, R: torch.Tensor, k: int,
         w, q, _ = _orthogonal_complement(Q, ek)
     Qe = torch.cat([Q, w[:, None]], 1)
     M = torch.cat([R, R.new_zeros(1, n)], 0)
-    gamma = torch.sqrt(torch.clamp(1 - torch.sum(q * q), min=0))
-    qe = torch.cat([q, gamma[None]])
+    # gamma^2 = 1 - ||q||^2, real also for complex Q (Bjorck)
+    gamma = torch.sqrt(torch.clamp(1 - torch.sum((q * q.conj()).real), min=0))
+    qe = torch.cat([q, gamma.to(q.dtype)[None]])
     for i in range(n - 1, -1, -1):
         c, s, r = _givens(qe[n], qe[i])
         qe[n] = r
@@ -158,11 +171,10 @@ def qr_col_insert(Q: torch.Tensor, R: torch.Tensor, a: torch.Tensor, k: int,
                   precision: str = "highest"):
     """Thin QR of A with column ``a`` inserted before column k; needs m > n.
 
-    The new column contributes [Q^T a; rho] in the extended basis; columns
+    The new column contributes [Q^H a; rho] in the extended basis; columns
     right of k are upper Hessenberg after the shift, and one bottom-up chain
     of n - k rotations on column k restores triangularity for all of them.
     """
-    _require_real(Q, R, a)
     m, n = Q.shape
     if m <= n:
         raise ValueError(f"col_insert needs m > n to extend the basis, got {m}x{n}")
@@ -170,7 +182,7 @@ def qr_col_insert(Q: torch.Tensor, R: torch.Tensor, a: torch.Tensor, k: int,
         q, w, rho = _orthogonal_complement(Q, a.to(Q.dtype))
     Q1 = torch.cat([Q, q[:, None]], 1)
     Rp = F.pad(R, (0, 0, 0, 1))
-    newcol = torch.cat([w, rho[None]])[:, None]
+    newcol = torch.cat([w, rho.to(w.dtype)[None]])[:, None]
     M = torch.cat([Rp[:, :k], newcol, Rp[:, k:]], 1)
     for i in range(n - 1, k - 1, -1):
         c, s, _ = _givens(M[i, k], M[i + 1, k])
@@ -186,7 +198,6 @@ def qr_col_delete(Q: torch.Tensor, R: torch.Tensor, k: int):
     re-triangularizes, and the last column/row pair of the factors falls
     away.
     """
-    _require_real(Q, R)
     n = Q.shape[1]
     M = torch.cat([R[:, :k], R[:, k + 1:]], 1)
     Q = Q.clone()

@@ -60,32 +60,29 @@ def is_complex(A) -> bool:
     return dt.is_complex if isinstance(dt, torch.dtype) else np.dtype(dt).kind == "c"
 
 
-def _require_real(*tensors) -> None:
-    """Raise for complex input to an entry point whose complex form is not
-    ported yet (ROADMAP.md, Queue A, A5b)."""
-    if any(is_complex(t) for t in tensors):
-        raise NotImplementedError(
-            "complex input to this function is not ported yet (ROADMAP.md, Queue A, A5b: "
-            "complex Givens updates, QRCP and the rank solvers, the spectral family, "
-            "the complex *_dist solvers)")
-
-
 def complex_config(A, config: QRConfig) -> QRConfig:
     """The configuration complex A runs at: its own dtype, the plain geqr2
-    panels and no kernel (the reference's ``use_pallas=False,
-    use_chol_kernel=False``).  Real A keeps ``config``."""
+    panels, the plain pivot selection and no kernel (the reference's
+    ``use_pallas=False, use_chol_kernel=False, use_select_kernel=False``),
+    and every GEMM at "highest".  cuBLAS's TF32 mode reaches complex64
+    GEMMs; the reference's MIXED trailing precision (bf16x3) keeps float32's
+    accuracy, so "tf32" maps to "highest" here.  Real A keeps ``config``."""
     if not is_complex(A):
         return config
     dtype = A.dtype if isinstance(A.dtype, torch.dtype) else torch.from_numpy(
         np.empty(0, A.dtype)).dtype
-    return config.replace(dtype=dtype, use_kernels=False, use_chol_kernel=False)
+
+    def full(p):
+        return "highest" if p == "tf32" else p
+    return config.replace(dtype=dtype, use_kernels=False, use_chol_kernel=False,
+                          use_select_kernel=False, precision=full(config.precision),
+                          trailing_precision=full(config.trailing_precision),
+                          orgqr_precision=full(config.orgqr_precision))
 
 
-def as_real_matrix(A, config: QRConfig, name: str) -> torch.Tensor:
-    """``as_tensor`` for an entry point ``name`` that takes one real matrix
-    (its complex form is ROADMAP A5b)."""
+def as_matrix(A, config: QRConfig, name: str) -> torch.Tensor:
+    """``as_tensor`` for an entry point ``name`` that takes one matrix."""
     A = as_tensor(A, config)
-    _require_real(A)
     if A.dim() != 2:
         raise QRShapeError(f"{name} needs a 2-D matrix, got shape {tuple(A.shape)}")
     return A

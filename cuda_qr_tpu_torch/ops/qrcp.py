@@ -35,7 +35,7 @@ import torch
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
-from .blocked import PackedQR, _panel_factor, _require_real, as_tensor
+from .blocked import PackedQR, _panel_factor, as_tensor, complex_config
 from .householder import panel_v
 from .select_kernel import select_pivots_kernel, select_pivots_plain, supported
 
@@ -63,7 +63,7 @@ def _select_pivots(B: torch.Tensor, j0: int, nb: int, cand: int,
     """
     l, n_pad = B.shape
     col = torch.arange(n_pad, device=B.device)
-    norms = torch.where(col >= j0, (B * B).sum(0), -1.0)
+    norms = torch.where(col >= j0, (B * B.conj()).real.sum(0), -1.0)   # real
     # Actives (>= 0) outrank inactives (-1) and number >= nb, so the
     # candidates hold at least nb active columns.
     cand_idx = _candidates(norms, cand)
@@ -96,7 +96,8 @@ def _block_perm(ordsel: torch.Tensor, j0: int, nb: int) -> torch.Tensor:
 
 
 def _sketch(m_pad: int, l: int, dtype, device, generator, omega) -> torch.Tensor:
-    """Omega (l x m_pad), N(0, 1/l) entries."""
+    """Omega (l x m_pad), N(0, 1/l) entries; complex for a complex dtype
+    (variance 1/2 on each part, as ``jax.random.normal``'s)."""
     if omega is not None:
         omega = torch.as_tensor(omega, dtype=dtype, device=device)
         if tuple(omega.shape) != (l, m_pad):
@@ -123,9 +124,12 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
                (empty for a full factorization).
     The sketch is ``omega`` (l x m_pad) if given, else drawn from
     ``generator`` (default: seeded 12 on A's device).  A is not modified.
+    Complex A runs at ``complex_config``: geqr2 panels at its dtype, the
+    plain pivot selection on real sketch norms, a complex Gaussian sketch
+    (``cuda_qr_tpu/ops/qrcp.py:144-148``).
     """
     A = as_tensor(A, config)
-    _require_real(A)
+    config = complex_config(A, config)
     m, n = A.shape
     if m < n:
         raise QRShapeError(f"qrcp_blocked requires m >= n, got {m}x{n}")
@@ -168,12 +172,12 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
         rest = Ap[j0:, j1:]
         if not rest.shape[1]:
             continue
-        # Trailing update (I - V T V^T)^T on rows >= j0, columns >= j0 + nb,
+        # Trailing update (I - V T V^H)^H on rows >= j0, columns >= j0 + nb,
         # at ``precision`` as in the reference (``trailing_precision`` is
         # qr_blocked's knob; the reference's QRCP does not read it).
         with matmul_precision(config.precision):
             V, Tc = panel_v(packed, 0, VJ), T.to(cdt)
-            rest -= V @ (Tc.T @ (V.T @ rest))
+            rest -= V @ (Tc.mH @ (V.mH @ rest))
         if sdt != cdt:
             rest.copy_(rest.to(sdt))
 

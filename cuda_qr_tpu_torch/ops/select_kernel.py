@@ -43,7 +43,9 @@ def supported(l: int, cand: int, nb: int, dtype) -> bool:
 def select_pivots_plain(S: torch.Tensor, norms: torch.Tensor, nb: int) -> torch.Tensor:
     """ord (cand,) int32: selection step 0..nb-1 of each chosen column of the
     (l, cand) tile S, -1 elsewhere; norms (cand,) has -1 at ineligible
-    columns.  Ties go to the lowest index (``torch.argmax``).
+    columns.  Ties go to the lowest index (``torch.argmax``).  A complex S
+    takes real norms and |proj|^2 downdates, as the reference's loop
+    (``cuda_qr_tpu/ops/qrcp.py:94-104``).
 
     The argmax stays on the device and the column is taken with a device
     index, so the loop takes no host sync.
@@ -55,11 +57,11 @@ def select_pivots_plain(S: torch.Tensor, norms: torch.Tensor, nb: int) -> torch.
     for i in range(nb):
         p = torch.argmax(norms)
         q = S.index_select(1, p.reshape(1))                      # (l, 1)
-        nq = torch.sqrt(torch.clamp_min((q * q).sum(), 0))
+        nq = torch.sqrt(torch.clamp_min((q * q.conj()).real.sum(), 0))
         qn = q * torch.where(nq > 0, 1 / nq, zero)
-        proj = qn.T @ S                                          # (1, cand)
+        proj = qn.mH @ S                                         # (1, cand)
         S = S - qn * proj
-        nn = torch.maximum(norms - proj[0] * proj[0], zero)
+        nn = torch.maximum(norms - (proj[0] * proj[0].conj()).real, zero)
         hit = iota == p
         norms = torch.where(hit | (norms < 0), -1.0, nn)
         order = torch.where(hit, i, order)

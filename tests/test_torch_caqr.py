@@ -154,7 +154,7 @@ def error_cases():
         ("err-layout", ("parallel.caqr:caqr_factor", (A, MESH, cfg), {"layout": "2d"})),
         ("err-shape", ("parallel.caqr:caqr_factor", (gaussian(42, 68, 16), MESH, cfg), {})),
         ("err-wide", ("caqr", (gaussian(43, 16, 32), MESH, cfg), {})),
-        ("err-complex", ("lstsq_dist", (A + 1j * A, A[:, 0], MESH, cfg), {})),
+        ("lstsq-complex", ("lstsq_dist", (A + 1j * A, A[:, 0], MESH, cfg), {})),
         ("err-complex-factor", ("parallel.caqr:caqr_factor",
                                 (np.ones((64, 16), np.complex64), MESH, cfg), {})),
     ]
@@ -348,18 +348,35 @@ def test_resume_rejects_mismatched_problem(port, P):
 @pytest.mark.parametrize("P", [4, 8])
 @pytest.mark.parametrize("case,exc", [("err-combine", ValueError), ("err-layout", ValueError),
                                       ("err-shape", QRShapeError), ("err-wide", QRShapeError),
-                                      ("err-complex", NotImplementedError),
                                       ("err-complex-factor", QRShapeError)])
 def test_error_paths(port, ref_meshes, P, case, exc):
     """The reference's exception types: complex caqr_factor needs the
-    allgather combine (QRShapeError); lstsq_dist's complex form is still
-    to port (ROADMAP A5b)."""
+    allgather combine (QRShapeError)."""
     assert isinstance(port[(P, case)], exc), port[(P, case)]
     if case in ("err-combine", "err-shape"):
         A = gaussian(41, 64, 16) if case == "err-combine" else gaussian(42, 68, 16)
         with pytest.raises(ValueError):
             ref_caqr.caqr_factor(jnp.asarray(A), ref_meshes[P], RCFG,
                                  **({"combine": "tree"} if case == "err-combine" else {}))
+
+
+@pytest.mark.parametrize("P", [4, 8])
+def test_lstsq_dist_complex_matches_reference(port, ref_meshes, P):
+    """complex128 [A | b] through caqr_r's allgather combine: x = e_0 / (1 + i)
+    exactly, and the reference's x, at float64's 1e-10."""
+    A = gaussian(41, 64, 16)
+    got = port[(P, "lstsq-complex")]
+    want = ref_models_lstsq_dist(A + 1j * A, A[:, 0], ref_meshes[P])
+    x = np.asarray(got.x)
+    assert x.dtype == np.complex128 and x.shape == (16,)
+    assert np.abs(x - np.asarray(want.x)).max() <= TOLS[np.float64]
+    assert np.abs(x - np.eye(16)[0] / (1 + 1j)).max() <= TOLS[np.float64]
+    close(got.residual_norm, np.asarray(want.residual_norm), TOLS[np.float64])
+
+
+def ref_models_lstsq_dist(A, b, mesh):
+    from cuda_qr_tpu.models.lstsq import lstsq_dist
+    return lstsq_dist(jnp.asarray(A), jnp.asarray(b), mesh, RCFG)
 
 
 def test_checkpoint_roundtrip(tmp_path):

@@ -271,43 +271,6 @@ def test_qr_batched_rejects_complex():
         ct.qr_batched(torch.ones((2, 5, 3), dtype=torch.complex64), CFG)
 
 
-# -- the entry points whose complex form is ROADMAP A5b
-def _a5b_calls():
-    z = torch.zeros((16, 8), dtype=torch.complex64)
-    zq = torch.zeros((16, 8), dtype=torch.complex64)
-    zr = torch.zeros((8, 8), dtype=torch.complex64)
-    v16, v8 = torch.zeros(16, dtype=torch.complex64), torch.zeros(8, dtype=torch.complex64)
-    sq = torch.eye(8, dtype=torch.complex64)
-    return {
-        "qr_pivoted": lambda: ct.qr_pivoted(z, CFG),
-        "matrix_rank": lambda: ct.matrix_rank(z, config=CFG),
-        "lstsq_rr": lambda: ct.lstsq_rr(z, v16, config=CFG),
-        "pinv": lambda: ct.pinv(z, config=CFG),
-        "null_space": lambda: ct.null_space(z, config=CFG),
-        "qr_rank1_update": lambda: ct.qr_rank1_update(zq, zr, v16, v8),
-        "qr_update": lambda: ct.qr_update(zq, zr, zq[:, :2], zr[:, :2]),
-        "qr_row_insert": lambda: ct.qr_row_insert(zq, zr, v8, 0),
-        "qr_row_delete": lambda: ct.qr_row_delete(zq, zr, 0),
-        "qr_col_insert": lambda: ct.qr_col_insert(zq, zr, v16, 0),
-        "qr_col_delete": lambda: ct.qr_col_delete(zq, zr, 0),
-        "orth": lambda: ct.orth(z, config=CFG),
-        "rsvd": lambda: ct.rsvd(z, 2, config=CFG),
-        "eigh_rand": lambda: ct.eigh_rand(sq, 2, config=CFG),
-        "norm2_est": lambda: ct.norm2_est(z, config=CFG),
-        "cond_est": lambda: ct.cond_est(z, config=CFG),
-        "polar": lambda: ct.polar(z, config=CFG),
-        "svd": lambda: ct.svd(z, config=CFG),
-        "eigh": lambda: ct.eigh(sq, CFG),
-        "eigh_batched": lambda: ct.eigh_batched(sq[None]),
-    }
-
-
-@pytest.mark.parametrize("name", list(_a5b_calls()))
-def test_a5b_entry_points_raise(name):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        _a5b_calls()[name]()
-
-
 def test_real_results_unchanged_by_conjugate_transposes(rng):
     """Every helper switched to .mH/.conj() against its former .mT form, on
     real tensors: torch.equal."""
@@ -385,12 +348,6 @@ def port_dist():
         ("tsqr-allgather", ("tsqr_dist", (z, MESH, cfg), {"strategy": "allgather"})),
         ("tsqr-butterfly", ("tsqr_dist", (z, MESH, cfg), {"strategy": "butterfly"})),
         ("tsqr-cholesky", ("tsqr_dist", (z, MESH, cfg), {"strategy": "cholesky"})),
-        ("a5b-lstsq_dist", ("lstsq_dist", (z, z[:, 0], MESH, cfg), {})),
-        ("a5b-polar_dist", ("polar_dist", (z, MESH), {"config": cfg})),
-        ("a5b-svd_dist", ("svd_dist", (z, MESH), {"config": cfg})),
-        ("a5b-rsvd_dist", ("rsvd_dist", (z, 4, MESH), {"config": cfg})),
-        ("a5b-eigh_rand_dist", ("eigh_rand_dist", (np.eye(16, dtype=np.complex64), 2, MESH),
-                                {"config": cfg})),
     ]
     out = run_ranks(P, call_many, [c for _, c in cases], device="cpu", join_timeout=300)[0]
     return dict(zip([name for name, _ in cases], out)), x
@@ -453,10 +410,3 @@ def test_tsqr_dist_cholesky_rejects_complex(port_dist, ref_mesh):
     with pytest.raises(ValueError, match="real-only"):
         ref_tsqr_dist(jnp.asarray(x["tsqr"]), ref_mesh, RefConfig(block_rows=64),
                       strategy="cholesky")
-
-
-@pytest.mark.parametrize("name", ["lstsq_dist", "polar_dist", "svd_dist", "rsvd_dist",
-                                  "eigh_rand_dist"])
-def test_a5b_dist_solvers_raise(port_dist, name):
-    err = port_dist[0][f"a5b-{name}"]
-    assert isinstance(err, NotImplementedError) and "A5b" in str(err), err

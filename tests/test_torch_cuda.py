@@ -443,6 +443,56 @@ def test_kernel_wrappers_raise_on_complex(dev, name):
     assert _launch_counts() == before
 
 
+def test_complex_mixed_config_passes_the_residual_gate(dev):
+    """C3: complex_config runs every GEMM of a complex input at "highest", so
+    MIXED_CONFIG's TF32 trailing update does not reach a complex64 qr; at
+    4096^2 it read residual 7.194e-04 against the n eps gate of 4.883e-04
+    before the repair (H100 80GB HBM3, 700 W)."""
+    g = torch.Generator(device=dev).manual_seed(73)
+    A = torch.randn(4096, 4096, generator=g, dtype=torch.complex64, device=dev)
+    before = _launch_counts()
+    Q, R = ct.qr(A, ct.MIXED_CONFIG)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    chk = ct.check_qr_device(A, Q, R)
+    assert chk.residual_ok and chk.ok, chk
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_qr_pivoted_on_the_card_launches_no_kernel(dev, dtype):
+    """Complex QRCP: geqr2 panels and the plain pivot selection (the select
+    kernel is real-only), on a tile the kernel would take for float32."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    A = torch.randn(1024, 512, generator=g, dtype=dtype, device=dev)
+    before = _launch_counts()
+    Q, R, piv = ct.qr_pivoted(A)
+    Qr, Rr, pr = ct.qr_pivoted(A, rank=200)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    assert torch.equal(torch.sort(piv).values, torch.arange(512, device=dev))
+    assert ct.check_qr_device(A[:, piv], Q, R).ok
+    assert torch.equal(pr[:128], piv[:128]) and Qr.shape == (1024, 200)
+    d = R.diagonal().abs()
+    assert float((d[1:] / d[:-1]).max()) < 1.5
+
+
+@pytest.mark.parametrize("n", [384, 512])
+def test_library_eigh_complex64(dev, n):
+    """The small Hermitian core of svd and eigh_rand in complex64: eigenvalues
+    within n eps ||H|| of complex128's, residual n eps."""
+    from cuda_qr_tpu_torch.ops.smalllinalg import library_eigh
+    g = torch.Generator(device=dev).manual_seed(n)
+    B = torch.randn(2 * n, n, generator=g, dtype=torch.complex64, device=dev)
+    H = B.mH @ B / (2 * n)
+    w, V = library_eigh(H)
+    assert w.dtype == torch.float32 and V.dtype == torch.complex64 and w.is_cuda
+    eps = float(torch.finfo(torch.float32).eps)
+    w_ref = torch.linalg.eigvalsh(H.to(torch.complex128))
+    assert float((w.double() - w_ref).abs().max()) < n * eps * float(w_ref[-1])
+    H128, V128 = H.to(torch.complex128), V.to(torch.complex128)
+    assert float((H128 @ V128 - V128 * w.double()).norm() / H128.norm()) < n * eps
+
+
 def test_cli_factor_on_the_card(dev, capsys):
     """``python -m cuda_qr_tpu_torch factor 1024 1024`` in process, on the
     card by default: rc 0, the record's gates ok, chol_inv launched."""

@@ -10,6 +10,13 @@ float32, n the smaller dimension): x of lstsq_dist 1e-4 relative to
 max|x|; singular values and eigenvalues 50 n eps max|.|; vectors through
 what is unique (U diag(s) V^T, V diag(w) V^T, U H) at 50 n eps of the
 matrix norm; orthogonality 50 n eps.  float64: 1e-10.
+
+Complex input (P = 4, plus polar_dist at P = 8): complex64 shapes of the
+real cases, each solver against the reference's own complex call on the
+same input; the sketch of the randomized solvers is the reference's real
+Gaussian cast to complex64.  Vectors are compared through what a column
+phase does not change (U diag(s) V^H, V diag(w) V^H, U H); the same
+tolerances as the real cases, with 1e-4 relative on x.
 """
 
 import types
@@ -60,6 +67,26 @@ def ref_omega(shape):
     return np.array(jax.random.normal(jax.random.PRNGKey(12), shape, dtype=jnp.float32))
 
 
+def to_complex(seed, X):
+    """X plus an independent imaginary part of the same structure."""
+    rng = np.random.default_rng(seed)
+    return (X + 1j * rng.standard_normal(X.shape)).astype(np.complex64)
+
+
+def complex_low_rank(seed, m, n, r, decay=0.6):
+    rng = np.random.default_rng(seed)
+    U = np.linalg.qr(rng.standard_normal((m, r)) + 1j * rng.standard_normal((m, r)))[0]
+    V = np.linalg.qr(rng.standard_normal((n, r)) + 1j * rng.standard_normal((n, r)))[0]
+    return ((U * decay ** np.arange(r)) @ V.conj().T).astype(np.complex64)
+
+
+def complex_hermitian(seed, m):
+    rng = np.random.default_rng(seed)
+    V = np.linalg.qr(rng.standard_normal((m, 10)) + 1j * rng.standard_normal((m, 10)))[0]
+    w = np.array([8.0, -6.5, 5.0, -3.8, 2.5, -1.6, 0.9, -0.5, 0.3, -0.2])
+    return ((V * w) @ V.conj().T).astype(np.complex64)
+
+
 # Inputs, by mesh size: the shapes of the reference's own dist tests, cut to
 # multiples of P
 def inputs(P):
@@ -71,6 +98,11 @@ def inputs(P):
         "polar": gaussian(7, 32 * P, 32),
         "polar-f64": gaussian(8, 16 * P, 16, np.float64),
         "svd": gaussian(9, 32 * P, 32),
+        "c-lstsq": (to_complex(10, gaussian(1, 16 * P, 24)), to_complex(11, gaussian(2, 16 * P, 3))),
+        "c-rsvd": complex_low_rank(12, 40 * P, 48, 20),
+        "c-eigh_rand": complex_hermitian(13, 20 * P),
+        "c-polar": gaussian(7, 32 * P, 32) * (1 + 1j),
+        "c-svd": to_complex(14, gaussian(9, 32 * P, 32)),
     }
 
 
@@ -94,8 +126,17 @@ def cases(P):
         ("svd", ("svd_dist", (x["svd"], MESH), {"config": cfg16})),
         ("svd-qdwh", ("svd_dist", (x["polar-f64"], MESH), {"config": cfg64,
                                                             "eigh_impl": "qdwh"})),
-        ("complex", ("polar_dist", (x["polar"] * (1 + 1j), MESH), {"config": cfg16})),
-    ]
+        ("c-polar", ("polar_dist", (x["c-polar"], MESH), {"config": cfg16})),
+    ] + ([] if P != 4 else [
+        ("c-lstsq", ("lstsq_dist", (*x["c-lstsq"], MESH, cfg), {})),
+        ("c-rsvd", ("rsvd_dist", (x["c-rsvd"], k, MESH),
+                    {"p": p, "n_iter": 2, "config": cfg16,
+                     "omega": ref_omega((48, k + p)).astype(np.complex64)})),
+        ("c-eigh_rand", ("eigh_rand_dist", (x["c-eigh_rand"], k, MESH),
+                         {"p": p, "n_iter": 2, "config": cfg16,
+                          "omega": ref_omega((20 * P, k + p)).astype(np.complex64)})),
+        ("c-svd", ("svd_dist", (x["c-svd"], MESH), {"config": cfg16})),
+    ])
 
 
 @pytest.fixture(scope="module")
@@ -189,8 +230,73 @@ def test_svd_dist_matches_reference(port, P, case):
 
 
 @pytest.mark.parametrize("P", [4, 8])
-def test_complex_not_ported(port, P):
-    assert isinstance(port[(P, "complex")], NotImplementedError)
+def test_polar_dist_complex_matches_reference(port, P):
+    """QR steps throughout on the allgather combine of Householder leaves."""
+    A = inputs(P)["c-polar"]
+    U, H = port[(P, "c-polar")]
+    rU, rH = (np.asarray(v) for v in ref.polar_dist(A, ref_row_mesh(P), config=RCFG16))
+    n = A.shape[1]
+    tol = 50 * n * EPS
+    assert U.dtype == H.dtype == np.complex64
+    close_c(U, rU, tol)
+    close_c(H, rH, tol * np.abs(rH).max())
+    U = np.complex128(U)
+    assert np.linalg.norm(U.conj().T @ U - np.eye(n)) < tol * n
+    close_c(U @ H, A, tol * np.abs(A).max())
+
+
+def close_c(a, b, tol):
+    a, b = np.asarray(a, np.complex128), np.asarray(b, np.complex128)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    err = np.abs(a - b).max()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("name", ["lstsq_dist", "rsvd_dist", "eigh_rand_dist", "svd_dist"])
+def test_complex_dist_solvers_match_reference(port, name):
+    """The complex *_dist solvers at P = 4 against the reference's."""
+    P, x, k, p = 4, inputs(4), 6, 6
+    mesh = ref_row_mesh(P)
+    got = port[(P, "c-" + name.split("_dist")[0])]
+    if name == "lstsq_dist":
+        A, b = x["c-lstsq"]
+        want = ref.lstsq_dist(A, b, mesh, RCFG)
+        xr = np.asarray(want.x)
+        assert got.x.dtype == np.complex64 and got.x.shape == xr.shape
+        close_c(got.x, xr, 1e-4 * np.abs(xr).max())
+        rr = np.asarray(want.residual_norm)
+        close(got.residual_norm, rr, 1e-4 * np.abs(rr).max())
+    elif name == "rsvd_dist":
+        A = x["c-rsvd"]
+        U, s, Vt = got
+        rU, rs, rVt = (np.asarray(v) for v in ref.rsvd_dist(A, k, mesh, p=p, n_iter=2,
+                                                              config=RCFG16))
+        tol = 50 * 48 * EPS
+        close(s, rs, tol * rs[0])
+        close_c((U * s) @ Vt, (rU * rs) @ rVt, tol * rs[0])
+        U = np.complex128(U)
+        assert np.linalg.norm(U.conj().T @ U - np.eye(k)) < tol
+    elif name == "eigh_rand_dist":
+        A = x["c-eigh_rand"]
+        w, V = got
+        rw, rV = (np.asarray(v) for v in ref.eigh_rand_dist(A, k, mesh, p=p, n_iter=2,
+                                                            config=RCFG16))
+        tol = 50 * A.shape[0] * EPS
+        close(w, rw, tol * np.abs(rw).max())
+        V = np.complex128(V)
+        close_c((V * w) @ V.conj().T, (rV * rw) @ rV.conj().T, tol * np.abs(rw).max())
+        assert np.linalg.norm(V.conj().T @ V - np.eye(k)) < tol
+    else:
+        A = x["c-svd"]
+        U, s, Vh = got
+        rU, rs, rVh = (np.asarray(v) for v in ref.svd_dist(A, mesh, config=RCFG16))
+        n = A.shape[1]
+        tol = 50 * n * EPS
+        close(s, rs, tol * rs[0])
+        close_c((U * s) @ Vh, (rU * rs) @ rVh, tol * rs[0])
+        U = np.complex128(U)
+        assert np.linalg.norm(U.conj().T @ U - np.eye(n)) < tol * n
+        assert (np.diff(s) <= tol * rs[0]).all()
 
 
 def stand_in(P):

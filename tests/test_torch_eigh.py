@@ -214,8 +214,16 @@ def test_eigh_errors():
         eigh(np.zeros((3, 4), np.float32), CFG)
     with pytest.raises(QRShapeError):
         eigh(np.zeros(4, np.float32), CFG)
-    with pytest.raises(NotImplementedError):
-        eigh(np.eye(4, dtype=np.complex64), CFG)
+    # complex Hermitian input (tests/test_torch_complex_spectral.py)
+    Hc = np.array([[2, 1j, 0, 0], [-1j, 2, 0, 0], [0, 0, 5, 1 - 1j], [0, 0, 1 + 1j, 3]],
+                  np.complex64)
+    w, V = eigh(Hc, CFG)
+    wr = np.asarray(re_.eigh(jnp.asarray(Hc), RCFG)[0])
+    assert w.dtype == torch.float32 and V.dtype == torch.complex64
+    np.testing.assert_allclose(w.numpy(), wr, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(w.numpy(), np.linalg.eigvalsh(Hc.astype(np.complex128)), atol=1e-5)
+    Vn = V.numpy().astype(np.complex128)
+    assert np.abs(Hc @ Vn - Vn * w.numpy()).max() < 1e-5 * 6
     with pytest.raises(QRShapeError):
         eigh_batched(np.zeros((2, 3, 4), np.float32), config=CFG)
     with pytest.raises(QRShapeError):

@@ -219,8 +219,14 @@ def test_polar_errors():
         polar(np.zeros((3, 3, 3), np.float32), config=CFG)
     with pytest.raises(ValueError):
         polar(np.eye(4, dtype=np.float32), side="up", config=CFG)
-    with pytest.raises(NotImplementedError):
-        polar(np.eye(4, dtype=np.complex64), config=CFG)
+    # complex input (tests/test_torch_complex_spectral.py): (1+i) I = U H with
+    # U = (1+i)/sqrt(2) I and H = sqrt(2) I, as the reference gives it
+    Ac = np.eye(4, dtype=np.complex64) * (1 + 1j)
+    U, H = polar(Ac, config=CFG)
+    rU, rH = rp.polar(jnp.asarray(Ac), config=RCFG)
+    np.testing.assert_allclose(U.numpy(), np.asarray(rU), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(H.numpy(), np.asarray(rH), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(U.numpy(), np.eye(4) * (1 + 1j) / np.sqrt(2), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape,dtype,tol", [((96, 48), np.float32, 5e-6),

@@ -94,11 +94,19 @@ def test_batched_input(rng):
     assert ct.qr(A, CFG, mode="r").shape == (2, 3, 32, 32)
 
 
-def test_complex_input_raises_not_implemented():
-    """Complex ``qr`` works since the complex slice (tests/test_torch_complex.py);
-    the pivoted QR's complex form is still to port (ROADMAP A5b)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.qr_pivoted(np.ones((8, 4), np.complex128), CFG)
+def test_complex_qr_pivoted_matches_reference(rng):
+    """Complex ``qr_pivoted`` (tests/test_torch_complex_rank.py holds the
+    rest of the family): with the reference's complex sketch, the same
+    pivots and, in complex128, Q and R to 1e-10."""
+    A = (rng.standard_normal((40, 24)) + 1j * rng.standard_normal((40, 24)))
+    l = min(64, 32 + 32)           # the sketch of a 40-row input (64 padded) at nb = 32
+    om = jax.random.normal(jax.random.key(12), (l, 64), dtype=jnp.complex128) / np.sqrt(l)
+    Q, R, piv = ct.qr_pivoted(A, CFG, omega=np.array(om))
+    rQ, rR, rpiv = ref.qr_pivoted(A, RCFG)
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(rpiv))
+    assert Q.dtype == torch.complex128
+    np.testing.assert_allclose(Q.numpy(), np.asarray(rQ), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(R.numpy(), np.asarray(rR), rtol=0, atol=1e-10 * np.abs(A).max())
 
 
 def test_numpy_input_goes_to_config_device_and_dtype(rng):

@@ -200,6 +200,18 @@ def test_wide_and_bad_rank_raise(rng):
         pq.qrcp_blocked(np.zeros((32, 16), np.float32), cfg, omega=np.zeros((3, 32), np.float32))
 
 
-def test_complex_raises():
-    with pytest.raises(NotImplementedError):
-        qr_pivoted(np.ones((8, 4), np.complex64), QRConfig(panel_width=4, device="cpu"))
+def test_complex_takes_the_plain_selection(rng, monkeypatch):
+    """Complex input never reaches the select kernel's wrapper, also where
+    the tile is eligible for a real input (160 x 128 at nb = 32), and gives
+    the reference's pivots and factors with its complex sketch."""
+    monkeypatch.setattr(pq, "select_pivots_kernel", lambda *a: pytest.fail("kernel B3"))
+    m, n, nb = 160, 128, 32
+    A = (rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))).astype(np.complex64)
+    l = pq.sketch_rows(m, nb)
+    om = jax.random.normal(jax.random.key(12), (l, m), dtype=jnp.complex64)
+    om = np.array(om / jnp.sqrt(jnp.asarray(l, jnp.complex64)))
+    Q, R, piv = qr_pivoted(A, QRConfig(panel_width=nb, device="cpu"), omega=om)
+    rQ, rR, rpiv = ref.qr_pivoted(A, ref_config(nb))
+    np.testing.assert_array_equal(piv.numpy(), np.asarray(rpiv))
+    assert np.abs(Q.numpy() - np.asarray(rQ)).max() <= 1e-4
+    assert np.abs(R.numpy() - np.asarray(rR)).max() <= 1e-4 * np.abs(A).max()

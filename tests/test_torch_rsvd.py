@@ -113,8 +113,12 @@ def test_rsvd_default_generator_and_errors(rng):
         rsvd(A, k=0, config=CFG)
     with pytest.raises(QRShapeError):
         rsvd(A, k=6, config=CFG, omega=np.zeros((40, 3), np.float32))
-    with pytest.raises(NotImplementedError):
-        rsvd(A.astype(np.complex64), k=6, config=CFG)
+    # complex input: the reference's real sketch, cast (tests/test_torch_complex_spectral.py)
+    Ac = A.astype(np.complex64)
+    sc = rsvd(Ac, k=6, config=CFG, omega=ref_omega((40, 14)).astype(np.complex64))[1]
+    sr = np.asarray(rr.rsvd(jnp.asarray(Ac), k=6, config=RCFG)[1], np.float64)
+    assert sc.dtype == torch.float32
+    assert np.abs(sc.numpy() - sr).max() < 50 * 40 * EPS * sr[0]
 
 
 def test_eigh_rand_indefinite_matches_reference(rng):

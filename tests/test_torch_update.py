@@ -128,8 +128,16 @@ def test_shape_errors(rng):
         ct.qr_row_delete(T(Q), T(R), 0)
     with pytest.raises(ValueError):
         ct.qr_col_insert(T(Q), T(R), T(np.ones(8)), 0)
-    with pytest.raises(NotImplementedError):
-        ct.qr_rank1_update(T(Q).to(torch.complex128), T(R), T(np.ones(8)), T(np.ones(8)))
+    # complex factors (tests/test_torch_complex_rank.py): the clartg chains
+    Qc, Rc = T(Q).to(torch.complex128), T(R).to(torch.complex128)
+    u, v = T(np.ones(8) + 1j), T(np.ones(8) - 2j)
+    got = ct.qr_rank1_update(Qc, Rc, u, v)
+    want = ref.qr_rank1_update(J(Q.astype(np.complex128)), J(R.astype(np.complex128)),
+                               J(u.numpy()), J(v.numpy()))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-10 * 8)
+    A1 = Q @ R + np.outer(u.numpy(), v.numpy().conj())
+    assert np.abs(got[0].numpy() @ got[1].numpy() - A1).max() < 1e-12 * np.abs(A1).max() * 8
 
 
 def test_update_chain(rng):
