@@ -27,7 +27,12 @@ certificate per QR, and one per Jacobi sweep.  The reference runs the whole
 recursion as one device program over bucketed, masked block sizes; that
 machinery bounds its compiled programs and is not ported, what it computes
 is.  One difference follows: the QDWH bound l0 = eps/10/sqrt(b) uses the
-block's own size b where the reference uses its bucket size B >= b.
+block's own size b where the reference uses its bucket size B >= b.  A
+second is in the Jacobi rotation (``_rotation``): c = 1 - t^2 / (r (1 + r)),
+r = sqrt(1 + t^2), where the reference writes c = 1 / sqrt(1 + t^2): eager
+PyTorch rounds that literal form with a one-sided bias, on the CPU and the
+card alike, which would leave V 1.4-2.5x less orthogonal than the
+reference's.
 
 Blocks of at most ``base_n`` rows are leaves.  They are not solved where
 they are met: they are recorded and solved afterwards by ONE batched Jacobi
@@ -112,6 +117,23 @@ def _schedule_cached(kind: str, n: int, device: str) -> torch.Tensor:
     return torch.from_numpy(table.astype(np.int64)).to(device)
 
 
+def _rotation(tau: torch.Tensor):
+    """(c, s) of the Jacobi rotation that zeroes a 2x2 block's off-diagonal,
+    tau = (a_qq - a_pp) / (2 |a_pq|): t = tan(theta) is the root of
+    t^2 + 2 tau t - 1 = 0 of least magnitude, c = 1 / sqrt(1 + t^2), s = t c.
+    """
+    t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(tau == 0, 1.0, t)   # sign(0) = 0 would stall equal-diagonal pairs
+    t2 = t * t
+    r = torch.sqrt(1.0 + t2)
+    # Not the reference's literal 1 / sqrt(1 + t^2): rounding 1 + t^2 and then
+    # its root breaks ties one way, so that c^2 + s^2 - 1 averages up to
+    # +eps/2 and every round scales V's columns by it.  1 - h is one rounding
+    # from the exact c, unbiased: (c^2 + s^2 - 1)/eps averages within +-0.03.
+    c = 1.0 - t2 / (r * (1.0 + r))
+    return c, t * c
+
+
 def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
                  sort: bool = True):
     """Cyclic Jacobi with parallel ordering on a Hermitian matrix (n x n) or
@@ -124,6 +146,9 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
     ||A||_F or max_sweeps; the stop is one host decision per sweep.  In a
     stack, each matrix is held to its own tolerance: the sweeps go on while
     any matrix is above it, and a matrix at or below it keeps its state.
+
+    The rotation of each pair is ``_rotation``'s: the reference's angle,
+    with c formed so that c^2 + s^2 - 1 has no one-sided rounding bias.
 
     schedule: (n-1, n/2, 2) pair table on A's device.  sort=False returns
     the eigenvalues on the diagonal positions where they converged, which
@@ -153,13 +178,9 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
         ab = apq.abs()
         live = ab > 0
         safe = torch.where(live, ab, 1.0)
-        tau = (aqq - app) / (2.0 * safe)
-        t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
-        t = torch.where(tau == 0, 1.0, t)   # sign(0) = 0 would stall equal-diagonal pairs
-        c = 1.0 / torch.sqrt(1.0 + t * t)
-        s = torch.where(live, t * c, 0.0)
+        c, s = _rotation((aqq - app) / (2.0 * safe))
+        s = torch.where(live, s, 0.0).to(dt)
         c = torch.where(live, c, 1.0).to(dt)
-        s = s.to(dt)
         # J = diag(1, phi) G with G the real rotation and phi = conj(apq)/|apq|
         # (sign(apq) for real A): J^H [[a, apq], [conj(apq), d]] J is diagonal
         ph = torch.where(live, apq.conj() / safe if cplx else torch.sign(apq), 1.0)

@@ -359,7 +359,8 @@ def test_real_results_unchanged(rng):
 
 def _old_jacobi(A, schedule):
     """The parent's real Jacobi sweep loop (``_jacobi_eigh`` before complex
-    input), for the bit-for-bit pin."""
+    input), for the bit-for-bit pin; c formed as ``eigh._rotation`` forms it
+    since the rotation's bias was repaired (C4)."""
     from cuda_qr_tpu_torch.models.eigh import _real_dtype
     from cuda_qr_tpu_torch.ops.smalllinalg import _eye
     n = A.shape[-1]
@@ -380,7 +381,9 @@ def _old_jacobi(A, schedule):
             tau = (aqq - app) / (2.0 * torch.where(live, ab, 1.0))
             t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
             t = torch.where(tau == 0, 1.0, t)
-            c = 1.0 / torch.sqrt(1.0 + t * t)
+            t2 = t * t
+            r2 = torch.sqrt(1.0 + t2)
+            c = 1.0 - t2 / (r2 * (1.0 + r2))
             s = torch.where(live, t * c, 0.0)
             c = torch.where(live, c, 1.0)
             ph = torch.where(live, torch.sign(apq), 1.0)

@@ -14,7 +14,9 @@ V^H, V diag(w) V^H, projectors Q Q^H, and |diag(V_ref^H V)| = 1; never
 entry by entry.  The polar factors are unique at full rank and are compared
 directly.  Tolerances: values and unique products 1e-4 relative
 (complex64) and 1e-10 (complex128); orthogonality and reconstruction gates
-as the real tests (50 n eps).  The reference's single-device ``polar``
+as the real tests (50 n eps); the phase-factor Jacobi and the divide and
+conquer are also held to at most 1.1 x the reference's orthogonality and
+residual on the same input.  The reference's single-device ``polar``
 runs complex128 on float32's eps schedule; the port runs float64's (its
 ``_real_dtype``), so complex128 polar is held to scipy at 1e-10 and to the
 reference at float32's schedule accuracy.
@@ -306,6 +308,28 @@ def test_jacobi_complex_matches_reference(rng, dtype, n):
     same_columns_up_to_phase(V, Vr, 10 * TOL[dtype])
 
 
+def as_accurate(A, w, V, wr, Vr, factor=1.1):
+    """||V^H V - I|| and ||A V - V W|| / ||A|| at most ``factor`` x the
+    reference's on the same input."""
+    def res(w, V):
+        A_, V_ = c128(A, V)
+        w = np.asarray(w, np.float64)
+        return np.linalg.norm(A_ @ V_ - V_ * w) / np.linalg.norm(A_)
+    orth, orth_r = orth_err(V), orth_err(Vr)
+    assert orth <= factor * orth_r, f"orthogonality {orth:.3e} > {factor} x {orth_r:.3e}"
+    assert res(w, V) <= factor * res(wr, Vr), f"residual {res(w, V):.3e} > {factor} x " \
+        f"{res(wr, Vr):.3e}"
+
+
+def test_jacobi_complex_as_accurate_as_reference():
+    """The phase-factor Jacobi on a 48^2 complex64 matrix, same pair table."""
+    A = hermitian(np.random.default_rng(12), 48)
+    sched = pe._round_robin(48)
+    w, V = pe._jacobi_eigh(torch.from_numpy(A), torch.from_numpy(sched.astype(np.int64)))
+    wr, Vr = re_._jacobi_eigh(jnp.asarray(A), jnp.asarray(sched))
+    as_accurate(A, w, V, np.asarray(wr), np.asarray(Vr))
+
+
 @pytest.mark.parametrize("dtype,n", [(np.complex64, 40), (np.complex128, 30)])
 def test_eigh_complex_base_matches_reference(rng, dtype, n):
     """n <= base_n: the direct Jacobi path with sentinel padding."""
@@ -337,6 +361,12 @@ def test_eigh_complex_divide_and_conquer_matches_reference(dc_input):
     close(w, wr, TOL[np.complex64], np.abs(wr).max())
     eig_checks(A, w, V, np.complex64)
     same_columns_up_to_phase(V, Vr, 10 * TOL[np.complex64])
+
+
+def test_eigh_complex_divide_and_conquer_as_accurate_as_reference(dc_input):
+    A, wr, Vr = dc_input
+    w, V = ct.eigh(A, CFG, base_n=D_AND_C["base_n"])
+    as_accurate(A, w, V, wr, Vr)
 
 
 def test_split_node_complex(rng):

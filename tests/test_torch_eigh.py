@@ -5,12 +5,15 @@ Every result passes that file's ``_check`` (residual and orthogonality below
 tol n, eigenvalues within tol n max(|w|, 1) of LAPACK's, ascending).  Against
 the reference the eigenvalues agree within 50 n eps max|w|; eigenvectors are
 compared through residual and orthogonality only (signs and the bases of
-clusters are free).  The pair schedules are host tables and must be equal.
-A divide-and-conquer call of the reference compiles for most of a minute on
-the CPU, so it is called four times in all, from one module-scoped fixture
-(Gaussian float32 and float64, the clustered spectrum, the odd size, whose
-pad coordinate goes through the divide and conquer); the near-identity
-input, done at the root, is held to LAPACK alone.
+clusters are free), and neither may exceed 1.1 x the reference's on the same
+input: the Jacobi alone, the divide and conquer, the batched Jacobi.  The
+pair schedules are host tables and must be equal.  A divide-and-conquer
+call of the reference compiles for most of a minute on the CPU, so it is
+called four times in all, from one module-scoped fixture (Gaussian float32
+and float64, the clustered spectrum, the odd size, whose pad coordinate goes
+through the divide and conquer); the near-identity input, done at the root,
+is held to LAPACK alone.  The Jacobi's rotation itself is held to c^2 + s^2
+- 1 with no one-sided bias, without JAX.
 """
 
 import jax.numpy as jnp
@@ -45,6 +48,35 @@ def check(A, w, V, tol):
     w_ref = np.linalg.eigvalsh(A64)
     assert (np.diff(w) >= -tol * np.abs(w).max()).all()
     assert np.abs(np.sort(w) - w_ref).max() < tol * n * max(np.abs(w_ref).max(), 1.0)
+
+
+def accuracy(A, w, V):
+    """(||V^H V - I||_F, ||A V - V diag(w)||_F / ||A||_F) in complex128."""
+    A, V = (np.asarray(x, np.complex128) for x in (A, V))
+    w = np.asarray(w, np.float64)
+    return (np.linalg.norm(V.conj().T @ V - np.eye(V.shape[1])),
+            np.linalg.norm(A @ V - V * w[None, :]) / np.linalg.norm(A))
+
+
+def as_accurate(A, w, V, wr, Vr, factor=1.1):
+    """The port's orthogonality and residual are at most ``factor`` x the
+    reference's on the same input."""
+    (orth, res), (orth_r, res_r) = accuracy(A, w, V), accuracy(A, wr, Vr)
+    assert orth <= factor * orth_r, f"orthogonality {orth:.3e} > {factor} x {orth_r:.3e}"
+    assert res <= factor * res_r, f"residual {res:.3e} > {factor} x {res_r:.3e}"
+
+
+def rotation_defect(c, s):
+    """c^2 + s^2 - 1 in float64 with each square split into its rounded value
+    and its exact error (Dekker's product): exact far below float64's eps."""
+    def square(a):
+        p = a * a
+        t = 134217729.0 * a                      # 2^27 + 1
+        hi = t - (t - a)
+        lo = a - hi
+        return p, ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+    (p1, e1), (p2, e2) = square(np.asarray(c, np.float64)), square(np.asarray(s, np.float64))
+    return ((p1 - 1.0) + p2) + (e1 + e2)
 
 
 def sym(rng, n, dtype):
@@ -83,11 +115,12 @@ WITH_REFERENCE = ("gaussian_f32", "gaussian_f64", "clustered", "odd_n")
 
 @pytest.fixture(scope="module")
 def reference_w():
-    """The reference's eigenvalues: its four divide-and-conquer calls."""
+    """The reference's (w, V): its four divide-and-conquer calls."""
     out = {}
     for name in WITH_REFERENCE:
         A, (_, rcfg), base_n, bucket, _ = CASES[name]
-        out[name] = np.asarray(re_.eigh(A, rcfg, base_n=base_n, bucket=bucket)[0], np.float64)
+        w, V = re_.eigh(A, rcfg, base_n=base_n, bucket=bucket)
+        out[name] = np.asarray(w, np.float64), np.asarray(V)
     return out
 
 
@@ -112,6 +145,41 @@ def test_jacobi_matches_reference(rng, n, dtype, tol):
     check(A, w, V, tol)
     eps = float(np.finfo(dtype).eps)
     assert np.abs(w.numpy() - np.asarray(wr)).max() < 50 * n * eps * np.abs(wr).max()
+
+
+@pytest.mark.parametrize("n,dtype", [(48, np.float32), (96, np.float32), (128, np.float64)])
+def test_jacobi_as_accurate_as_reference(n, dtype):
+    """Same matrix, same pair table: orthogonality and residual at most 1.1 x
+    the reference's (a rotation with c^2 + s^2 - 1 biased by +eps/2 read
+    1.5-2.5 x)."""
+    A = sym(np.random.default_rng(12), n, dtype)
+    sched = pe._round_robin(n)
+    w, V = pe._jacobi_eigh(torch.from_numpy(A), torch.from_numpy(sched.astype(np.int64)))
+    wr, Vr = re_._jacobi_eigh(jnp.asarray(A), jnp.asarray(sched))
+    as_accurate(A, w.numpy(), V.numpy(), np.asarray(wr), np.asarray(Vr))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64, np.complex128])
+def test_jacobi_rotation_has_no_one_sided_bias(dtype):
+    """One Jacobi round on 100,000 2x2 blocks [[0, e], [conj(e), 2 tau]],
+    |e| = 1, is one rotation each, V = J: mean (c^2 + s^2 - 1) / eps within
+    +-0.1 at |tau| in a decade around 1, 1e3 and 1e5 (1/sqrt(1 + t^2) reads
+    +0.5 in float32 at 1e3 and in float64 at 1e5)."""
+    rng = np.random.default_rng(12)
+    L = 100_000
+    eps = float(np.finfo(dtype).eps)
+    sched = torch.zeros(1, 1, 2, dtype=torch.int64)
+    sched[0, 0, 1] = 1
+    for scale in (1.0, 1e3, 1e5):
+        tau = rng.choice([-1.0, 1.0], L) * scale * 10.0 ** rng.uniform(-0.5, 0.5, L)
+        e = np.exp(1j * rng.uniform(0, 2 * np.pi, L)) if np.iscomplexobj(dtype(0)) else 1.0
+        A = np.zeros((L, 2, 2), np.complex128)
+        A[:, 0, 1], A[:, 1, 0], A[:, 1, 1] = e, np.conj(e), 2.0 * tau
+        A = A.astype(dtype) if np.iscomplexobj(dtype(0)) else A.real.astype(dtype)
+        _, V = pe._jacobi_eigh(torch.from_numpy(A), sched, max_sweeps=1, sort=False)
+        V = V.numpy()
+        d = rotation_defect(V[:, 0, 0].real, V[:, 0, 1].real) / eps
+        assert abs(d.mean()) <= 0.1, f"|tau| ~ {scale:g}: mean {d.mean():+.4f} eps"
 
 
 def test_jacobi_stack_freezes_converged_matrices(rng):
@@ -149,8 +217,17 @@ def test_eigh_spectra(name, reference_w):
         assert st["jacobi_calls"] == 1 + st["fallbacks"]   # one batched leaf solve
     if name in reference_w:
         eps = float(np.finfo(A.dtype).eps)
-        wr = reference_w[name]
+        wr, _ = reference_w[name]
         assert np.abs(w.numpy() - wr).max() < 50 * n * eps * max(np.abs(wr).max(), 1.0)
+
+
+@pytest.mark.parametrize("name", WITH_REFERENCE)
+def test_eigh_as_accurate_as_reference(name, reference_w):
+    """The divide and conquer's orthogonality and residual at most 1.1 x the
+    reference's on the same input (its V from the module's fixture)."""
+    A, (cfg, _), base_n, bucket, _ = CASES[name]
+    w, V = eigh(A, cfg, base_n=base_n, bucket=bucket)
+    as_accurate(A, w.numpy(), V.numpy(), *reference_w[name])
 
 
 def test_pair_table_cache_keeps_small_sizes_only():
@@ -230,17 +307,32 @@ def test_eigh_errors():
         eigh_batched(np.zeros((3, 3), np.float32), config=CFG)
 
 
+def batched_stack(rng, B, n):
+    As = rng.standard_normal((B, n, n)).astype(np.float32)
+    return (As + np.swapaxes(As, 1, 2)) / 2
+
+
 @pytest.mark.parametrize("B,n", [(5, 24), (3, 15)])
 def test_eigh_batched_matches_reference(rng, B, n):
     """Odd n takes the decoupled pad row, whose eigenpair is removed."""
-    As = rng.standard_normal((B, n, n)).astype(np.float32)
-    As = (As + np.swapaxes(As, 1, 2)) / 2
+    As = batched_stack(rng, B, n)
     ws, Vs = eigh_batched(As, config=CFG)
     wr, _ = re_.eigh_batched(As)
     assert tuple(ws.shape) == (B, n) and tuple(Vs.shape) == (B, n, n)
     for b in range(B):
         check(As[b], ws[b].numpy(), Vs[b].numpy(), 5e-6)
     assert np.abs(ws.numpy() - np.asarray(wr)).max() < 50 * n * 1.2e-7 * np.abs(wr).max()
+
+
+@pytest.mark.parametrize("B,n", [(5, 24), (3, 15)])
+def test_eigh_batched_as_accurate_as_reference(rng, B, n):
+    """Each matrix of the stack: orthogonality and residual at most 1.1 x the
+    reference's."""
+    As = batched_stack(rng, B, n)
+    ws, Vs = eigh_batched(As, config=CFG)
+    wr, Vr = (np.asarray(x) for x in re_.eigh_batched(As))
+    for b in range(B):
+        as_accurate(As[b], ws[b].numpy(), Vs[b].numpy(), wr[b], Vr[b])
 
 
 def test_svd_qdwh_eigh_routing(rng):
