@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only rotation_bias,eigh]
+    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
@@ -11,13 +11,14 @@ panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, the
 rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
 1,048,576 x 128 with both leaves and an ill-conditioned input that takes
 the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
-``qr_multiply`` in float64, the QR updates on an 8192 x 1024 thin QR, and
-the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
+``qr_multiply`` in float64, the QR updates on an 8192 x 1024 thin QR,
+orgqr's panel groups (the reference's stages) at 512^2 and 1024^2 on both
+kernels' panels, and the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
 on known spectra, ``norm2_est``/``cond_est``, ``orth(rcond=...)``, QDWH
 ``polar`` at 16,384 x 512 and 1,048,576 x 128, ``svd`` at 4,096^2 with both
 eigensolvers, the Jacobi rotation's c^2 + s^2 - 1 over 10^6 angles a scale
-(no one-sided bias), and ``eigh`` at 2,048^2 plus a clustered spectrum and
-``eigh_batched`` on 4,096 x 64 x 64; then the distributed path on 4 ranks,
+(no one-sided bias; the Givens rotation's beside it), and ``eigh`` at
+2,048^2 plus a clustered spectrum and ``eigh_batched`` on 4,096 x 64 x 64; then the distributed path on 4 ranks,
 sharing the card over gloo when there is one card: ``tsqr_dist`` at
 1,048,576 x 128 with every strategy, ``caqr`` at 16,384^2, the CAQR variants,
 ``caqr_ormqr`` and a crash-and-resume at 8,192^2, ``lstsq_dist``,
@@ -51,8 +52,11 @@ a CUDA device.
 The second-to-last line is a JSON object of the kernels (launch counts from
 the main-path run, errors against the plain versions, times); the last line
 is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
-``--only`` runs just the named phases (the rotation's bias, the eigh phase)
-and ends with the same last line, "only" added.
+``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
+bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
+factor alone) and ends with the same last line, "only" added.  Run from
+another checkout's root, a copy of this script with ``--only factor`` times
+that checkout's factor.
 """
 
 from __future__ import annotations
@@ -110,6 +114,8 @@ N_CHOL_PAD = 509                  # a QDWH Cholesky step on an exact-size eigh n
 N_ROT_ANGLES = 1_000_000
 ROT_SCALES = (1.0, 1e3, 1e5)
 ROT_BIAS_TOL = 0.1
+GIVENS_RATIOS = (1.0, 1e-3, 1e-5)   # |b|/|a| of the Givens rotations (models/update.py)
+N_ORGQR_GROUPS = (512, 1024)        # k = 4 and 8 panels at nb = 128
 # The distributed path: P_DIST ranks (sharing the card when there are fewer
 # cards), at BASELINE config 3 (tsqr), config 5 cut to 16,384^2 on 4 ranks
 # (caqr; 32,768^2 until the command line and complex phases came, which
@@ -820,11 +826,101 @@ def phase_update(torch, np, ct, dev, smi):
         chk = ct.check_qr_device(A1, Q1, R1)
         t_upd = cuda_time_ms(fn, reps=1, warmup=0)
         t_ref = cuda_time_ms(lambda: ct.qr(A1, cfg), reps=2, warmup=1)
-        say(f"  {name}: residual {chk.residual:.3e}, orthogonality {chk.orthogonality:.3e}, "
-            f"ok={chk.ok}, host syncs {syncs}; {t_upd:.2f} ms ({t_first:.3f} s first call) "
-            f"vs refactor qr {tuple(A1.shape)} {t_ref:.2f} ms")
+        say(f"  {name}: residual {chk.residual:.3e}, orthogonality {chk.orthogonality:.3e} "
+            f"= {chk.orthogonality / chk.eps:.1f} eps, ok={chk.ok}, host syncs {syncs}; "
+            f"{t_upd:.2f} ms ({t_first:.3f} s first call) vs refactor qr {tuple(A1.shape)} "
+            f"{t_ref:.2f} ms")
         if not (chk.ok and syncs == 0):
             raise AssertionError(f"{name} fails its gates or took a host sync")
+
+
+def phase_orgqr_groups(torch, np, ct, dev):
+    """Panel groups as the reference's default stages form them (fault C5):
+    float32 qr_blocked + orgqr at 512^2 (k = 4) and 1024^2 (k = 8) on
+    cholqr2_bk (B1) and geqrt (B2) panels.  Q is formed at the default
+    apply_aggregate, at 1 (no merge), and in the groups the port formed
+    before C5's repair (chunks of apply_aggregate panels: scan_stages=1).
+    At k = 4 the default's groups are single panels, so its Q must equal
+    the unmerged one: bit for bit when orgqr repeats bit for bit on the
+    card, else within 2 eps ||Q||_F.  At k = 8 they are pairs: Q must equal
+    the one formed with apply_aggregate=2 the same way, and be no less
+    orthogonal than the old chunks' Q.  The default's orthogonality over
+    the unmerged one's is printed: merging a pair costs that much in the
+    reference's grouping too.  Returns this path's counts."""
+    total = {}
+    eps = float(torch.finfo(torch.float32).eps)
+    for n in N_ORGQR_GROUPS:
+        A = torch.from_numpy(np.random.default_rng(70).standard_normal(
+            (n, n), dtype=np.float32)).to(dev)
+        for method in ("cholqr2_bk", "geqrt"):
+            cfg = ct.DEFAULT_CONFIG.replace(panel_method=method)
+            k = n // cfg.panel_width
+            fac, c, _ = run_counted(torch, lambda: ct.qr_blocked(A, cfg))
+            add_counts(total, c)
+            R = ct.extract_r(fac, n)
+            Q = ct.orgqr(fac, n, n, cfg)
+            same = cfg.replace(apply_aggregate=1 if k == 4 else 2)
+            forms = {"default": Q, "apply_aggregate 1": ct.orgqr(fac, n, n, cfg.replace(
+                apply_aggregate=1)), "old chunks": ct.orgqr(fac, n, n, cfg.replace(
+                    scan_stages=1))}
+            chk = {name: ct.check_qr_device(A, Qf, R) for name, Qf in forms.items()}
+            say(f"orgqr groups {n}^2 f32 {method} (k = {k}), orthogonality / residual in eps: "
+                + "; ".join(f"{name} {x.orthogonality / eps:.2f} / {x.residual / eps:.3f}"
+                            for name, x in chk.items()) + f"; {counts_str(c)}")
+            repeats = torch.equal(Q, ct.orgqr(fac, n, n, cfg))
+            Qs = ct.orgqr(fac, n, n, same)
+            diff = float((Q.double() - Qs.double()).norm())
+            limit = 2 * eps * float(Q.double().norm())
+            ratio = chk["default"].orthogonality / chk["apply_aggregate 1"].orthogonality
+            say(f"  orgqr repeats bit for bit: {repeats}; default Q equals apply_aggregate "
+                f"{same.apply_aggregate}'s: {torch.equal(Q, Qs)}, ||difference||_F {diff:.3e} "
+                f"(2 eps ||Q||_F {limit:.3e}); default / apply_aggregate 1 orthogonality "
+                f"{ratio:.3f}")
+            require(torch.equal(Q, Qs) if repeats else diff <= limit,
+                    f"orgqr groups {n}^2 {method}: default Q differs from apply_aggregate "
+                    f"{same.apply_aggregate}'s")
+            require(chk["default"].orthogonality <= chk["old chunks"].orthogonality,
+                    f"orgqr groups {n}^2 {method}: default Q less orthogonal than the old "
+                    f"chunks'")
+            gate(f"orgqr groups {n}^2 f32 {method}", chk["default"])
+    require(total["chol_inv"] > 0 and total["geqrt"] > 0,
+            f"orgqr groups launched no chol_inv or geqrt kernel: {total}")
+    return total
+
+
+def factor_timings(torch, ct, A):
+    """The n^2 float32 factor at DEFAULT_CONFIG: (factor ms, its host syncs,
+    factor + orgqr ms)."""
+    from cuda_qr_tpu_torch.ops import smalllinalg
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    cfg, n = ct.DEFAULT_CONFIG, A.shape[0]
+    t_fac = cuda_time_ms(lambda: ct.qr_blocked(A, cfg), reps=3, warmup=1)
+    smalllinalg.host_syncs = 0
+    ct.qr_blocked(A, cfg)
+    syncs = smalllinalg.host_syncs
+
+    def factor_and_q():
+        f = ct.qr_blocked(A, cfg)
+        return ct.orgqr(f, n, n, cfg), ct.extract_r(f, n)
+
+    return t_fac, syncs, cuda_time_ms(factor_and_q, reps=3, warmup=1)
+
+
+def phase_factor(torch, np, ct, dev, smi):
+    """The main path's factor alone, for comparing two checkouts on one card:
+    qr of the N_MAIN^2 float32 input (launches, host syncs, gates), then the
+    factor's and factor + orgqr's times.  Uses only what every checkout of
+    the port has."""
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (N_MAIN, N_MAIN), dtype=np.float32)).to(dev)
+    (Q, R), c, sec = run_counted(torch, lambda: ct.qr(A))
+    say(f"factor phase ({HERE.name}): qr {N_MAIN}^2 f32: {sec:.3f} s first call; "
+        f"{counts_str(c)}")
+    gate(f"qr {N_MAIN}^2 f32", ct.check_qr_device(A, Q, R))
+    del Q, R
+    t_fac, syncs, t_qr = factor_timings(torch, ct, A)
+    say(f"factor phase ({HERE.name}) on {smi}: factor {N_MAIN}^2 f32 {t_fac:.2f} ms, "
+        f"{syncs} host syncs; factor + orgqr {t_qr:.2f} ms")
 
 
 def phase_rsvd(torch, np, ct, cfg, dev, smi):
@@ -1044,8 +1140,11 @@ def phase_rotation_bias(torch, dev):
     mean and mean |.| of (c^2 + s^2 - 1) / eps over N_ROT_ANGLES seeded angles
     at each of ROT_SCALES, float32 and float64; |mean| <= ROT_BIAS_TOL.
     Beside it, ungated, the same angle with the reference's literal c =
-    1/sqrt(1 + t^2) and with c = 1/hypot(1, t)."""
+    1/sqrt(1 + t^2) and with c = 1/hypot(1, t).  Then, ungated, the Givens
+    rotation of models/update.py (``_givens``: c = a/r, s = -b/r, r =
+    hypot(a, b)) at |b|/|a| of GIVENS_RATIOS."""
     from cuda_qr_tpu_torch.models.eigh import _rotation
+    from cuda_qr_tpu_torch.models.update import _givens
 
     def other(tau, form):
         t = torch.sign(tau) / (tau.abs() + torch.sqrt(1.0 + tau * tau))
@@ -1073,6 +1172,18 @@ def phase_rotation_bias(torch, dev):
             require(abs(mean["port"]) <= ROT_BIAS_TOL,
                     f"Jacobi rotation biased: {dname} |tau| ~ {scale:g}, mean "
                     f"{mean['port']:+.4f} eps")
+        for ratio in GIVENS_RATIOS:
+            # a of any sign over a decade; b of any sign, |b| ~ ratio |a|
+            u = torch.rand(2, N_ROT_ANGLES, generator=g, dtype=torch.float64, device=dev)
+            sign = torch.where(torch.rand(2, N_ROT_ANGLES, generator=g, device=dev) < 0.5,
+                               -1.0, 1.0)
+            a = (sign[0] * 10.0 ** (u[0] - 0.5)).to(dt)
+            b = (sign[1] * ratio * a.double().abs() * 10.0 ** (u[1] - 0.5)).to(dt)
+            c, s_, _ = _givens(a, b)
+            d = rotation_defect(torch, c, s_, eps)
+            say(f"givens {dname} |b|/|a| ~ {ratio:g}: (c^2 + s^2 - 1)/eps mean "
+                f"{float(d.mean()):+.4f}, mean |.| {float(d.abs().mean()):.4f} (ungated; "
+                f"C6 asks |mean| <= {ROT_BIAS_TOL})")
 
 
 def eigh_gates(torch, name, A, w, V):
@@ -2278,7 +2389,8 @@ def gate(name, chk) -> None:
         raise AssertionError(f"{name} fails the residual/orthogonality gates")
 
 
-STANDALONE = ("rotation_bias", "eigh")   # phases that ``--only`` can run alone
+# phases that ``--only`` can run alone
+STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor")
 
 
 def main(argv=None) -> int:
@@ -2315,6 +2427,12 @@ def main(argv=None) -> int:
             phase_rotation_bias(torch, dev)
         if "eigh" in only:
             phase_eigh(torch, np, ct, ct.DEFAULT_CONFIG, dev, smi)
+        if "orgqr_groups" in only:
+            phase_orgqr_groups(torch, np, ct, dev)
+        if "update" in only:
+            phase_update(torch, np, ct, dev, smi)
+        if "factor" in only:
+            phase_factor(torch, np, ct, dev, smi)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2414,10 +2532,13 @@ def main(argv=None) -> int:
     phase_qr_batched(torch, np, ct, dev)
     phase_decomp(torch, np, ct, dev)
     phase_update(torch, np, ct, dev, smi)
+    say("panel groups of orgqr (C5), k = 4 and 8:")
+    orgqr_groups = phase_orgqr_groups(torch, np, ct, dev)
 
     # ---- the spectral family: randomized tools, QDWH polar and svd, QDWH-eig
     phase_rotation_bias(torch, dev)
     by_path = {"qr, geqrt, qr_pivoted, tsqr": dict(launches),
+               "orgqr_groups": orgqr_groups,
                "rsvd": phase_rsvd(torch, np, ct, cfg, dev, smi),
                "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
                "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
@@ -2436,7 +2557,8 @@ def main(argv=None) -> int:
         say(f"path {name}: {counts_str({'host_syncs': '-', **path_counts})}")
     for kernel in launches:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
-    for name, needs in (("rsvd", ("geqrt_batched", "select_pivots")),
+    for name, needs in (("orgqr_groups", ("chol_inv", "geqrt")),
+                        ("rsvd", ("geqrt_batched", "select_pivots")),
                         ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",)),
                         ("dist", ("chol_inv", "geqrt", "geqrt_batched")),
                         ("cli", ("chol_inv", "geqrt_batched", "select_pivots"))):
@@ -2449,16 +2571,7 @@ def main(argv=None) -> int:
 
     # ---- timings (informational)
     flops = qr_flops(N_MAIN, N_MAIN)
-    t_fac = cuda_time_ms(lambda: ct.qr_blocked(A, cfg), reps=3, warmup=1)
-    smalllinalg.host_syncs = 0
-    ct.qr_blocked(A, cfg)
-    syncs_fac = smalllinalg.host_syncs
-
-    def factor_and_q():
-        f = ct.qr_blocked(A, cfg)
-        return ct.orgqr(f, N_MAIN, N_MAIN, cfg), ct.extract_r(f, N_MAIN)
-
-    t_qr = cuda_time_ms(factor_and_q, reps=3, warmup=1)
+    t_fac, syncs_fac, t_qr = factor_timings(torch, ct, A)
     mixed = ct.MIXED_CONFIG
     t_mixed = cuda_time_ms(lambda: ct.qr_blocked(A, mixed), reps=3, warmup=1)
     fm = ct.qr_blocked(A, mixed)

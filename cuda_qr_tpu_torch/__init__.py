@@ -5,10 +5,10 @@ QR, the LQ/RQ/QL family, QR updating, the single-device spectral family
 distributed layer over ``torch.distributed`` (row mesh, TSQR and CAQR
 across ranks, and the ``*_dist`` solvers), in PyTorch, with hand-written
 CUDA kernels for an NVIDIA H100 (sm_90a).  Complex input (cgeqrf
-conventions) runs the Householder family: ``qr``, ``qr_factor``,
-``orgqr``/``ormqr``, ``lstsq``/``solve``, LQ/RQ/QL, ``tsqr`` and CAQR/TSQR
-across ranks.  ``python -m cuda_qr_tpu_torch`` is the command line
-(``cli.py``); ``oracle/`` holds the C99 sliding-panel oracle.
+conventions) runs on every entry point but ``qr_batched`` and ``slogdet``,
+by the reference's routes and with no kernel.  ``python -m
+cuda_qr_tpu_torch`` is the command line (``cli.py``); ``oracle/`` holds the
+C99 sliding-panel oracle.
 
 The JAX package ``cuda_qr_tpu`` is the reference; this package keeps its
 factor storage and conventions so the two compare piece by piece.  It

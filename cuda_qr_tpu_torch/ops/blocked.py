@@ -3,12 +3,17 @@
 Counterpart of ``cuda_qr_tpu/ops/blocked.py``, as a plain Python loop: the
 reference's staged scan, masked full-width loop body and nested-jit panel
 exist to bound XLA/Mosaic compile size, which eager PyTorch does not pay.
+Its stages also decide how panels are grouped, and that is kept
+(``_groups``): the k panels are cut into ``scan_stages`` stages, and a stage
+of kg panels into groups of the largest power of two <= the width that
+divides kg.  A group is merged into one block reflector, so the grouping
+sets Q's rounding: the fewer panels merged, the more orthogonal Q.
 
-Factorization: panels of nb columns in left-looking lookahead groups of
-``factor_lookahead`` panels.  Inside a group, each panel first receives the
-group's earlier reflectors, then is factored; after the group, ONE merged
-g*nb-deep block reflector updates the trailing columns.  Each group works
-on rows >= its first panel's offset, since the rows above are final.
+Factorization: panels of nb columns in left-looking lookahead groups of up
+to ``factor_lookahead`` panels.  Inside a group, each panel first receives
+the group's earlier reflectors, then is factored; after the group, ONE
+merged g*nb-deep block reflector updates the trailing columns.  Each group
+works on rows >= its first panel's offset, since the rows above are final.
 
 Storage is ``PackedQR`` (packed V/R, taus, Ts, VJs), the reference's, so
 factors compare one to one and carry across (``utils/interop.py``).  The
@@ -31,7 +36,7 @@ import torch
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
-from .householder import geqr2, larfb, larft, merge_wy, panel_v, unit_vj, unpack_v
+from .householder import geqr2, larfb, merge_wy, panel_larft, panel_v, unit_vj, unpack_v
 
 
 class PackedQR(NamedTuple):
@@ -89,18 +94,39 @@ def as_matrix(A, config: QRConfig, name: str) -> torch.Tensor:
 
 
 def _merge_group(Vs, Ts):
-    """Pair-merge per-panel (V, T), left to right, into one wide (V, T)."""
+    """Pair-merge per-panel (V, T), left to right, into one wide (V, T).
+
+    len(Vs) must be a power of two, as ``_groups`` makes it."""
     Vs, Ts = list(Vs), list(Ts)
     while len(Vs) > 1:
         nVs, nTs = [], []
-        for a in range(0, len(Vs) - 1, 2):
+        for a in range(0, len(Vs), 2):
             nTs.append(merge_wy(Vs[a], Ts[a], Vs[a + 1], Ts[a + 1]))
             nVs.append(torch.cat([Vs[a], Vs[a + 1]], 1))
-        if len(Vs) % 2:
-            nVs.append(Vs[-1])
-            nTs.append(Ts[-1])
         Vs, Ts = nVs, nTs
     return Vs[0], Ts[0]
+
+
+def _group_width(kg: int, width: int) -> int:
+    """Largest power of two <= width that divides kg."""
+    g = 1
+    while g * 2 <= width and kg % (g * 2) == 0:
+        g *= 2
+    return g
+
+
+def _groups(k: int, width: int, stages: int):
+    """Panel groups [i0, i1), left to right, as the reference forms them
+    (``cuda_qr_tpu/ops/blocked.py:151-152,211,432-438,493-505``): stage
+    bounds round(s*k/stages), and in a stage of kg panels, groups of
+    ``_group_width(kg, width)``."""
+    stages = max(1, min(stages, k))
+    bounds = [round(s * k / stages) for s in range(stages + 1)]
+    groups = []
+    for ks, ke in zip(bounds[:-1], bounds[1:]):
+        g = _group_width(ke - ks, width)
+        groups += [(i0, i0 + g) for i0 in range(ks, ke, g)]
+    return groups
 
 
 def _panel_factor(panel: torch.Tensor, off: int, config: QRConfig):
@@ -119,7 +145,7 @@ def _panel_factor(panel: torch.Tensor, off: int, config: QRConfig):
     else:
         cdt = torch.float32 if panel.dtype == torch.bfloat16 else panel.dtype
         lo, tau = geqr2(panel[off:].to(cdt))
-        T = larft(unpack_v(lo), tau)
+        T = panel_larft(unpack_v(lo), tau)
         packed = torch.cat([panel[:off], lo.to(panel.dtype)], 0)
     return packed, tau, T, unit_vj(packed, off, nb)
 
@@ -147,9 +173,8 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     taus = torch.zeros((k, nb), dtype=cdt, device=A.device)
     Ts = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
     VJs = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
-    g = max(1, config.factor_lookahead)
-    for i0 in range(0, k, g):
-        gsz = min(g, k - i0)
+    for i0, i1 in _groups(k, config.factor_lookahead, config.scan_stages):
+        gsz = i1 - i0
         r0 = i0 * nb
         Vs, Tg = [], []
         for l in range(gsz):
@@ -177,12 +202,6 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     return PackedQR(packed=Ap.to(sdt), taus=taus, Ts=Ts, VJs=VJs)
 
 
-def _groups(k: int, g: int):
-    """Panel groups [i0, i1) of at most g panels, left to right."""
-    g = max(1, g)
-    return [(i0, min(i0 + g, k)) for i0 in range(0, k, g)]
-
-
 def _group_reflector(factors: PackedQR, i0: int, i1: int, nb: int, dtype):
     """Merged (V, T) of panels [i0, i1), V restricted to rows >= i0*nb."""
     packed, _, Ts, VJs = factors
@@ -196,11 +215,11 @@ def orgqr(factors: PackedQR, m: int, n: int,
           config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """Thin explicit Q (m x n) from packed factors.
 
-    Groups of ``apply_aggregate`` panels are applied last to first, each as
-    one merged block reflector.  When group [i0, i1) is applied, columns
-    j < i0*nb of Q are still e_j and rows < i0*nb are still zero in the
-    other columns, so each group works on the diagonal-trailing window
-    Q[i0*nb:, min(i0*nb, n):].
+    Groups of up to ``apply_aggregate`` panels (``_groups``) are applied
+    last to first, each as one merged block reflector.  When group [i0, i1)
+    is applied, columns j < i0*nb of Q are still e_j and rows < i0*nb are
+    still zero in the other columns, so each group works on the
+    diagonal-trailing window Q[i0*nb:, min(i0*nb, n):].
     """
     packed = factors.packed
     m_pad, n_pad = packed.shape
@@ -209,7 +228,7 @@ def orgqr(factors: PackedQR, m: int, n: int,
     cdt = torch.float32 if packed.dtype == torch.bfloat16 else packed.dtype
     Q = torch.eye(m_pad, n, dtype=cdt, device=packed.device)
     with matmul_precision(config.resolved_orgqr_precision()):
-        for i0, i1 in reversed(_groups(k, config.apply_aggregate)):
+        for i0, i1 in reversed(_groups(k, config.apply_aggregate, config.scan_stages)):
             r0 = i0 * nb
             c0 = min(r0, n)
             V, T = _group_reflector(factors, i0, i1, nb, cdt)
@@ -229,7 +248,7 @@ def ormqr(factors: PackedQR, B, transpose: bool = True,
     mB = B.shape[0]
     Bp = torch.zeros((m_pad, B.shape[1]), dtype=cdt, device=packed.device)
     Bp[:mB] = B.to(packed.device, cdt)
-    groups = _groups(k, config.apply_aggregate)
+    groups = _groups(k, config.apply_aggregate, config.scan_stages)
     with matmul_precision(config.resolved_orgqr_precision()):
         for i0, i1 in (groups if transpose else reversed(groups)):
             r0 = i0 * nb

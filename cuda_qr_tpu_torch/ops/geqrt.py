@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .householder import geqr2, larfb, larft, unpack_v
+from .householder import geqr2, larfb, panel_larft, unpack_v
 
 MAX_W = 128
 KB = 32                   # widest sub-panel: one warp's lanes
@@ -49,9 +49,11 @@ def supported(shape, dtype) -> bool:
 
 def geqrt_base_plain(panel: torch.Tensor, off: int):
     """geqr2 + larft on rows >= off: (packed, tau, T).  Leading dimensions
-    are a batch, reduced column by column all at once."""
+    are a batch, reduced column by column all at once.  T is
+    ``panel_larft``'s: a float32 Gram accumulated in float64, as the kernel
+    sums it from partial sums."""
     lo, tau = geqr2(panel[..., off:, :])
-    T = larft(unpack_v(lo), tau)
+    T = panel_larft(unpack_v(lo), tau)
     return torch.cat([panel[..., :off, :], lo], -2), tau, T
 
 

@@ -143,19 +143,32 @@ def unpack_r(packed: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
     return torch.where(r <= c + row_offset, packed, torch.zeros_like(packed))
 
 
-def larft(V: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+def larft(V: torch.Tensor, tau: torch.Tensor, gram_dtype=None) -> torch.Tensor:
     """Forward compact-WY T: Q = I - V T V^H, T upper triangular.
 
     T[:j, j] = -tau_j T[:j, :j] (V[:, :j]^H v_j), T[j, j] = tau_j, with the
-    Gram matrix V^H V formed once.  V (..., m, n), tau (..., n)."""
+    Gram matrix V^H V formed once, accumulated in ``gram_dtype`` (None: V's
+    own) and rounded to V's.  V (..., m, n), tau (..., n)."""
     n = V.shape[-1]
-    G = V.mH @ V
+    W = V if gram_dtype is None else V.to(gram_dtype)
+    G = (W.mH @ W).to(V.dtype)
     T = torch.zeros(V.shape[:-2] + (n, n), dtype=V.dtype, device=V.device)
     for j in range(n):
         if j:
             T[..., :j, j] = -tau[..., j, None] * matvec(T[..., :j, :j], G[..., :j, j])
         T[..., j, j] = tau[..., j]
     return T
+
+
+def panel_larft(V: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """larft of a factored panel, the Gram of float32 V accumulated in
+    float64.  T's rounding is mostly its Gram's.  The geqrt kernels sum each
+    Gram entry from partial sums over row slices (``csrc/geqrt.cu``,
+    ``column_steps``; the reference's, one dot product over the rows,
+    ``cuda_qr_tpu/ops/geqrt.py:79-82``); a float32 GEMM sums in the
+    library's order, up to 1.8x further from exact (MKL on the CPU at 512 x
+    128).  Other dtypes keep their own Gram."""
+    return larft(V, tau, torch.float64 if V.dtype == torch.float32 else None)
 
 
 def larfb(B: torch.Tensor, V: torch.Tensor, T: torch.Tensor,

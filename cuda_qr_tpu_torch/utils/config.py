@@ -2,9 +2,9 @@
 
 Counterpart of ``cuda_qr_tpu/utils/config.py``: one frozen dataclass of the
 knobs the blocked factorization reads.  Knobs that existed only to bound
-XLA/Mosaic compile size or the TPU's VMEM (``driver``, ``scan_stages``,
-``stage_schedule``, ``interpret``, ``max_vmem_panel_rows``) have no
-counterpart.
+XLA/Mosaic compile size or the TPU's VMEM (``driver``, ``stage_schedule``,
+``interpret``, ``max_vmem_panel_rows``) have no counterpart.
+``scan_stages`` is kept for the panel grouping it sets.
 
 Precision.  The reference's ``jax.lax.Precision`` becomes a string:
   "highest": float32 GEMMs in full float32 (TF32 off) -- Precision.HIGHEST;
@@ -53,6 +53,11 @@ class QRConfig:
         block reflector.
       factor_lookahead: panels per left-looking group of the factorization;
         one merged g*nb-deep trailing update per group.
+      scan_stages: the k panels are cut into this many stages, and a stage of
+        kg panels is grouped in the largest power of two <= apply_aggregate
+        (or factor_lookahead) that divides kg, as the reference groups them.
+        Here it sets only that grouping, which decides Q's rounding; nothing
+        here is about compile size.
       use_chol_kernel: run the panel Gram Cholesky + inverse on the chol_inv
         kernel where it is eligible (float32, nb a multiple of 16, <= 512).
       use_select_kernel: run the QRCP pivot selection on the select_pivots
@@ -77,6 +82,7 @@ class QRConfig:
     panel_method: str = "cholqr2_bk"
     apply_aggregate: int = 4
     factor_lookahead: int = 4
+    scan_stages: int = 4
     use_chol_kernel: bool = True
     use_select_kernel: bool = True
     block_rows: int = 1024

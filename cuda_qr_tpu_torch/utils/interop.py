@@ -47,10 +47,12 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
 
     Carried over: panel_width, panel_base, dtype, precision,
     trailing_precision, orgqr_precision, use_pallas (as use_kernels),
-    panel_method, apply_aggregate, factor_lookahead, use_chol_kernel,
-    use_select_kernel, block_rows, tsqr_leaf.
-    Ignored (no counterpart): driver, scan_stages, stage_schedule,
-    interpret, max_vmem_panel_rows.
+    panel_method, apply_aggregate, factor_lookahead, scan_stages (it sets
+    the panel grouping), use_chol_kernel, use_select_kernel, block_rows,
+    tsqr_leaf.
+    Ignored (no counterpart): driver, interpret, max_vmem_panel_rows, and
+    stage_schedule, which is not ported: the port groups panels by
+    scan_stages alone.
     """
     dtype_name = np.dtype(cfg.dtype).name
     if dtype_name not in _DTYPES:
@@ -66,6 +68,7 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
         panel_method=cfg.panel_method,
         apply_aggregate=cfg.apply_aggregate,
         factor_lookahead=cfg.factor_lookahead,
+        scan_stages=cfg.scan_stages,
         use_chol_kernel=cfg.use_chol_kernel,
         use_select_kernel=cfg.use_select_kernel,
         block_rows=cfg.block_rows,

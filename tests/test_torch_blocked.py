@@ -82,8 +82,9 @@ def test_carried_factors_give_reference_orgqr_ormqr(rng):
 
 @pytest.mark.parametrize("lookahead,aggregate", [(1, 1), (2, 3), (3, 4), (8, 8)])
 def test_grouping_does_not_change_the_result(rng, lookahead, aggregate):
-    """Lookahead groups and orgqr aggregation of any size (including ones
-    that do not divide the panel count) are the same operator."""
+    """Lookahead groups and orgqr aggregation of any width (a width that is
+    no power of two groups by the largest one below it) are the same
+    operator."""
     A = torch.from_numpy(rng.standard_normal((160, 160)))
     base = QRConfig(dtype=torch.float64, panel_width=32, device="cpu")
     cfg = base.replace(factor_lookahead=lookahead, apply_aggregate=aggregate)
@@ -92,6 +93,47 @@ def test_grouping_does_not_change_the_result(rng, lookahead, aggregate):
     assert torch.allclose(orgqr(f0, 160, 160, base), orgqr(f1, 160, 160, cfg), atol=1e-12)
     B = torch.from_numpy(rng.standard_normal((160, 3)))
     assert torch.allclose(ormqr(f1, ormqr(f1, B, True, cfg), False, cfg), B, atol=1e-12)
+
+
+def reference_groups(k, width, stages=4):
+    """The reference's panel groups, written out from its default schedule:
+    stages at round(s*k/stages) (``cuda_qr_tpu/ops/blocked.py:151-152,
+    432-434, 493-495``), and in a stage of kg panels, groups of
+    ``_group_width(kg, width)`` (:211, :438, :505)."""
+    from cuda_qr_tpu.ops.blocked import _group_width
+    stages = max(1, min(stages, k))
+    bounds = [round(s * k / stages) for s in range(stages + 1)]
+    groups = []
+    for ks, ke in zip(bounds[:-1], bounds[1:]):
+        kg = ke - ks
+        g = _group_width(kg, width)
+        groups += [(ks + j * g, ks + (j + 1) * g) for j in range(kg // g)]
+    return groups
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+def test_groups_are_the_reference_schedule(width):
+    """The port's panel groups (factor, orgqr and ormqr) are the reference's
+    at its default scan_stages, for every panel count up to 70."""
+    from cuda_qr_tpu_torch.ops.blocked import _groups
+    for k in range(1, 71):
+        assert _groups(k, width, 4) == reference_groups(k, width), (k, width)
+    assert _groups(12, 4, 4) == [(i, i + 1) for i in range(12)]   # stages of 3: no merge
+    assert _groups(2, 4, 4) == [(0, 1), (1, 2)]
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+def test_groups_unchanged_from_sixteen_panels(width):
+    """At 16, 32 and 64 panels (8192^2 at nb = 128 is 64) the groups are the
+    chunks of ``width`` the port formed before it grouped by stages."""
+    from cuda_qr_tpu_torch.ops.blocked import _groups
+    for k in (16, 32, 64):
+        assert _groups(k, width, 4) == [(i0, i0 + width) for i0 in range(0, k, width)]
+
+
+def test_config_from_reference_carries_scan_stages():
+    assert config_from_reference(ref.QRConfig(scan_stages=2)).scan_stages == 2
+    assert config_from_reference(ref.QRConfig()).scan_stages == QRConfig().scan_stages == 4
 
 
 def test_config_from_reference():

@@ -39,6 +39,31 @@ def test_base_matches_pallas_interpret(rng, m, w, off):
     close(T, rT, 2e-5)
 
 
+@pytest.mark.parametrize("m,w", [(256, 32), (512, 128)])
+def test_base_T_as_accurate_as_reference_kernel(m, w):
+    """float32 T of the plain version against a float64 larft of its own V
+    and tau, no further off than the reference's kernel's T (interpret
+    mode) from its own: 1.1x, geometric mean over seeds 0-3.  T's rounding
+    is its Gram's, which the kernels sum from partial sums."""
+    def err(packed, tau, Tm):
+        V = np.tril(np.asarray(packed, np.float64), -1) + np.eye(m, w)
+        G, tau = V.T @ V, np.asarray(tau, np.float64)
+        T64 = np.zeros((w, w))
+        for j in range(w):
+            T64[:j, j] = -tau[j] * T64[:j, :j] @ G[:j, j]
+            T64[j, j] = tau[j]
+        return np.linalg.norm(np.asarray(Tm, np.float64) - T64) / np.linalg.norm(T64)
+
+    kernel = jax.jit(lambda a: _geqrt_pallas(a, 0, REF))
+    ratios = []
+    for seed in range(4):
+        A = np.random.default_rng(seed).standard_normal((m, w)).astype(np.float32)
+        packed, tau, T = port.geqrt_base(torch.from_numpy(A), 0)
+        ratios.append(err(packed.numpy(), tau.numpy(), T.numpy())
+                      / err(*kernel(jnp.asarray(A))))
+    assert np.exp(np.log(ratios).mean()) <= 1.1, ratios
+
+
 def test_zero_columns(rng):
     A = np.zeros((64, 16), np.float32)
     A[:, 3] = rng.standard_normal(64)
