@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor]
+    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
@@ -13,7 +13,10 @@ rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
 the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
 ``qr_multiply`` in float64, the QR updates on an 8192 x 1024 thin QR,
 orgqr's panel groups (the reference's stages) at 512^2 and 1024^2 on both
-kernels' panels, and the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
+kernels' panels, MIXED_CONFIG's 3xTF32 trailing update (its GEMMs against
+float64 beside "highest" and one TF32 pass, the factor's residual and
+orthogonality at 2,048^2-16,384^2 against DEFAULT_CONFIG's, and the
+command line's ``--mixed``), and the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
 on known spectra, ``norm2_est``/``cond_est``, ``orth(rcond=...)``, QDWH
 ``polar`` at 16,384 x 512 and 1,048,576 x 128, ``svd`` at 4,096^2 with both
 eigensolvers, the Jacobi rotation's c^2 + s^2 - 1 over 10^6 angles a scale
@@ -54,9 +57,9 @@ the main-path run, errors against the plain versions, times); the last line
 is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
-factor alone) and ends with the same last line, "only" added.  Run from
-another checkout's root, a copy of this script with ``--only factor`` times
-that checkout's factor.
+factor alone, MIXED_CONFIG's phase) and ends with the same last line,
+"only" added.  Run from another checkout's root, a copy of this script with
+``--only factor`` times that checkout's factor.
 """
 
 from __future__ import annotations
@@ -116,6 +119,22 @@ ROT_SCALES = (1.0, 1e3, 1e5)
 ROT_BIAS_TOL = 0.1
 GIVENS_RATIOS = (1.0, 1e-3, 1e-5)   # |b|/|a| of the Givens rotations (models/update.py)
 N_ORGQR_GROUPS = (512, 1024)        # k = 4 and 8 panels at nb = 128
+# MIXED_CONFIG's 3xTF32 trailing update (fault C9).  GEMMs at the 8192^2
+# factor's trailing shapes (name, m, k, n): one panel's V^H rest, a group
+# of 4 merged panels' V^H rest, and V W.  "high" within MIXED_GEMM_HIGHEST x
+# "highest"'s normwise error and under 1/MIXED_GEMM_TF32 of "tf32"'s, and
+# "tf32" at least MIXED_GEMM_TF32_ON x "highest"'s (TF32 was on).
+MIXED_GEMMS = (("V^H rest", 128, 8192, 8064), ("V^H rest, group of 4", 512, 8192, 7680),
+               ("V W", 8192, 128, 8064))
+MIXED_GEMM_HIGHEST, MIXED_GEMM_TF32, MIXED_GEMM_TF32_ON = 16, 100, 50
+# qr_blocked + orgqr at DEFAULT, trailing "tf32" and MIXED: MIXED's residual
+# under n eps / MIXED_RESID_DIV, its orthogonality within MIXED_ORTH_RATIO x
+# DEFAULT's; "tf32" printed, ungated (the fault's record).
+N_MIXED = (2048, 4096, 8192, 16384)
+MIXED_RESID_DIV, MIXED_ORTH_RATIO = 10, 1.1
+MIXED_CLI_FACTOR = ["--mixed", "factor", "4096", "4096"]
+MIXED_CLI_TSQR = ["--tsqr-leaf", "cholqr2", "tsqr", "1048576", "128"]
+MIXED_TSQR_RATIO = 2.0              # MIXED cholqr2 tsqr residual over DEFAULT's
 # The distributed path: P_DIST ranks (sharing the card when there are fewer
 # cards), at BASELINE config 3 (tsqr), config 5 cut to 16,384^2 on 4 ranks
 # (caqr; 32,768^2 until the command line and complex phases came, which
@@ -886,6 +905,183 @@ def phase_orgqr_groups(torch, np, ct, dev):
     require(total["chol_inv"] > 0 and total["geqrt"] > 0,
             f"orgqr groups launched no chol_inv or geqrt kernel: {total}")
     return total
+
+
+def mixed_gemms(torch, dev, smi):
+    """"highest", "tf32" and "high" (3xTF32) at MIXED_GEMMS: normwise error
+    ||C - C64||_F / (||A||_F ||B||_F) against a float64 product on the card,
+    CUDA-event time and TFLOP/s; beside them the one-call form of 3xTF32
+    (operands concatenated along K), the split of the K x n operand, and
+    the accumulation alone: hi_a hi_b (exact in TF32) as one TF32 product,
+    in K_CHUNK-deep chunks (what "high" runs) and in float32, with the mean
+    relative error of one TF32 product on positive operands (its bias)."""
+    from cuda_qr_tpu_torch.ops.gemm import K_CHUNK, _tf32_chunked, _tf32_product, gemm, split_tf32
+    from cuda_qr_tpu_torch.utils.config import matmul_precision
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+
+    def concatenated(a, b):
+        hi_a, lo_a = split_tf32(a)
+        hi_b, lo_b = split_tf32(b)
+        with matmul_precision("tf32"):
+            return torch.cat([hi_a, lo_a, hi_a], 1) @ torch.cat([lo_b, hi_b, hi_b], 0)
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    rows = []
+    for name, m, k, n in MIXED_GEMMS:
+        A = torch.randn(m, k, generator=g, device=dev)
+        B = torch.randn(k, n, generator=g, device=dev)
+        C64 = A.double() @ B.double()
+        scale = float(A.double().norm() * B.double().norm())
+        fns = {p: (lambda p=p: gemm(A, B, p)) for p in ("highest", "tf32", "high")}
+        fns["high, one call on K-concatenated operands"] = lambda: concatenated(A, B)
+        err, ms = {}, {}
+        for p, fn in fns.items():
+            err[p] = float((fn().double() - C64).norm()) / scale
+            ms[p] = cuda_time_ms(fn, reps=10, warmup=2)
+            say(f"  gemm {name} ({m} x {k} by {k} x {n}) '{p}': error {err[p]:.3e}, "
+                f"{ms[p]:.4f} ms, {2 * m * k * n / ms[p] / 1e9:.1f} TFLOP/s ({smi})")
+        t_split = cuda_time_ms(lambda: split_tf32(B), reps=10, warmup=2)
+        hA, hB = split_tf32(A)[0], split_tf32(B)[0]
+        H64 = hA.double() @ hB.double()
+        hscale = float(hA.double().norm() * hB.double().norm())
+        acc = {"one TF32 product": _tf32_product(hA, hB),
+               f"chunks of {K_CHUNK}": _tf32_chunked(hA, hB), "float32": gemm(hA, hB, "highest")}
+        say(f"  gemm {name}: hi_a hi_b (exact in TF32) summed as " + ", ".join(
+            f"{key} {float((c.double() - H64).norm()) / hscale:.3e}" for key, c in acc.items()))
+        del hA, hB, H64, acc
+        say(f"  gemm {name}: 'high' / 'highest' error {err['high'] / err['highest']:.3f} "
+            f"(<= {MIXED_GEMM_HIGHEST}), 'tf32' / 'high' {err['tf32'] / err['high']:.1f} (>= "
+            f"{MIXED_GEMM_TF32}), 'tf32' / 'highest' {err['tf32'] / err['highest']:.1f} (>= "
+            f"{MIXED_GEMM_TF32_ON}); time 'high' / 'highest' {ms['high'] / ms['highest']:.3f}; "
+            f"split_tf32 of the {k} x {n} operand {t_split:.4f} ms")
+        require(err["high"] <= MIXED_GEMM_HIGHEST * err["highest"],
+                f"gemm {name}: 'high' error {err['high']} over {MIXED_GEMM_HIGHEST}x "
+                f"'highest''s {err['highest']}")
+        require(err["high"] <= err["tf32"] / MIXED_GEMM_TF32,
+                f"gemm {name}: 'high' error {err['high']} not under 'tf32''s {err['tf32']} / "
+                f"{MIXED_GEMM_TF32}")
+        require(err["tf32"] >= MIXED_GEMM_TF32_ON * err["highest"],
+                f"gemm {name}: 'tf32' error {err['tf32']} not {MIXED_GEMM_TF32_ON}x 'highest''s "
+                f"{err['highest']}: was TF32 on?")
+        rows.append({"gemm": name, "shape": [m, k, n], "error": err, "ms": ms,
+                     "split_ms": t_split})
+        del A, B, C64
+    # the sign of one TF32 product's accumulation error (positive operands)
+    m, k, n = MIXED_GEMMS[0][1:]
+    hA = split_tf32(torch.rand(m, k, generator=g, device=dev))[0]
+    hB = split_tf32(torch.rand(k, n, generator=g, device=dev))[0]
+    H64 = hA.double() @ hB.double()
+    bias = {key: float(((c.double() - H64) / H64).mean()) for key, c in (
+        ("one TF32 product", _tf32_product(hA, hB)), (f"chunks of {K_CHUNK}", _tf32_chunked(hA, hB)),
+        ("float32", gemm(hA, hB, "highest")))}
+    say(f"  gemm {m} x {k} by {k} x {n}, positive operands exact in TF32: mean relative error "
+        + ", ".join(f"{key} {v:.3e}" for key, v in bias.items()))
+    return rows
+
+
+def mixed_factor_ladder(torch, np, ct, dev, smi, sizes):
+    """qr_blocked + orgqr + check_qr_device of default_rng(12) float32 at
+    each n of ``sizes``, at DEFAULT_CONFIG, trailing "tf32" and
+    MIXED_CONFIG: residual, orthogonality, factor ms (CUDA events); MIXED
+    gated, "tf32" printed."""
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    configs = (("DEFAULT", ct.DEFAULT_CONFIG),
+               ("trailing 'tf32'", ct.QRConfig(trailing_precision="tf32")),
+               ("MIXED (3xTF32)", ct.MIXED_CONFIG))
+    out = {}
+    for n in sizes:
+        A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+            (n, n), dtype=np.float32)).to(dev)
+        chks = {}
+        for name, cfg in configs:
+            t = cuda_time_ms(lambda: ct.qr_blocked(A, cfg), reps=1, warmup=1 if n <= 8192 else 0)
+            f = ct.qr_blocked(A, cfg)
+            chk = chks[name] = ct.check_qr_device(A, ct.orgqr(f, n, n, cfg), ct.extract_r(f, n))
+            del f
+            say(f"  factor {n}^2 f32 {name}: residual {chk.residual:.3e} (n eps {n * chk.eps:.3e}),"
+                f" orthogonality {chk.orthogonality:.3e}; factor {t:.2f} ms ({smi})")
+            out[(n, name)] = {"residual": chk.residual, "orthogonality": chk.orthogonality,
+                              "factor_ms": t}
+        d, m = chks["DEFAULT"], chks["MIXED (3xTF32)"]
+        say(f"  factor {n}^2: MIXED residual {m.residual:.3e} (< n eps / {MIXED_RESID_DIV} = "
+            f"{n * m.eps / MIXED_RESID_DIV:.3e}), {m.residual / d.residual:.3f}x DEFAULT's; "
+            f"orthogonality {m.orthogonality / d.orthogonality:.3f}x DEFAULT's (<= "
+            f"{MIXED_ORTH_RATIO}); trailing 'tf32' residual {chks[configs[1][0]].residual:.3e}")
+        require(m.ok and m.residual < n * m.eps / MIXED_RESID_DIV,
+                f"MIXED {n}^2: residual {m.residual} not under n eps / {MIXED_RESID_DIV}")
+        require(m.orthogonality <= MIXED_ORTH_RATIO * d.orthogonality,
+                f"MIXED {n}^2: orthogonality {m.orthogonality} over {MIXED_ORTH_RATIO}x "
+                f"DEFAULT's {d.orthogonality}")
+        del A
+    return out
+
+
+def mixed_unchunked(torch, np, ct, dev, smi):
+    """The first design of "high", hi_a hi_b as ONE TF32 product (no
+    K-chunks), printed beside the chunked one, ungated: the 8192^2 factor
+    and the cholqr2 tsqr at 1,048,576 x 128, at MIXED_CONFIG."""
+    from cuda_qr_tpu_torch.ops import gemm as gemm_mod
+    n = N_MAIN
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    T = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        N_TSQR, dtype=np.float32)).to(dev)
+    tcfg = ct.MIXED_CONFIG.replace(tsqr_leaf="cholqr2")
+    chunked = gemm_mod._tf32_chunked
+    for label, fn in (("in K-chunks", chunked), ("as one TF32 product", gemm_mod._tf32_product)):
+        gemm_mod._tf32_chunked = fn
+        try:
+            f = ct.qr_blocked(A, ct.MIXED_CONFIG)
+            chk = ct.check_qr_device(A, ct.orgqr(f, n, n, ct.MIXED_CONFIG), ct.extract_r(f, n))
+            del f
+            tchk = ct.check_qr_device(T, *ct.tsqr(T, tcfg))
+        finally:
+            gemm_mod._tf32_chunked = chunked
+        say(f"  MIXED, hi_a hi_b {label}: factor {n}^2 residual {chk.residual:.3e}, "
+            f"orthogonality {chk.orthogonality:.3e}; cholqr2 tsqr {N_TSQR[0]} x {N_TSQR[1]} "
+            f"residual {tchk.residual:.3e}, orthogonality {tchk.orthogonality:.3e} ({smi})")
+    del A, T
+
+
+def mixed_cli(smi):
+    """``--mixed factor 4096 4096`` (record ok), and the cholqr2 ``tsqr`` at
+    1,048,576 x 128 without and with ``--mixed`` (MIXED's residual within
+    MIXED_TSQR_RATIO x DEFAULT's), through ``cli.main`` in process."""
+    import contextlib
+    import io
+    from cuda_qr_tpu_torch import cli
+    recs = {}
+    for key, argv in (("factor", MIXED_CLI_FACTOR), ("tsqr", MIXED_CLI_TSQR),
+                      ("tsqr --mixed", ["--mixed", *MIXED_CLI_TSQR])):
+        argv = ["--trials", str(CLI_TRIALS), *argv]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        rec = recs[key] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        say(f"  cli {' '.join(argv)}: rc {rc}, {json.dumps(rec)} ({smi})")
+        require(rc == 0 and rec.get("ok") is True, f"cli {argv}: rc {rc}, record {rec}")
+    d, m = recs["tsqr"]["residual"], recs["tsqr --mixed"]["residual"]
+    say(f"  cholqr2 tsqr: MIXED residual {m:.3e}, {m / d:.3f}x DEFAULT's {d:.3e} (<= "
+        f"{MIXED_TSQR_RATIO})")
+    require(m <= MIXED_TSQR_RATIO * d,
+            f"MIXED cholqr2 tsqr residual {m} over {MIXED_TSQR_RATIO}x DEFAULT's {d}")
+    return recs
+
+
+def phase_mixed_precision(torch, np, ct, dev, smi, sizes=N_MIXED):
+    """MIXED_CONFIG, the trailing update in 3xTF32 (fault C9): the GEMMs at
+    the trailing shapes, the factor ladder, the command line.  Returns this
+    path's counts (set to 0 at its start)."""
+    reset_counts(torch)
+    say(f"MIXED_CONFIG: trailing precision {ct.MIXED_CONFIG.trailing_precision!r} (3xTF32):")
+    mixed_gemms(torch, dev, smi)
+    mixed_factor_ladder(torch, np, ct, dev, smi, sizes)
+    mixed_unchunked(torch, np, ct, dev, smi)
+    mixed_cli(smi)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require(counts["chol_inv"] > 0, f"MIXED phase launched no chol_inv kernel: {counts}")
+    return counts
 
 
 def factor_timings(torch, ct, A):
@@ -2390,7 +2586,7 @@ def gate(name, chk) -> None:
 
 
 # phases that ``--only`` can run alone
-STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor")
+STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed")
 
 
 def main(argv=None) -> int:
@@ -2433,6 +2629,8 @@ def main(argv=None) -> int:
             phase_update(torch, np, ct, dev, smi)
         if "factor" in only:
             phase_factor(torch, np, ct, dev, smi)
+        if "mixed" in only:
+            phase_mixed_precision(torch, np, ct, dev, smi)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2478,7 +2676,8 @@ def main(argv=None) -> int:
         f"{cfg.panel_method} nb={cfg.panel_width} "
         f"lookahead={cfg.factor_lookahead}: {t_main:.3f} s first call (with the copy), "
         f"chol_inv launches {chol_main}, host syncs {syncs_main}")
-    gate(f"qr {N_MAIN}^2 f32", ct.check_qr_device(A, Q, R))
+    chk_main = ct.check_qr_device(A, Q, R)
+    gate(f"qr {N_MAIN}^2 f32", chk_main)
     if chol_main < N_MAIN // cfg.panel_width:
         raise AssertionError(f"chol_inv launched {chol_main} times, expected >= "
                              f"{N_MAIN // cfg.panel_width} (one per panel)")
@@ -2534,11 +2733,13 @@ def main(argv=None) -> int:
     phase_update(torch, np, ct, dev, smi)
     say("panel groups of orgqr (C5), k = 4 and 8:")
     orgqr_groups = phase_orgqr_groups(torch, np, ct, dev)
+    mixed_counts = phase_mixed_precision(torch, np, ct, dev, smi)
 
     # ---- the spectral family: randomized tools, QDWH polar and svd, QDWH-eig
     phase_rotation_bias(torch, dev)
     by_path = {"qr, geqrt, qr_pivoted, tsqr": dict(launches),
                "orgqr_groups": orgqr_groups,
+               "mixed": mixed_counts,
                "rsvd": phase_rsvd(torch, np, ct, cfg, dev, smi),
                "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
                "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
@@ -2557,7 +2758,7 @@ def main(argv=None) -> int:
         say(f"path {name}: {counts_str({'host_syncs': '-', **path_counts})}")
     for kernel in launches:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
-    for name, needs in (("orgqr_groups", ("chol_inv", "geqrt")),
+    for name, needs in (("orgqr_groups", ("chol_inv", "geqrt")), ("mixed", ("chol_inv",)),
                         ("rsvd", ("geqrt_batched", "select_pivots")),
                         ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",)),
                         ("dist", ("chol_inv", "geqrt", "geqrt_batched")),
@@ -2587,9 +2788,15 @@ def main(argv=None) -> int:
     say(f"  factor {N_MAIN}^2 f32 highest: {t_fac:.2f} ms ({flops / t_fac / 1e6:.0f} GFLOP/s), "
         f"{syncs_fac} host syncs")
     say(f"  factor + orgqr highest: {t_qr:.2f} ms")
-    say(f"  factor trailing-tf32 (MIXED): {t_mixed:.2f} ms; residual {chk_m.residual:.3e} "
-        f"ok={chk_m.residual_ok}, orthogonality {chk_m.orthogonality:.3e} "
-        f"ok={chk_m.orthogonality_ok}")
+    say(f"  factor MIXED (3xTF32 trailing): {t_mixed:.2f} ms; residual {chk_m.residual:.3e} "
+        f"(< n eps / {MIXED_RESID_DIV} = {N_MAIN * chk_m.eps / MIXED_RESID_DIV:.3e}), "
+        f"orthogonality {chk_m.orthogonality:.3e} ({chk_m.orthogonality / chk_main.orthogonality:.3f}"
+        f"x the main path's, <= {MIXED_ORTH_RATIO})")
+    require(chk_m.ok and chk_m.residual < N_MAIN * chk_m.eps / MIXED_RESID_DIV,
+            f"MIXED {N_MAIN}^2: residual {chk_m.residual} not under n eps / {MIXED_RESID_DIV}")
+    require(chk_m.orthogonality <= MIXED_ORTH_RATIO * chk_main.orthogonality,
+            f"MIXED {N_MAIN}^2: orthogonality {chk_m.orthogonality} over {MIXED_ORTH_RATIO}x "
+            f"the main path's {chk_main.orthogonality}")
     say(f"  torch.linalg.qr (reduced, Q and R): {t_torch:.2f} ms")
     say(f"  pivoted factor qrcp_blocked {N_MAIN}^2 f32 highest: {t_qrcp:.2f} ms, "
         f"{syncs_qrcp} host syncs (unpivoted factor above: {t_fac:.2f} ms)")

@@ -40,7 +40,7 @@ own time.  ``compare`` times ``torch.linalg.qr`` on the same device
 in float64 on the result's device (``check_qr_device`` and the same
 formulas as the reference's host checks), so a check at 8192^2 on the card
 is no host product; on the CPU ``check_qr``.  Flags: ``--mixed`` is
-MIXED_CONFIG's TF32 trailing update, ``--no-pallas`` is
+MIXED_CONFIG's 3xTF32 trailing update, ``--no-pallas`` is
 ``use_kernels=False``; the reference's ``--stages``/``--stage-schedule``
 (compile-size knobs) have no counterpart.
 """
@@ -63,7 +63,7 @@ def _config(args):
     if getattr(args, "lookahead", None) is not None:
         extra["factor_lookahead"] = args.lookahead
     if getattr(args, "mixed", False):
-        extra["trailing_precision"] = "tf32"
+        extra["trailing_precision"] = "high"
     return QRConfig(dtype=DTYPES[args.dtype], use_kernels=not args.no_pallas,
                     tsqr_leaf=args.tsqr_leaf, device=args.platform, **extra)
 
@@ -637,9 +637,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--no-pallas", action="store_true",
                    help="no kernel: the plain geqr2 panels (use_kernels=False)")
     p.add_argument("--mixed", action="store_true",
-                   help="MIXED_CONFIG: the trailing-update GEMMs in TF32, panels and "
-                        "orgqr in full float32; the gates (resid < n*eps, "
-                        "orth < 4n*eps) stay on")
+                   help="MIXED_CONFIG: the trailing-update GEMMs in 3xTF32 (three TF32 "
+                        "passes on hi/lo-split operands), panels and orgqr in full "
+                        "float32; the gates (resid < n*eps, orth < 4n*eps) stay on")
     p.add_argument("--tsqr-leaf", choices=["householder", "cholqr2"], default="householder")
     p.add_argument("--lookahead", type=int, default=None,
                    help="factor lookahead group width")

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.blocked import as_tensor, complex_config, is_complex
+from ..ops.gemm import gemm
 from ..ops.geqrt import geqrt_base, geqrt_batched, geqrt_batched_plain, supported
 from ..ops.householder import larfb, unpack_r, unpack_v
 from ..ops.smalllinalg import _eye, chol_with_inv_auto, host_decision
@@ -107,15 +108,15 @@ def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
     GEMM Q = A (L1i^T L2i^T), the second read and only write (skipped for
     ``with_q=False``).  Round 2 takes chol(I + E) ~ I + tril(E, -1) +
     diag(E)/2 when ||E||_max is tiny.  The two full-height GEMMs run at
-    ``resolved_trailing_precision()``, all n x n math at ``precision``.
+    ``resolved_trailing_precision()`` (through ``ops.gemm.gemm``: "high"
+    is 3xTF32), all n x n math at ``precision``.
     ``bad`` (a 0-d bool tensor) is set on Cholesky breakdown, a large
     round-1 defect, or a cond(A) proxy near cond^2 * eps ~ 1.
     """
     n = A.shape[1]
     gprec = config.resolved_trailing_precision()
     eye = _eye(n, A)
-    with matmul_precision(gprec):
-        G = A.T @ A                                          # pass 1
+    G = gemm(A.T, A, gprec)                                  # pass 1
     L1, L1i = chol_with_inv_auto(G, config)
     G2 = L1i @ G @ L1i.T
     E = G2 - eye
@@ -129,8 +130,7 @@ def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
     Rinv = L1i.T @ L2i.T
     Q = None
     if with_q:
-        with matmul_precision(gprec):
-            Q = A @ Rinv                                     # pass 2
+        Q = gemm(A, Rinv, gprec)                             # pass 2
     R = torch.triu(L2.T @ L1.T)   # exact zeros below the diagonal
     d = torch.diagonal(L1).abs()
     cond_proxy = d.max() / torch.clamp(d.min(), min=1e-30)

@@ -17,7 +17,9 @@ works on rows >= its first panel's offset, since the rows above are final.
 
 Storage is ``PackedQR`` (packed V/R, taus, Ts, VJs), the reference's, so
 factors compare one to one and carry across (``utils/interop.py``).  The
-trailing, merge, Gram and orgqr GEMMs are plain ``torch.matmul``.
+trailing, merge and orgqr GEMMs go through ``ops/gemm.gemm`` at the
+trailing or orgqr precision ("high" is 3xTF32); the panels run under
+``matmul_precision(config.precision)``.
 
 Complex input (LAPACK cgeqrf conventions) runs the plain geqr2 panels at its
 own dtype whatever ``panel_method`` says, as the reference routes it
@@ -36,6 +38,7 @@ import torch
 from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
+from .gemm import gemm
 from .householder import geqr2, larfb, merge_wy, panel_larft, panel_v, unit_vj, unpack_v
 
 
@@ -71,14 +74,15 @@ def complex_config(A, config: QRConfig) -> QRConfig:
     ``use_pallas=False, use_chol_kernel=False, use_select_kernel=False``),
     and every GEMM at "highest".  cuBLAS's TF32 mode reaches complex64
     GEMMs; the reference's MIXED trailing precision (bf16x3) keeps float32's
-    accuracy, so "tf32" maps to "highest" here.  Real A keeps ``config``."""
+    accuracy, so "tf32" and "high" map to "highest" here.  Real A keeps
+    ``config``."""
     if not is_complex(A):
         return config
     dtype = A.dtype if isinstance(A.dtype, torch.dtype) else torch.from_numpy(
         np.empty(0, A.dtype)).dtype
 
     def full(p):
-        return "highest" if p == "tf32" else p
+        return "highest" if p in ("tf32", "high") else p
     return config.replace(dtype=dtype, use_kernels=False, use_chol_kernel=False,
                           use_select_kernel=False, precision=full(config.precision),
                           trailing_precision=full(config.trailing_precision),
@@ -93,15 +97,16 @@ def as_matrix(A, config: QRConfig, name: str) -> torch.Tensor:
     return A
 
 
-def _merge_group(Vs, Ts):
-    """Pair-merge per-panel (V, T), left to right, into one wide (V, T).
+def _merge_group(Vs, Ts, precision: str):
+    """Pair-merge per-panel (V, T), left to right, into one wide (V, T),
+    the merges' GEMMs at ``precision``.
 
     len(Vs) must be a power of two, as ``_groups`` makes it."""
     Vs, Ts = list(Vs), list(Ts)
     while len(Vs) > 1:
         nVs, nTs = [], []
         for a in range(0, len(Vs), 2):
-            nTs.append(merge_wy(Vs[a], Ts[a], Vs[a + 1], Ts[a + 1]))
+            nTs.append(merge_wy(Vs[a], Ts[a], Vs[a + 1], Ts[a + 1], precision))
             nVs.append(torch.cat([Vs[a], Vs[a + 1]], 1))
         Vs, Ts = nVs, nTs
     return Vs[0], Ts[0]
@@ -173,6 +178,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     taus = torch.zeros((k, nb), dtype=cdt, device=A.device)
     Ts = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
     VJs = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
+    prec = config.resolved_trailing_precision()
     for i0, i1 in _groups(k, config.factor_lookahead, config.scan_stages):
         gsz = i1 - i0
         r0 = i0 * nb
@@ -181,10 +187,8 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
             i, off = i0 + l, l * nb
             c = r0 + off
             block = Ap[r0:, c:c + nb]
-            if l:
-                with matmul_precision(config.resolved_trailing_precision()):
-                    for V, T in zip(Vs, Tg):
-                        block = larfb(block, V, T, transpose=True)
+            for V, T in zip(Vs, Tg):
+                block = larfb(block, V, T, transpose=True, precision=prec)
             with matmul_precision(config.precision):
                 packed, tau, T, VJ = _panel_factor(block.to(sdt), off, config)
             packed = packed.to(cdt)
@@ -194,21 +198,22 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
             Tg.append(T.to(cdt))
         rest = Ap[r0:, r0 + gsz * nb:]
         if rest.shape[1]:
-            with matmul_precision(config.resolved_trailing_precision()):
-                V, T = _merge_group(Vs, Tg)
-                rest -= V @ (T.mH @ (V.mH @ rest))
+            V, T = _merge_group(Vs, Tg, prec)
+            rest -= gemm(V, gemm(T.mH, gemm(V.mH, rest, prec), prec), prec)
             if sdt != cdt:
                 rest.copy_(rest.to(sdt))
     return PackedQR(packed=Ap.to(sdt), taus=taus, Ts=Ts, VJs=VJs)
 
 
-def _group_reflector(factors: PackedQR, i0: int, i1: int, nb: int, dtype):
-    """Merged (V, T) of panels [i0, i1), V restricted to rows >= i0*nb."""
+def _group_reflector(factors: PackedQR, i0: int, i1: int, nb: int, dtype,
+                     precision: str):
+    """Merged (V, T) of panels [i0, i1), V restricted to rows >= i0*nb, the
+    merges at ``precision``."""
     packed, _, Ts, VJs = factors
     r0 = i0 * nb
     Vs = [panel_v(packed[r0:, i * nb:(i + 1) * nb].to(dtype), (i - i0) * nb, VJs[i])
           for i in range(i0, i1)]
-    return _merge_group(Vs, [Ts[i].to(dtype) for i in range(i0, i1)])
+    return _merge_group(Vs, [Ts[i].to(dtype) for i in range(i0, i1)], precision)
 
 
 def orgqr(factors: PackedQR, m: int, n: int,
@@ -227,12 +232,12 @@ def orgqr(factors: PackedQR, m: int, n: int,
     k = n_pad // nb
     cdt = torch.float32 if packed.dtype == torch.bfloat16 else packed.dtype
     Q = torch.eye(m_pad, n, dtype=cdt, device=packed.device)
-    with matmul_precision(config.resolved_orgqr_precision()):
-        for i0, i1 in reversed(_groups(k, config.apply_aggregate, config.scan_stages)):
-            r0 = i0 * nb
-            c0 = min(r0, n)
-            V, T = _group_reflector(factors, i0, i1, nb, cdt)
-            Q[r0:, c0:] = larfb(Q[r0:, c0:], V, T, transpose=False)
+    prec = config.resolved_orgqr_precision()
+    for i0, i1 in reversed(_groups(k, config.apply_aggregate, config.scan_stages)):
+        r0 = i0 * nb
+        c0 = min(r0, n)
+        V, T = _group_reflector(factors, i0, i1, nb, cdt, prec)
+        Q[r0:, c0:] = larfb(Q[r0:, c0:], V, T, transpose=False, precision=prec)
     return Q[:m].to(packed.dtype)
 
 
@@ -249,11 +254,11 @@ def ormqr(factors: PackedQR, B, transpose: bool = True,
     Bp = torch.zeros((m_pad, B.shape[1]), dtype=cdt, device=packed.device)
     Bp[:mB] = B.to(packed.device, cdt)
     groups = _groups(k, config.apply_aggregate, config.scan_stages)
-    with matmul_precision(config.resolved_orgqr_precision()):
-        for i0, i1 in (groups if transpose else reversed(groups)):
-            r0 = i0 * nb
-            V, T = _group_reflector(factors, i0, i1, nb, cdt)
-            Bp[r0:] = larfb(Bp[r0:], V, T, transpose=transpose)
+    prec = config.resolved_orgqr_precision()
+    for i0, i1 in (groups if transpose else reversed(groups)):
+        r0 = i0 * nb
+        V, T = _group_reflector(factors, i0, i1, nb, cdt, prec)
+        Bp[r0:] = larfb(Bp[r0:], V, T, transpose=transpose, precision=prec)
     return Bp[:mB].to(packed.dtype)
 
 

@@ -17,13 +17,19 @@ complex input can reach is the conjugate one (``.mH``, ``.conj()``), which
 for a real tensor is the plain transpose (the same view), so real results
 are unchanged bit for bit.
 
-GEMM precision is not an argument here: callers set it around the calls
-(``utils.config.matmul_precision``).
+GEMM precision: ``larfb`` and ``merge_wy`` take ``precision=`` (a string
+of ``ops/gemm.py``, "high" included), as the reference's do; None, the
+default, and every other function here run under the flag the caller set
+around the call (``utils.config.matmul_precision``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from .gemm import gemm
 
 
 def vecmat(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -171,20 +177,25 @@ def panel_larft(V: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     return larft(V, tau, torch.float64 if V.dtype == torch.float32 else None)
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, precision: Optional[str]) -> torch.Tensor:
+    """a @ b at ``precision``, or under the caller's flag for None."""
+    return a @ b if precision is None else gemm(a, b, precision)
+
+
 def larfb(B: torch.Tensor, V: torch.Tensor, T: torch.Tensor,
-          transpose: bool = True) -> torch.Tensor:
+          transpose: bool = True, precision: Optional[str] = None) -> torch.Tensor:
     """Q^H B (transpose=True) or Q B for Q = I - V T V^H (batch-aware):
-    B - V T^H (V^H B) or B - V T (V^H B)."""
-    W = V.mH @ B
-    W = (T.mH if transpose else T) @ W
-    return B - V @ W
+    B - V T^H (V^H B) or B - V T (V^H B), each product at ``precision``."""
+    W = _mm(V.mH, B, precision)
+    W = _mm(T.mH if transpose else T, W, precision)
+    return B - _mm(V, W, precision)
 
 
 def merge_wy(V1: torch.Tensor, T1: torch.Tensor, V2: torch.Tensor,
-             T2: torch.Tensor) -> torch.Tensor:
+             T2: torch.Tensor, precision: Optional[str] = None) -> torch.Tensor:
     """T of (I - V1 T1 V1^H)(I - V2 T2 V2^H) = I - [V1 V2] T [V1 V2]^H:
-        T = [[T1, -T1 (V1^H V2) T2], [0, T2]]."""
-    T12 = -(T1 @ ((V1.mH @ V2) @ T2))
+        T = [[T1, -T1 (V1^H V2) T2], [0, T2]], each product at ``precision``."""
+    T12 = -_mm(T1, _mm(_mm(V1.mH, V2, precision), T2, precision), precision)
     z = torch.zeros((T2.shape[0], T1.shape[0]), dtype=T1.dtype, device=T1.device)
     return torch.cat([torch.cat([T1, T12], 1), torch.cat([z, T2], 1)], 0)
 

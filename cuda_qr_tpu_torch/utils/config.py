@@ -6,12 +6,18 @@ XLA/Mosaic compile size or the TPU's VMEM (``driver``, ``stage_schedule``,
 ``interpret``, ``max_vmem_panel_rows``) have no counterpart.
 ``scan_stages`` is kept for the panel grouping it sets.
 
-Precision.  The reference's ``jax.lax.Precision`` becomes a string:
+Precision.  The reference's ``jax.lax.Precision`` becomes a string
+(``ops/gemm.py`` computes each on the card):
   "highest": float32 GEMMs in full float32 (TF32 off) -- Precision.HIGHEST;
-  "tf32":    TF32 tensor-core GEMMs (10-bit mantissa inputs).  TF32 is NOT
-             the TPU's bf16x3 ``HIGH`` (~24 bits): no accuracy certificate
-             carries over from the reference's MIXED mode.
-float64 GEMMs are unaffected by either value.
+  "tf32":    one TF32 tensor-core pass (10 explicit mantissa bits in) --
+             the nearest counterpart of Precision.DEFAULT;
+  "high":    3xTF32, three TF32 passes on operands split as hi + lo -- the
+             counterpart of Precision.HIGH (bf16x3 on the TPU).  Its error
+             beyond float32's is the rounding of lo, ~2^-22 |x|.  Only
+             ``trailing_precision`` and ``orgqr_precision`` take it: the
+             panels (``precision``) run under ``matmul_precision``, which
+             sets one flag and cannot express three passes.
+float64 and complex GEMMs run with TF32 off whatever the value.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from typing import Optional
 
 import torch
 
-PRECISIONS = ("highest", "tf32")
+PRECISIONS = ("highest", "tf32", "high")
+PANEL_PRECISIONS = ("highest", "tf32")
 TSQR_LEAVES = ("householder", "cholqr2")
 
 
@@ -90,7 +97,11 @@ class QRConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        for name in ("precision", "trailing_precision", "orgqr_precision"):
+        if self.precision not in PANEL_PRECISIONS:
+            raise ValueError(f"precision={self.precision!r}; expected one of "
+                             f"{PANEL_PRECISIONS} (\"high\" is for trailing_precision "
+                             f"and orgqr_precision only)")
+        for name in ("trailing_precision", "orgqr_precision"):
             value = getattr(self, name)
             if value is not None and value not in PRECISIONS:
                 raise ValueError(f"{name}={value!r}; expected one of {PRECISIONS}")
@@ -114,8 +125,12 @@ def matmul_precision(precision: str):
     """Set float32 GEMM precision for the enclosed GEMMs and restore it after.
 
     The flag is process-global in PyTorch, so it is set around exactly the
-    GEMMs that asked for it and never left changed.
+    GEMMs that asked for it and never left changed.  "high" (3xTF32) is not
+    one flag: it goes through ``ops.gemm.gemm``.
     """
+    if precision not in PANEL_PRECISIONS:
+        raise ValueError(f"matmul_precision({precision!r}); expected one of "
+                         f"{PANEL_PRECISIONS} (\"high\" runs through ops.gemm.gemm)")
     flags = torch.backends.cuda.matmul
     saved = flags.allow_tf32
     flags.allow_tf32 = precision == "tf32"
@@ -127,10 +142,12 @@ def matmul_precision(precision: str):
 
 DEFAULT_CONFIG = QRConfig()
 
-# qr_blocked's trailing-update GEMMs in TF32, panels and orgqr in full
-# float32 (QRCP stays at ``precision`` throughout): the
-# counterpart of the reference's MIXED_CONFIG (trailing bf16x3).  orgqr stays
-# full precision for the reference's reason: every panel application adds a
-# rounded term directly into Q.  Whether TF32 keeps the n*eps residual gate
-# at 8192^2 is measured on the card (PERF.md), not inherited.
-MIXED_CONFIG = QRConfig(trailing_precision="tf32")
+# qr_blocked's trailing-update GEMMs (and the two full-height GEMMs of the
+# direct cholqr2 TSQR) at "high", 3xTF32; panels and orgqr in full float32
+# (QRCP stays at ``precision`` throughout): the counterpart of the
+# reference's MIXED_CONFIG (trailing bf16x3).  orgqr stays full precision for
+# the reference's reason: every panel application adds a rounded term
+# directly into Q.  One TF32 pass (trailing_precision="tf32") is not this
+# mode: its residual stays near 7e-4 at every n, over the n*eps gate below
+# n ~ 6,000 (PERF.md).
+MIXED_CONFIG = QRConfig(trailing_precision="high")

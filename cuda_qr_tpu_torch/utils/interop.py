@@ -16,10 +16,9 @@ import torch
 from ..ops.blocked import PackedQR
 from .config import DEFAULT_CONFIG, QRConfig
 
-# jax.lax.Precision name -> this package's precision string.  DEFAULT and
-# HIGH are the reduced-precision MXU modes; their nearest counterpart on the
-# card is TF32 (which is not bitwise or accuracy-equivalent).
-_PRECISION = {"HIGHEST": "highest", "HIGH": "tf32", "DEFAULT": "tf32"}
+# jax.lax.Precision name -> this package's precision string: HIGH (bf16x3)
+# -> "high" (3xTF32), DEFAULT (one bf16 pass) -> "tf32" (one TF32 pass).
+_PRECISION = {"HIGHEST": "highest", "HIGH": "high", "DEFAULT": "tf32"}
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -46,7 +45,9 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
     """This package's QRConfig from a ``cuda_qr_tpu.QRConfig``.
 
     Carried over: panel_width, panel_base, dtype, precision,
-    trailing_precision, orgqr_precision, use_pallas (as use_kernels),
+    trailing_precision, orgqr_precision (HIGH as "high", 3xTF32; a
+    ``precision`` of HIGH raises QRConfig's ValueError: the panels take
+    "highest" or "tf32" only), use_pallas (as use_kernels),
     panel_method, apply_aggregate, factor_lookahead, scan_stages (it sets
     the panel grouping), use_chol_kernel, use_select_kernel, block_rows,
     tsqr_leaf.

@@ -82,8 +82,8 @@ def qr_metrics(A, Q, R):
 
 # -- cases: each maps a seed to (reference metrics, port metrics)
 
-def case_qr(method, k):
-    rcfg = ref_config(method)
+def case_qr(method, k, trailing_precision=None):
+    rcfg = ref_config(method, trailing_precision=trailing_precision)
     cfg = port_config(rcfg)
 
     def run(seed):
@@ -185,6 +185,9 @@ def case_qr_batched():
 
 CASES = {
     **{f"qr-{method}-k{k}": (case_qr, method, k) for method in METHODS for k in (2, 4, 8)},
+    # MIXED_CONFIG's panels and trailing precision: the reference's HIGH,
+    # the port's "high" (3xTF32; three float32 passes on the CPU)
+    "qr-mixed-k4": (case_qr, "cholqr2_bk", 4, jax.lax.Precision.HIGH),
     **{f"orgqr-carried-k{k}": (case_orgqr, k) for k in (2, 4, 8)},
     "lstsq-k4": (case_lstsq, 4),
     **{f"{name}-k4": (case_decomp, name, 4) for name in ("lq", "rq", "ql")},

@@ -223,17 +223,20 @@ def test_slogdet_rejects_complex():
 
 def test_complex_config_leaves_no_tf32():
     """C3: cuBLAS's TF32 mode reaches complex64 GEMMs, so every GEMM of a
-    complex input runs at "highest" whatever the configuration says; real
-    MIXED_CONFIG keeps its TF32 trailing update."""
+    complex input runs at "highest" whatever the configuration says ("tf32"
+    and MIXED_CONFIG's "high" alike); real MIXED_CONFIG keeps its 3xTF32
+    trailing update."""
     A = torch.zeros((8, 4), dtype=torch.complex64)
-    for base in (ct.MIXED_CONFIG, ct.QRConfig(precision="tf32", orgqr_precision="tf32")):
+    for base in (ct.MIXED_CONFIG, ct.QRConfig(precision="tf32", orgqr_precision="tf32"),
+                 ct.QRConfig(trailing_precision="tf32", orgqr_precision="high")):
         cfg = blocked.complex_config(A, base)
-        assert "tf32" not in (cfg.precision, cfg.trailing_precision, cfg.orgqr_precision)
-        assert "tf32" not in (cfg.resolved_trailing_precision(), cfg.resolved_orgqr_precision())
+        precisions = (cfg.precision, cfg.trailing_precision, cfg.orgqr_precision,
+                      cfg.resolved_trailing_precision(), cfg.resolved_orgqr_precision())
+        assert set(precisions) <= {"highest", None}
         assert cfg.dtype == torch.complex64 and not cfg.use_kernels
         assert not cfg.use_chol_kernel and not cfg.use_select_kernel
     real = blocked.complex_config(A.real, ct.MIXED_CONFIG)
-    assert real is ct.MIXED_CONFIG and real.resolved_trailing_precision() == "tf32"
+    assert real is ct.MIXED_CONFIG and real.resolved_trailing_precision() == "high"
 
 
 # -- the Givens updates: the same chains as the reference (clartg rotations)

@@ -208,7 +208,7 @@ def test_select_kernel_ties_and_rejects(dev):
 
 def test_qrcp_mixed_config_equals_default(dev):
     """QRCP runs every GEMM at ``precision``, as the reference does, so
-    MIXED_CONFIG (trailing TF32 in qr_blocked) gives the same pivots and the
+    MIXED_CONFIG (trailing 3xTF32 in qr_blocked) gives the same pivots and the
     same packed factors as DEFAULT_CONFIG: nothing in the panel reads the
     trailing precision."""
     A = torch.from_numpy(np.random.default_rng(12).standard_normal(
@@ -445,9 +445,10 @@ def test_kernel_wrappers_raise_on_complex(dev, name):
 
 def test_complex_mixed_config_passes_the_residual_gate(dev):
     """C3: complex_config runs every GEMM of a complex input at "highest", so
-    MIXED_CONFIG's TF32 trailing update does not reach a complex64 qr; at
-    4096^2 it read residual 7.194e-04 against the n eps gate of 4.883e-04
-    before the repair (H100 80GB HBM3, 700 W)."""
+    MIXED_CONFIG's trailing update (3xTF32 on real input; one TF32 pass
+    before C9's repair) does not reach a complex64 qr; at 4096^2 the TF32
+    pass read residual 7.194e-04 against the n eps gate of 4.883e-04 before
+    C3's repair (H100 80GB HBM3, 700 W)."""
     g = torch.Generator(device=dev).manual_seed(73)
     A = torch.randn(4096, 4096, generator=g, dtype=torch.complex64, device=dev)
     before = _launch_counts()
@@ -504,3 +505,32 @@ def test_cli_factor_on_the_card(dev, capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["cmd"] == "factor" and rec["ok"] is True
     assert chol_with_inv_kernel.launches > before
+
+
+def test_gemm_high_on_the_card(dev):
+    """C9: "high" is 3xTF32.  Normwise error ||C - C64||_F / (||A||_F ||B||_F)
+    at the 8192^2 factor's trailing product V^H rest (K = 8192) and V W
+    (K = 128): "high" within 16x "highest"'s and under 1/100 of "tf32"'s,
+    and "tf32" at least 50x "highest"'s (TF32 was on in the passes)."""
+    from cuda_qr_tpu_torch.ops.gemm import gemm
+    g = torch.Generator(device=dev).manual_seed(12)
+    for m, k, n in ((128, 8192, 2048), (8192, 128, 2048)):
+        A = torch.randn(m, k, generator=g, device=dev)
+        B = torch.randn(k, n, generator=g, device=dev)
+        C64 = A.double() @ B.double()
+        scale = float(A.double().norm() * B.double().norm())
+        err = {p: float((gemm(A, B, p).double() - C64).norm()) / scale
+               for p in ("highest", "tf32", "high")}
+        assert err["high"] <= 16 * err["highest"] and err["high"] <= err["tf32"] / 100, err
+        assert err["tf32"] >= 50 * err["highest"], err
+
+
+def test_mixed_config_keeps_the_residual_certificate(dev):
+    """C9: MIXED_CONFIG at 2048^2 has residual < n eps / 10 (one TF32 pass
+    read ~7e-4 at every n, over n eps = 2.441e-04 here)."""
+    n = 2048
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    f = ct.qr_blocked(A, ct.MIXED_CONFIG)
+    chk = ct.check_qr_device(A, ct.orgqr(f, n, n, ct.MIXED_CONFIG), ct.extract_r(f, n))
+    assert chk.residual < n * chk.eps / 10 and chk.ok, chk
