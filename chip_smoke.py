@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed]
+    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
@@ -31,7 +31,9 @@ sharing the card over gloo when there is one card: ``tsqr_dist`` at
 against the single-device function on the same input, and ``caqr`` on one
 rank over NCCL), the command line (``cli.main`` in process for every
 command, at full width for factor, compare, tsqr, pivoted, lstsq, batched
-and the oracle, then one ``python -m cuda_qr_tpu_torch``), complex QR
+and the oracle, then one ``python -m cuda_qr_tpu_torch``), the headline
+record (``python -m cuda_qr_tpu_torch.bench`` in a process of its own, its
+four gates held), complex QR
 (complex64/128 ``qr`` in every mode and at MIXED_CONFIG, ``lstsq``, ``lq``,
 ``tsqr``/``tsqr_r``) and the rest of complex input (``qr_pivoted`` at
 8,192^2, the rank solvers, the six Givens updates, ``rsvd``/``orth``,
@@ -57,9 +59,9 @@ the main-path run, errors against the plain versions, times); the last line
 is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
-factor alone, MIXED_CONFIG's phase) and ends with the same last line,
-"only" added.  Run from another checkout's root, a copy of this script with
-``--only factor`` times that checkout's factor.
+factor alone, MIXED_CONFIG's phase, the headline record) and ends with
+the same last line, "only" added.  Run from another checkout's root, a
+copy of this script with ``--only factor`` times that checkout's factor.
 """
 
 from __future__ import annotations
@@ -2577,6 +2579,25 @@ def phase_complex_rest(torch, ct, dev, smi):
     return total
 
 
+def phase_bench(torch, smi):
+    """The headline record, ``python -m cuda_qr_tpu_torch.bench`` in a
+    process of its own (8192^2 MIXED and HIGHEST factors, Q+R, the geqrt
+    kernel, bfloat16 end to end): rc 0 and every gate of its last JSON line
+    true."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cuda_qr_tpu_torch.bench"], cwd=HERE,
+                          capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if lines else {}
+    say(f"bench (python -m cuda_qr_tpu_torch.bench): rc {proc.returncode}, "
+        f"{time.perf_counter() - t0:.3f} s ({smi}):")
+    say(json.dumps(rec))
+    require(proc.returncode == 0, f"bench: rc {proc.returncode}\n{proc.stderr[-4000:]}")
+    for key in ("verified_ok", "highest_ok", "geqrt_kernel_ok", "bf16_ok"):
+        require(rec.get(key) is True, f"bench: {key} is {rec.get(key)!r}")
+
+
 def gate(name, chk) -> None:
     say(f"{name}: residual {chk.residual:.3e} (< {chk.n * chk.eps:.3e}), "
         f"orthogonality {chk.orthogonality:.3e} (< {4 * chk.n * chk.eps:.3e}), "
@@ -2586,7 +2607,8 @@ def gate(name, chk) -> None:
 
 
 # phases that ``--only`` can run alone
-STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed")
+STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed",
+              "bench")
 
 
 def main(argv=None) -> int:
@@ -2631,6 +2653,8 @@ def main(argv=None) -> int:
             phase_factor(torch, np, ct, dev, smi)
         if "mixed" in only:
             phase_mixed_precision(torch, np, ct, dev, smi)
+        if "bench" in only:
+            phase_bench(torch, smi)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2747,6 +2771,8 @@ def main(argv=None) -> int:
     # ---- the command line (in process, then one subprocess) and complex QR
     say("command line (python -m cuda_qr_tpu_torch), in process:")
     by_path["cli"] = phase_cli(torch, np, ct, dev, smi)
+    say("the headline record:")
+    phase_bench(torch, smi)
     say("complex QR (Householder family; no kernel):")
     by_path["complex"] = phase_complex(torch, ct, dev, smi)
     say("the rest of complex input (pivoted QR, rank solvers, updates, spectral; no kernel):")

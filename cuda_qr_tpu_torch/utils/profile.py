@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -40,6 +39,7 @@ from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
+from cuda_qr_tpu_torch.utils.timing import card_name
 
 # The port's kernels: the names their device events carry, and the wrappers
 # whose launch counters they answer to.
@@ -141,8 +141,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = card_name()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     A = torch.from_numpy(np.random.default_rng(12).standard_normal(

@@ -1,4 +1,5 @@
-"""FLOP count, a CUDA-event timer, and the CLI's benchmark harness.
+"""FLOP count, a CUDA-event timer, the benchmark harness of the CLI and the
+headline record, and the card's name beside which their times are kept.
 
 The reference's harness (``cuda_qr_tpu/utils/timing.py``) forced completion
 by fetching a scalar and subtracted a host<->device round trip of a remote
@@ -9,6 +10,7 @@ here read CUDA events around a run of calls and have no correction term.
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import time
 from typing import Any, Callable
 
@@ -18,6 +20,14 @@ import torch
 def qr_flops(m: int, n: int) -> float:
     """2mn^2 - (2/3)n^3, the convention of the reference's numbers."""
     return 2.0 * m * n * n - (2.0 / 3.0) * n ** 3
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them: a time is
+    kept beside them, since a card set below its full power runs slower."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2) -> float:
@@ -55,15 +65,21 @@ class BenchResult:
         return self.flops / self.steady_s / 1e9
 
 
+def _on_cuda(a) -> bool:
+    if isinstance(a, (tuple, list)):
+        return any(_on_cuda(x) for x in a)
+    return isinstance(a, torch.Tensor) and a.is_cuda
+
+
 def bench(fn: Callable[..., Any], *args, reps: int = 3,
           flops: float | None = None) -> BenchResult:
     """Time ``fn(*args)``: the first call by the host clock around a
     synchronized call (any kernel build and load included), then the mean of
     ``reps`` steady calls after one untimed call, by CUDA events
-    (``cuda_time_ms``) when a tensor argument (a DTensor too) is on a CUDA
-    device, and by ``time.perf_counter`` only when the caller's tensors are
-    on the CPU."""
-    cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    (``cuda_time_ms``) when a tensor argument (a DTensor too, or a tensor
+    in a tuple such as ``PackedQR``) is on a CUDA device, and by
+    ``time.perf_counter`` only when the caller's tensors are on the CPU."""
+    cuda = any(_on_cuda(a) for a in args)
 
     def sync():
         if cuda:

@@ -18,6 +18,8 @@ from cuda_qr_tpu.models.batched import qr_batched as ref_qr_batched
 from cuda_qr_tpu_torch.models import batched as port
 from cuda_qr_tpu_torch.ops import smalllinalg
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOLS = {np.float64: 1e-10, np.float32: 1e-4}
 CPU = ct.QRConfig(device="cpu")
 

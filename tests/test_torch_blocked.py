@@ -16,6 +16,8 @@ from cuda_qr_tpu_torch import check_qr, extract_r, orgqr, ormqr, qr_blocked
 from cuda_qr_tpu_torch.utils.config import MIXED_CONFIG, QRConfig
 from cuda_qr_tpu_torch.utils.interop import config_from_reference, packed_from_numpy
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 METHODS = ["cholqr2_bk", "cholqr2_hr", "geqrt", "geqr2"]
 DTYPES = {"f64": (np.float64, jnp.float64, 1e-10), "f32": (np.float32, jnp.float32, 1e-4)}
 

@@ -10,6 +10,8 @@ import pytest
 from cuda_qr_tpu_torch.ops import _build
 from cuda_qr_tpu_torch.utils.profile import _busy_us
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 def test_one_library_per_source_named_by_its_hash():
     paths = [_build.library_path(src) for src in _build._sources()]

@@ -31,6 +31,8 @@ from cuda_qr_tpu_torch.parallel.launch import MESH, call_many, run_ranks
 from cuda_qr_tpu_torch.utils.checkpoint import load_state, save_state
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOLS = {np.float64: 1e-10, np.float32: 1e-4}
 RCFG = RefConfig(panel_width=8, dtype=jnp.float64, use_pallas=False)
 RCFG32 = RefConfig(panel_width=8, dtype=jnp.float32, use_pallas=False)

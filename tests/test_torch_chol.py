@@ -16,6 +16,8 @@ from cuda_qr_tpu.ops import pallas_chol
 from cuda_qr_tpu_torch.ops import chol_kernel
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel, supported
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOL32 = 1e-5
 
 

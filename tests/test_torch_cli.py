@@ -27,6 +27,8 @@ import torch
 from cuda_qr_tpu import cli as ref_cli
 from cuda_qr_tpu_torch import cli
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--platform", "cpu"]
 EPS = {"f32": float(np.finfo(np.float32).eps), "f64": float(np.finfo(np.float64).eps)}

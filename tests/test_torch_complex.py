@@ -34,6 +34,8 @@ from cuda_qr_tpu_torch.models import tsqr as tsqr_mod
 from cuda_qr_tpu_torch.ops import householder as hh
 from cuda_qr_tpu_torch.parallel.launch import MESH, call_many, run_ranks
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 DTYPES = [np.complex64, np.complex128]
 TOL_REFL = {np.complex64: 1e-6, np.complex128: 1e-13}
 TOL_FAC = {np.complex64: 1e-5, np.complex128: 1e-12}

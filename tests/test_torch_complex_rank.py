@@ -37,6 +37,8 @@ from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_plain
 from cuda_qr_tpu_torch.utils.geometry import round_up
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOL = {np.complex64: 1e-4, np.complex128: 1e-10}
 RCFG = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)
 CFG = config_from_reference(RCFG, device="cpu")

@@ -39,6 +39,8 @@ from cuda_qr_tpu_torch.models import polar as pp
 from cuda_qr_tpu_torch.models import rsvd as pr
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 RCFG = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)
 CFG = config_from_reference(RCFG, device="cpu")
 TOL = {np.complex64: 1e-4, np.complex128: 1e-10}

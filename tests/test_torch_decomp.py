@@ -17,6 +17,8 @@ import cuda_qr_tpu as ref
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 RCFG = ref.QRConfig(panel_width=16, dtype=jnp.float64, use_pallas=False, scan_stages=1)
 CFG = config_from_reference(RCFG, device="cpu")
 SHAPES = [(48, 48), (96, 40), (40, 96), (130, 50)]

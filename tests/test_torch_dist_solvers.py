@@ -35,6 +35,8 @@ from cuda_qr_tpu_torch.parallel.dryrun import dryrun_multichip
 from cuda_qr_tpu_torch.parallel.launch import MESH, call_many, run_ranks
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 EPS = float(np.finfo(np.float32).eps)
 RCFG = RefConfig(dtype=jnp.float32, panel_width=8, use_pallas=False)
 RCFG16 = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)

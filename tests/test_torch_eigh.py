@@ -29,6 +29,8 @@ from cuda_qr_tpu_torch.models import eigh as pe
 from cuda_qr_tpu_torch.ops import smalllinalg
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 RCFG = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)
 CFG = config_from_reference(RCFG, device="cpu")
 RCFG64 = RefConfig(dtype=jnp.float64, panel_width=16, scan_stages=2)

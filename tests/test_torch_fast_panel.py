@@ -20,6 +20,8 @@ from cuda_qr_tpu_torch.ops import smalllinalg
 from cuda_qr_tpu_torch.ops.householder import geqr2
 from cuda_qr_tpu_torch.utils.config import QRConfig
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 CASES = {"f64": (np.float64, 1e-10), "f32": (np.float32, 1e-4)}
 
 

@@ -19,6 +19,8 @@ from cuda_qr_tpu_torch.ops import geqrt as port
 from cuda_qr_tpu_torch.ops.householder import geqr2, larft, unpack_v
 from cuda_qr_tpu_torch.utils.config import QRConfig
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 REF = RefConfig(use_pallas=True, interpret=True)
 
 

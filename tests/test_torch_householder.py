@@ -13,6 +13,8 @@ import torch
 from cuda_qr_tpu.ops import householder as ref
 from cuda_qr_tpu_torch.ops import householder as port
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOL = 1e-12
 
 

@@ -25,6 +25,8 @@ from cuda_qr_tpu_torch import QRConfig, extract_r, qr_blocked
 from cuda_qr_tpu_torch.oracle import binding
 from cuda_qr_tpu_torch.utils.geometry import PanelGrid
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 # Printed by the source paper's host oracle (qr.c:302) for its fixed 6x4 problem.
 REFERENCE_TAUS_6x4 = [1.105875, 1.437911, 1.556454, 1.382508,
                       1.629178, 1.088601, 2.000000, 2.000000]

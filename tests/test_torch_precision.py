@@ -24,6 +24,8 @@ from cuda_qr_tpu_torch.ops import gemm as gemm_mod
 from cuda_qr_tpu_torch.ops.gemm import gemm, split_tf32
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 EPS = float(np.finfo(np.float32).eps)
 RATIO = 1.1        # MIXED's residual and orthogonality over DEFAULT's, geometric mean
 # The cholqr2 TSQR's Q pass (Q = A R^-1, K = n = 64) is set by how its

@@ -20,6 +20,8 @@ import cuda_qr_tpu as ref
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.utils.config import matmul_precision
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 RCFG = ref.QRConfig(dtype=jnp.float64, panel_width=32, scan_stages=1)
 CFG = ct.QRConfig(dtype=torch.float64, panel_width=32, device="cpu")
 TOL = 1e-10

@@ -27,6 +27,8 @@ from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
 from cuda_qr_tpu_torch.utils.geometry import round_up
 from cuda_qr_tpu_torch.utils.interop import config_from_reference, packed_from_numpy
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 EPS32 = float(np.finfo(np.float32).eps)
 
 

@@ -23,6 +23,8 @@ from cuda_qr_tpu_torch import (QRShapeError, lstsq, lstsq_rr, matrix_rank, null_
                                slogdet, solve)
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 RCFG = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)
 CFG = config_from_reference(RCFG, device="cpu")
 RCFG64 = RefConfig(panel_width=16, dtype=jnp.float64, use_pallas=False)

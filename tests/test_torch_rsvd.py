@@ -24,6 +24,8 @@ from cuda_qr_tpu_torch import (QRShapeError, cond_est, eigh_rand, norm2_est, ort
 from cuda_qr_tpu_torch.models import rsvd as pr
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 RCFG = RefConfig(dtype=jnp.float32, panel_width=16, scan_stages=2)
 CFG = config_from_reference(RCFG, device="cpu")
 EPS = float(np.finfo(np.float32).eps)

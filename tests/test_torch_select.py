@@ -22,6 +22,8 @@ from cuda_qr_tpu_torch.ops.select_kernel import (in_kernel_range, select_pivots_
                                                  select_pivots_plain, selection_margin,
                                                  supported)
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 _H = jax.lax.Precision.HIGHEST
 
 

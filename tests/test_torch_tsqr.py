@@ -21,6 +21,8 @@ from cuda_qr_tpu_torch.ops import smalllinalg
 from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOLS = {np.float64: 1e-10, np.float32: 1e-4}
 ref_tree = jax.jit(ref._tsqr_tree, static_argnums=1)
 

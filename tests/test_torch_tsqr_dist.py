@@ -25,6 +25,8 @@ from cuda_qr_tpu_torch import check_qr, tsqr_dist
 from cuda_qr_tpu_torch.parallel.launch import MESH, call_many, run_ranks
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOLS = {np.float64: 1e-10, np.float32: 1e-4}
 STRATEGIES = ("allgather", "butterfly", "cholesky")
 RCFG = RefConfig(block_rows=64, dtype=jnp.float64, use_pallas=False)

@@ -19,6 +19,8 @@ from cuda_qr_tpu.models import update as ref
 from cuda_qr_tpu_torch.models import scipy_compat as sc
 from cuda_qr_tpu_torch.ops import smalllinalg
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 TOLS = {np.float64: 1e-10, np.float32: 1e-4}
 
 

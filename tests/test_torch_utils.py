@@ -22,6 +22,8 @@ from cuda_qr_tpu_torch.utils import debug, geometry, hostio, profiling
 from cuda_qr_tpu_torch.utils.errors import QRNumericalError
 from cuda_qr_tpu_torch.utils.timing import BenchResult, bench
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 @pytest.mark.parametrize("shape,max_dim,name", [((3, 4), 16, "A"), ((20, 20), 4, "B"),
                                                 ((5, 30), 8, ""), ((30, 2), 6, "C")])

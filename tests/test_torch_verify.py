@@ -13,6 +13,8 @@ import torch
 from cuda_qr_tpu.utils import verify as rverify
 from cuda_qr_tpu_torch import check_qr, check_qr_device
 
+from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
+
 
 def _factorization(rng, dtype, m=40, n=10):
     A = rng.standard_normal((m, n))
