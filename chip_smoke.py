@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench]
+    python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench,
+                                  stages]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
@@ -13,7 +14,9 @@ rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
 the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
 ``qr_multiply`` in float64, the QR updates on an 8192 x 1024 thin QR,
 orgqr's panel groups (the reference's stages) at 512^2 and 1024^2 on both
-kernels' panels, MIXED_CONFIG's 3xTF32 trailing update (its GEMMs against
+kernels' panels, the reference's panel-grouping ladder at 8192^2 (its
+stage counts, tuned stage schedules and unrolled driver, each timed and
+gated, and ``--stage-schedule`` on the command line), MIXED_CONFIG's 3xTF32 trailing update (its GEMMs against
 float64 beside "highest" and one TF32 pass, the factor's residual and
 orthogonality at 2,048^2-16,384^2 against DEFAULT_CONFIG's, and the
 command line's ``--mixed``), and the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
@@ -59,7 +62,8 @@ the main-path run, errors against the plain versions, times); the last line
 is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
-factor alone, MIXED_CONFIG's phase, the headline record) and ends with
+factor alone, MIXED_CONFIG's phase, the headline record, the grouping
+ladder) and ends with
 the same last line, "only" added.  Run from another checkout's root, a
 copy of this script with ``--only factor`` times that checkout's factor.
 """
@@ -155,6 +159,21 @@ N_NCCL = 8192
 DIST_JOIN_S = 700
 # The command line (PR 8), in process: (argv, kernels each call must launch).
 # Full width first; then every other command once at a size of seconds.
+# The reference's panel-grouping ladder at 8192^2 (nb 128: 64 panels), each
+# row a DEFAULT_CONFIG change: its default stages, the two headline
+# groupings (bench.py), its tuned schedules (benchmarks/sweep_r4c.py) and
+# its unrolled driver as config_from_reference maps it (factor_lookahead=1).
+TAIL8X2 = (2,) * 24 + (8,) * 2
+PROG248 = (2,) * 16 + (4,) * 4 + (8,) * 2
+STAGE_LADDER = (("s4_g4", {"scan_stages": 4, "factor_lookahead": 4}),
+                ("s16_g4", {"scan_stages": 16, "factor_lookahead": 4}),
+                ("s32_g4", {"scan_stages": 32, "factor_lookahead": 4}),
+                ("tail8x2_g8", {"stage_schedule": TAIL8X2, "factor_lookahead": 8}),
+                ("prog248_g8", {"stage_schedule": PROG248, "factor_lookahead": 8}),
+                ("unrolled", {"factor_lookahead": 1}))
+STAGE_REPS = 10     # timed factor calls a row, after one warm-up, in rounds
+STAGES_CLI = ["--stage-schedule", ",".join(map(str, TAIL8X2)), "factor", str(N_MAIN),
+              str(N_MAIN)]
 CLI_TRIALS = 3
 CLI_FULL = ((["factor", "8192", "8192"], ("chol_inv",)),
             (["--mixed", "factor", "8192", "8192"], ("chol_inv",)),
@@ -1119,6 +1138,89 @@ def phase_factor(torch, np, ct, dev, smi):
     t_fac, syncs, t_qr = factor_timings(torch, ct, A)
     say(f"factor phase ({HERE.name}) on {smi}: factor {N_MAIN}^2 f32 {t_fac:.2f} ms, "
         f"{syncs} host syncs; factor + orgqr {t_qr:.2f} ms")
+
+
+def event_call_ms(torch, fn) -> float:
+    """Device ms of one call of ``fn`` between its own CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_stages(torch, np, ct, dev, smi):
+    """The reference's panel-grouping ladder on phase_factor's N_MAIN^2
+    float32 input at DEFAULT_CONFIG's precisions: for each row of
+    STAGE_LADDER, its B1 launches (one a panel at least) and host syncs,
+    the gates, factor + orgqr ms, and the factor's median and min-max ms
+    over STAGE_REPS calls after one warm-up, timed in rounds that take every
+    row in turn (the host's speed drifts within a call), and the mean of
+    STAGE_REPS chained calls between one event pair (``cuda_time_ms``, the
+    CLI's and the headline's timer); then the command line's
+    ``--stage-schedule`` factor.  Times are printed, not gated.
+    Returns this path's counts."""
+    import contextlib
+    import io
+    import statistics
+    from cuda_qr_tpu_torch import cli
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms, qr_flops
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (N_MAIN, N_MAIN), dtype=np.float32)).to(dev)
+    panels = N_MAIN // ct.DEFAULT_CONFIG.panel_width
+    total, rows, factors = {}, [], []
+    for name, knobs in STAGE_LADDER:
+        cfg = ct.DEFAULT_CONFIG.replace(**knobs)
+        fac, c, _ = run_counted(torch, lambda: ct.qr_blocked(A, cfg))
+        add_counts(total, c)
+        Q, R = ct.orgqr(fac, N_MAIN, N_MAIN, cfg), ct.extract_r(fac, N_MAIN)
+        del fac
+        chk = ct.check_qr_device(A, Q, R)
+        del Q, R
+
+        def factor_and_q():
+            f = ct.qr_blocked(A, cfg)
+            return ct.orgqr(f, N_MAIN, N_MAIN, cfg), ct.extract_r(f, N_MAIN)
+
+        t_qr = cuda_time_ms(factor_and_q, reps=3, warmup=1)
+        say(f"  {name} {knobs}: factor + orgqr {t_qr:.3f} ms; {counts_str(c)} ({smi})")
+        gate(f"  {name} {N_MAIN}^2 f32", chk)
+        require(c["chol_inv"] >= panels,
+                f"{name}: chol_inv launched {c['chol_inv']} times, expected >= {panels}")
+        rows.append({"name": name, **{k: v for k, v in knobs.items() if k != "stage_schedule"},
+                     "chol_inv": c["chol_inv"], "host_syncs": c["host_syncs"],
+                     "factor_orgqr_ms": round(t_qr, 3), "residual": chk.residual,
+                     "orthogonality": chk.orthogonality})
+        factors.append(lambda cfg=cfg: ct.qr_blocked(A, cfg))
+    times = [[] for _ in factors]
+    for fn in factors:                        # the warm-up
+        event_call_ms(torch, fn)
+    for r in range(STAGE_REPS):
+        for i in range(len(factors)):
+            j = (i + r) % len(factors)        # each round starts one row later
+            times[j].append(event_call_ms(torch, factors[j]))
+    for row, t, fn in zip(rows, times, factors):
+        med = statistics.median(t)
+        chained = cuda_time_ms(fn, reps=STAGE_REPS, warmup=0)
+        row.update(factor_ms_median=round(med, 3), factor_ms_min=round(min(t), 3),
+                   factor_ms_max=round(max(t), 3), factor_ms_chained=round(chained, 3),
+                   gflops=round(qr_flops(N_MAIN, N_MAIN) / med / 1e6, 1))
+        say(f"  {row['name']}: factor {N_MAIN}^2 f32 median {med:.3f} ms (min {min(t):.3f}, "
+            f"max {max(t):.3f}, {STAGE_REPS} calls), {row['gflops']} GFLOP/s; "
+            f"{STAGE_REPS} chained calls between one event pair {chained:.3f} ms a call ({smi})")
+    say(f"stages ladder on {smi}: {json.dumps(rows)}")
+    argv = ["--trials", str(CLI_TRIALS), *STAGES_CLI]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, c, sec = run_counted(torch, lambda: cli.main(argv))
+    add_counts(total, c)
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    say(f"  cli {' '.join(argv)}: rc {rc}, {json.dumps(rec)}; {counts_str(c)}; {sec:.3f} s "
+        f"({smi})")
+    require(rc == 0 and rec.get("ok") is True, f"cli {argv}: rc {rc}, record {rec}")
+    require(c["chol_inv"] > 0, f"cli {argv} launched no chol_inv kernel")
+    return total
 
 
 def phase_rsvd(torch, np, ct, cfg, dev, smi):
@@ -2608,7 +2710,7 @@ def gate(name, chk) -> None:
 
 # phases that ``--only`` can run alone
 STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed",
-              "bench")
+              "bench", "stages")
 
 
 def main(argv=None) -> int:
@@ -2655,6 +2757,8 @@ def main(argv=None) -> int:
             phase_mixed_precision(torch, np, ct, dev, smi)
         if "bench" in only:
             phase_bench(torch, smi)
+        if "stages" in only:
+            phase_stages(torch, np, ct, dev, smi)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2757,6 +2861,8 @@ def main(argv=None) -> int:
     phase_update(torch, np, ct, dev, smi)
     say("panel groups of orgqr (C5), k = 4 and 8:")
     orgqr_groups = phase_orgqr_groups(torch, np, ct, dev)
+    say("the reference's panel-grouping ladder (scan_stages, stage_schedule, unrolled):")
+    stages_counts = phase_stages(torch, np, ct, dev, smi)
     mixed_counts = phase_mixed_precision(torch, np, ct, dev, smi)
 
     # ---- the spectral family: randomized tools, QDWH polar and svd, QDWH-eig
@@ -2764,6 +2870,7 @@ def main(argv=None) -> int:
     by_path = {"qr, geqrt, qr_pivoted, tsqr": dict(launches),
                "orgqr_groups": orgqr_groups,
                "mixed": mixed_counts,
+               "stages": stages_counts,
                "rsvd": phase_rsvd(torch, np, ct, cfg, dev, smi),
                "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
                "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
@@ -2785,6 +2892,7 @@ def main(argv=None) -> int:
     for kernel in launches:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
     for name, needs in (("orgqr_groups", ("chol_inv", "geqrt")), ("mixed", ("chol_inv",)),
+                        ("stages", ("chol_inv",)),
                         ("rsvd", ("geqrt_batched", "select_pivots")),
                         ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",)),
                         ("dist", ("chol_inv", "geqrt", "geqrt_batched")),

@@ -41,8 +41,10 @@ in float64 on the result's device (``check_qr_device`` and the same
 formulas as the reference's host checks), so a check at 8192^2 on the card
 is no host product; on the CPU ``check_qr``.  Flags: ``--mixed`` is
 MIXED_CONFIG's 3xTF32 trailing update, ``--no-pallas`` is
-``use_kernels=False``; the reference's ``--stages``/``--stage-schedule``
-(compile-size knobs) have no counterpart.
+``use_kernels=False``, ``--stages`` is ``scan_stages`` and
+``--stage-schedule`` (comma-separated panels per stage, the factor's
+only; ``factor``/``tsqr``/``compare`` alone take it) is
+``stage_schedule``: both set the panel groups, so Q's rounding.
 """
 
 from __future__ import annotations
@@ -60,8 +62,12 @@ DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 def _config(args):
     from .utils.config import QRConfig
     extra = {}
+    if getattr(args, "stages", None) is not None:
+        extra["scan_stages"] = args.stages
     if getattr(args, "lookahead", None) is not None:
         extra["factor_lookahead"] = args.lookahead
+    if getattr(args, "stage_schedule", None):
+        extra["stage_schedule"] = tuple(int(x) for x in args.stage_schedule.split(","))
     if getattr(args, "mixed", False):
         extra["trailing_precision"] = "high"
     return QRConfig(dtype=DTYPES[args.dtype], use_kernels=not args.no_pallas,
@@ -641,8 +647,16 @@ def parser() -> argparse.ArgumentParser:
                         "passes on hi/lo-split operands), panels and orgqr in full "
                         "float32; the gates (resid < n*eps, orth < 4n*eps) stay on")
     p.add_argument("--tsqr-leaf", choices=["householder", "cholqr2"], default="householder")
+    p.add_argument("--stages", type=int, default=None,
+                   help="scan driver stages (QRConfig.scan_stages)")
     p.add_argument("--lookahead", type=int, default=None,
                    help="factor lookahead group width")
+    p.add_argument("--stage-schedule", type=str, default=None,
+                   help="comma-separated panels-per-stage (overrides --stages; must sum to "
+                        "the panel count), e.g. 2,2,2,8 -- see QRConfig.stage_schedule. Only "
+                        "applies to direct QR factorization subcommands "
+                        "(factor/tsqr/compare): composite solvers run internal QRs whose "
+                        "panel counts the schedule cannot match")
     sub = p.add_subparsers(dest="cmd", required=True)
     for name in ("factor", "tsqr", "compare"):
         sp = sub.add_parser(name)
@@ -718,6 +732,9 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     p = parser()
     args = p.parse_args(argv)
+    if args.stage_schedule and args.cmd not in ("factor", "tsqr", "compare"):
+        p.error("--stage-schedule only applies to the direct QR "
+                "factorization subcommands (factor/tsqr/compare)")
     for dim in ("m", "n", "k", "pr", "pc", "b"):
         if getattr(args, dim, 1) < 1:
             p.error(f"{dim} must be >= 1, got {getattr(args, dim)}")

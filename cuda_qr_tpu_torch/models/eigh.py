@@ -402,6 +402,10 @@ def eigh(A, config: QRConfig = DEFAULT_CONFIG, *, base_n: int = 128,
       divide and conquer's leaf size).
     bucket: direct-path (n <= base_n) Jacobi blocks are padded up to
       multiples of this (default min(base_n, 64)) with sentinel eigenvalues.
+
+    A ``config.stage_schedule`` is dropped, as the reference drops it
+    (``cuda_qr_tpu/models/eigh.py:671-672``): the divide and conquer runs
+    QRs of many panel counts, and no one schedule sums to all of them.
     """
     A = as_tensor(A, config)
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
@@ -411,7 +415,7 @@ def eigh(A, config: QRConfig = DEFAULT_CONFIG, *, base_n: int = 128,
     bucket = max(2, bucket + (bucket % 2))  # Jacobi pairs need even sizes
     if config.dtype != A.dtype:
         config = config.replace(dtype=A.dtype)
-    config = complex_config(A, config)
+    config = complex_config(A, config).replace(stage_schedule=None)
     for key in last_stats:
         last_stats[key] = 0
     A = (A + A.mH) * 0.5

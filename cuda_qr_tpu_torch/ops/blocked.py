@@ -4,10 +4,11 @@ Counterpart of ``cuda_qr_tpu/ops/blocked.py``, as a plain Python loop: the
 reference's staged scan, masked full-width loop body and nested-jit panel
 exist to bound XLA/Mosaic compile size, which eager PyTorch does not pay.
 Its stages also decide how panels are grouped, and that is kept
-(``_groups``): the k panels are cut into ``scan_stages`` stages, and a stage
-of kg panels into groups of the largest power of two <= the width that
-divides kg.  A group is merged into one block reflector, so the grouping
-sets Q's rounding: the fewer panels merged, the more orthogonal Q.
+(``_groups``): the k panels are cut into ``scan_stages`` stages (the
+factor's into ``stage_schedule``'s when one is set), and a stage of kg
+panels into groups of the largest power of two <= the width that divides
+kg.  A group is merged into one block reflector, so the grouping sets Q's
+rounding: the fewer panels merged, the more orthogonal Q.
 
 Factorization: panels of nb columns in left-looking lookahead groups of up
 to ``factor_lookahead`` panels.  Inside a group, each panel first receives
@@ -30,6 +31,7 @@ is reached; every transpose of V and T is the conjugate one.
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import numpy as np
@@ -120,13 +122,26 @@ def _group_width(kg: int, width: int) -> int:
     return g
 
 
-def _groups(k: int, width: int, stages: int):
-    """Panel groups [i0, i1), left to right, as the reference forms them
-    (``cuda_qr_tpu/ops/blocked.py:151-152,211,432-438,493-505``): stage
-    bounds round(s*k/stages), and in a stage of kg panels, groups of
-    ``_group_width(kg, width)``."""
+def _stage_bounds(k: int, stages: int, schedule=None) -> list[int]:
+    """Stage bounds 0 = b_0 < ... < b_S = k: the running sums of
+    ``schedule`` (panels per stage), else round(s*k/stages).  A schedule
+    that is not positive or does not sum to k raises the reference's
+    ValueError (``cuda_qr_tpu/ops/blocked.py:141-151``)."""
+    if schedule is not None:
+        if any(c <= 0 for c in schedule) or sum(schedule) != k:
+            raise ValueError(f"stage_schedule {schedule} must be positive "
+                             f"and sum to the panel count k={k}")
+        return list(itertools.accumulate(schedule, initial=0))
     stages = max(1, min(stages, k))
-    bounds = [round(s * k / stages) for s in range(stages + 1)]
+    return [round(s * k / stages) for s in range(stages + 1)]
+
+
+def _groups(k: int, width: int, stages: int, schedule=None):
+    """Panel groups [i0, i1), left to right, as the reference forms them
+    (``cuda_qr_tpu/ops/blocked.py:141-152,211,432-438,493-505``): stages
+    at ``_stage_bounds``, and in a stage of kg panels, groups of
+    ``_group_width(kg, width)``."""
+    bounds = _stage_bounds(k, stages, schedule)
     groups = []
     for ks, ke in zip(bounds[:-1], bounds[1:]):
         g = _group_width(ke - ks, width)
@@ -161,7 +176,10 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     Any m, n: A is zero-padded to the panel grid.  A is not modified.
     bfloat16 storage keeps the packed panels in bfloat16 and taus/Ts/VJs and
     the GEMMs in float32.  Complex A is factored at its own dtype on geqr2
-    panels (``complex_config``).
+    panels (``complex_config``).  Panels are grouped by
+    ``config.stage_schedule`` when it is set (it must be positive and sum
+    to the panel count, else ValueError before any work), else by
+    ``scan_stages``; groups of up to ``factor_lookahead`` panels.
     """
     A = as_tensor(A, config)
     config = complex_config(A, config)
@@ -171,6 +189,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     nb = config.panel_width
     m_pad, n_pad = round_up(m, nb), round_up(n, nb)
     k = n_pad // nb
+    groups = _groups(k, config.factor_lookahead, config.scan_stages, config.stage_schedule)
     sdt = config.dtype
     cdt = torch.float32 if sdt == torch.bfloat16 else sdt
     Ap = torch.zeros((m_pad, n_pad), dtype=cdt, device=A.device)
@@ -179,7 +198,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     Ts = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
     VJs = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
     prec = config.resolved_trailing_precision()
-    for i0, i1 in _groups(k, config.factor_lookahead, config.scan_stages):
+    for i0, i1 in groups:
         gsz = i1 - i0
         r0 = i0 * nb
         Vs, Tg = [], []
@@ -220,8 +239,10 @@ def orgqr(factors: PackedQR, m: int, n: int,
           config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """Thin explicit Q (m x n) from packed factors.
 
-    Groups of up to ``apply_aggregate`` panels (``_groups``) are applied
-    last to first, each as one merged block reflector.  When group [i0, i1)
+    Groups of up to ``apply_aggregate`` panels (``_groups`` at
+    ``scan_stages``; ``stage_schedule`` is the factor's alone, as in the
+    reference's orgqr) are applied last to first, each as one merged block
+    reflector.  When group [i0, i1)
     is applied, columns j < i0*nb of Q are still e_j and rows < i0*nb are
     still zero in the other columns, so each group works on the
     diagonal-trailing window Q[i0*nb:, min(i0*nb, n):].
@@ -243,7 +264,10 @@ def orgqr(factors: PackedQR, m: int, n: int,
 
 def ormqr(factors: PackedQR, B, transpose: bool = True,
           config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
-    """Q^H B (transpose=True) or Q B for B (m x p), without forming Q."""
+    """Q^H B (transpose=True) or Q B for B (m x p), without forming Q.
+
+    Groups as ``orgqr``'s: ``scan_stages`` even when a ``stage_schedule``
+    is set, as the reference's ``_apply_panels_scan`` reads only that."""
     packed = factors.packed
     B = as_tensor(B, config)
     m_pad, n_pad = packed.shape

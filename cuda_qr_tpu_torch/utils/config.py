@@ -1,10 +1,13 @@
 """Configuration for the PyTorch/CUDA QR library.
 
 Counterpart of ``cuda_qr_tpu/utils/config.py``: one frozen dataclass of the
-knobs the blocked factorization reads.  Knobs that existed only to bound
-XLA/Mosaic compile size or the TPU's VMEM (``driver``, ``stage_schedule``,
-``interpret``, ``max_vmem_panel_rows``) have no counterpart.
-``scan_stages`` is kept for the panel grouping it sets.
+knobs the blocked factorization reads.  ``scan_stages`` and
+``stage_schedule`` are kept for the panel grouping they set (the reference
+sized them for compile time; here they decide Q's rounding and the GEMM
+depths).  The reference's ``driver="unrolled"`` is ``factor_lookahead=1``
+(``utils/interop.config_from_reference``).  ``interpret`` and
+``max_vmem_panel_rows`` have no counterpart: the geqrt panel computes
+geqr2 + larft's function at any height.
 
 Precision.  The reference's ``jax.lax.Precision`` becomes a string
 (``ops/gemm.py`` computes each on the card):
@@ -65,6 +68,12 @@ class QRConfig:
         (or factor_lookahead) that divides kg, as the reference groups them.
         Here it sets only that grouping, which decides Q's rounding; nothing
         here is about compile size.
+      stage_schedule: panels per stage of the FACTOR, summing to its panel
+        count k (None = ``scan_stages`` equal stages); a stage of kg panels
+        is grouped as above, in groups of ``_group_width(kg,
+        factor_lookahead)``.  orgqr and ormqr keep ``scan_stages``, as the
+        reference's do.  ``qr_blocked`` raises ValueError on a schedule that
+        is not positive or does not sum to k.
       use_chol_kernel: run the panel Gram Cholesky + inverse on the chol_inv
         kernel where it is eligible (float32, nb a multiple of 16, <= 512).
       use_select_kernel: run the QRCP pivot selection on the select_pivots
@@ -90,6 +99,7 @@ class QRConfig:
     apply_aggregate: int = 4
     factor_lookahead: int = 4
     scan_stages: int = 4
+    stage_schedule: Optional[tuple[int, ...]] = None
     use_chol_kernel: bool = True
     use_select_kernel: bool = True
     block_rows: int = 1024

@@ -48,16 +48,26 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
     trailing_precision, orgqr_precision (HIGH as "high", 3xTF32; a
     ``precision`` of HIGH raises QRConfig's ValueError: the panels take
     "highest" or "tf32" only), use_pallas (as use_kernels),
-    panel_method, apply_aggregate, factor_lookahead, scan_stages (it sets
-    the panel grouping), use_chol_kernel, use_select_kernel, block_rows,
-    tsqr_leaf.
-    Ignored (no counterpart): driver, interpret, max_vmem_panel_rows, and
-    stage_schedule, which is not ported: the port groups panels by
-    scan_stages alone.
+    panel_method, apply_aggregate, factor_lookahead, scan_stages and
+    stage_schedule (they set the panel grouping), use_chol_kernel,
+    use_select_kernel, block_rows, tsqr_leaf.  driver="unrolled" becomes
+    factor_lookahead=1: the reference's unrolled loop factors one panel,
+    then updates the exact trailing block with it (a K = nb larfb), which
+    is the factor's group of one; it raises the reference's ValueError
+    together with a schedule (``cuda_qr_tpu/ops/blocked.py:375-380``).
+    Ignored (no counterpart): interpret and max_vmem_panel_rows, since the
+    geqrt panel computes geqr2 + larft's function at any height.
     """
     dtype_name = np.dtype(cfg.dtype).name
     if dtype_name not in _DTYPES:
         raise ValueError(f"no counterpart for dtype {dtype_name}")
+    lookahead = cfg.factor_lookahead
+    if cfg.driver != "scan":   # the reference runs every other driver unrolled
+        if cfg.stage_schedule is not None:
+            raise ValueError(
+                f"stage_schedule is a scan-driver knob; driver={cfg.driver!r} "
+                "ignores it (use driver='scan' or drop the schedule)")
+        lookahead = 1
     return QRConfig(
         panel_width=cfg.panel_width,
         panel_base=cfg.panel_base,
@@ -68,8 +78,9 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
         use_kernels=cfg.use_pallas,
         panel_method=cfg.panel_method,
         apply_aggregate=cfg.apply_aggregate,
-        factor_lookahead=cfg.factor_lookahead,
+        factor_lookahead=lookahead,
         scan_stages=cfg.scan_stages,
+        stage_schedule=cfg.stage_schedule,
         use_chol_kernel=cfg.use_chol_kernel,
         use_select_kernel=cfg.use_select_kernel,
         block_rows=cfg.block_rows,

@@ -97,14 +97,18 @@ def test_grouping_does_not_change_the_result(rng, lookahead, aggregate):
     assert torch.allclose(ormqr(f1, ormqr(f1, B, True, cfg), False, cfg), B, atol=1e-12)
 
 
-def reference_groups(k, width, stages=4):
-    """The reference's panel groups, written out from its default schedule:
+def reference_groups(k, width, stages=4, schedule=None):
+    """The reference's panel groups, written out from its schedules:
     stages at round(s*k/stages) (``cuda_qr_tpu/ops/blocked.py:151-152,
-    432-434, 493-495``), and in a stage of kg panels, groups of
-    ``_group_width(kg, width)`` (:211, :438, :505)."""
+    432-434, 493-495``), or at the running sums of a ``stage_schedule``
+    (the factor's, ``_qr_blocked_scan``, :141-150), and in a stage of kg
+    panels, groups of ``_group_width(kg, width)`` (:211, :438, :505)."""
     from cuda_qr_tpu.ops.blocked import _group_width
-    stages = max(1, min(stages, k))
-    bounds = [round(s * k / stages) for s in range(stages + 1)]
+    if schedule is not None:
+        bounds = [sum(schedule[:s]) for s in range(len(schedule) + 1)]
+    else:
+        stages = max(1, min(stages, k))
+        bounds = [round(s * k / stages) for s in range(stages + 1)]
     groups = []
     for ks, ke in zip(bounds[:-1], bounds[1:]):
         kg = ke - ks

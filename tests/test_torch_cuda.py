@@ -534,3 +534,19 @@ def test_mixed_config_keeps_the_residual_certificate(dev):
     f = ct.qr_blocked(A, ct.MIXED_CONFIG)
     chk = ct.check_qr_device(A, ct.orgqr(f, n, n, ct.MIXED_CONFIG), ct.extract_r(f, n))
     assert chk.residual < n * chk.eps / 10 and chk.ok, chk
+
+
+def test_tail_schedule_on_the_card(dev):
+    """The reference's tuned tail schedule tail8x2_g8, (2,)*24 + (8,)*2 at
+    factor_lookahead 8, on 2048^2 at panel width 32 (its 64 panels): the
+    gates hold and B1 runs on every panel."""
+    n, nb = 2048, 32
+    cfg = ct.DEFAULT_CONFIG.replace(panel_width=nb, stage_schedule=(2,) * 24 + (8,) * 2,
+                                    factor_lookahead=8)
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    before = chol_with_inv_kernel.launches
+    f = ct.qr_blocked(A, cfg)
+    assert chol_with_inv_kernel.launches - before >= n // nb
+    chk = ct.check_qr_device(A, ct.orgqr(f, n, n, cfg), ct.extract_r(f, n))
+    assert chk.ok, chk
