@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench,
-                                  stages]
+                                  stages,precision]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
@@ -19,7 +19,12 @@ stage counts, tuned stage schedules and unrolled driver, each timed and
 gated, and ``--stage-schedule`` on the command line), MIXED_CONFIG's 3xTF32 trailing update (its GEMMs against
 float64 beside "highest" and one TF32 pass, the factor's residual and
 orthogonality at 2,048^2-16,384^2 against DEFAULT_CONFIG's, and the
-command line's ``--mixed``), and the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
+command line's ``--mixed``), every GEMM's precision as an argument (``qr``
+at 1,024^2 under each of five ways a caller leaves PyTorch's float32 GEMM
+mode set, each in a child process, ``python3 chip_smoke.py --caller-state
+NAME``; the 8,192^2 factor + Q with every GEMM at ``precision="high"`` on
+both kernels' panels beside "highest" and "tf32" panels, ``qr_pivoted``
+and ``tsqr`` at "high"), and the spectral family: ``rsvd`` at 65,536 x 4,096 and ``eigh_rand`` at 8,192^2
 on known spectra, ``norm2_est``/``cond_est``, ``orth(rcond=...)``, QDWH
 ``polar`` at 16,384 x 512 and 1,048,576 x 128, ``svd`` at 4,096^2 with both
 eigensolvers, the Jacobi rotation's c^2 + s^2 - 1 over 10^6 angles a scale
@@ -63,7 +68,7 @@ is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
 factor alone, MIXED_CONFIG's phase, the headline record, the grouping
-ladder) and ends with
+ladder, the precision phase) and ends with
 the same last line, "only" added.  Run from another checkout's root, a
 copy of this script with ``--only factor`` times that checkout's factor.
 """
@@ -138,6 +143,17 @@ MIXED_GEMM_HIGHEST, MIXED_GEMM_TF32, MIXED_GEMM_TF32_ON = 16, 100, 50
 # DEFAULT's; "tf32" printed, ungated (the fault's record).
 N_MIXED = (2048, 4096, 8192, 16384)
 MIXED_RESID_DIV, MIXED_ORTH_RATIO = 10, 1.1
+# Fault C11 and A7 (``--only precision``): the five ways a caller leaves
+# PyTorch's float32 GEMM mode set, each in a process of its own; the port
+# must work under each and leave it as it was.
+CALLER_STATES = ("untouched", "allow_tf32", "matmul_precision_high", "matmul_fp32_precision",
+                 "fp32_precision")
+N_C11 = 1024                        # ct.qr under each state: cholqr2_bk, B1 every panel
+C11_GEMM = (128, 8192, 8064)        # the 8192^2 factor's V^H rest
+C11_HIGHEST_RATIO = 2.0             # "highest" error over the untouched state's, at most
+C11_TF32_RATIO = 50.0               # "tf32" error over the untouched "highest", at least
+C11_TIMEOUT_S = 300
+DEFAULT_B1, DEFAULT_SYNCS = 65, 806   # the 8192^2 factor at DEFAULT_CONFIG (PERF.md)
 MIXED_CLI_FACTOR = ["--mixed", "factor", "4096", "4096"]
 MIXED_CLI_TSQR = ["--tsqr-leaf", "cholqr2", "tsqr", "1048576", "128"]
 MIXED_TSQR_RATIO = 2.0              # MIXED cholqr2 tsqr residual over DEFAULT's
@@ -937,14 +953,12 @@ def mixed_gemms(torch, dev, smi):
     in K_CHUNK-deep chunks (what "high" runs) and in float32, with the mean
     relative error of one TF32 product on positive operands (its bias)."""
     from cuda_qr_tpu_torch.ops.gemm import K_CHUNK, _tf32_chunked, _tf32_product, gemm, split_tf32
-    from cuda_qr_tpu_torch.utils.config import matmul_precision
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
 
     def concatenated(a, b):
         hi_a, lo_a = split_tf32(a)
         hi_b, lo_b = split_tf32(b)
-        with matmul_precision("tf32"):
-            return torch.cat([hi_a, lo_a, hi_a], 1) @ torch.cat([lo_b, hi_b, hi_b], 0)
+        return _tf32_product(torch.cat([hi_a, lo_a, hi_a], 1), torch.cat([lo_b, hi_b, hi_b], 0))
 
     g = torch.Generator(device=dev).manual_seed(12)
     rows = []
@@ -1699,7 +1713,6 @@ def dist_rank(mesh, smi: str, sizes: dict):
     from cuda_qr_tpu_torch.parallel.dryrun import crash_and_resume
     from cuda_qr_tpu_torch.parallel.mesh import as_row_sharded, mesh_device
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh_device(mesh)
     P, i = mesh.size(0), mesh.get_local_rank(0)
     eps = float(torch.finfo(torch.float32).eps)
@@ -2122,7 +2135,6 @@ def dist_nccl_rank(mesh, smi: str, n: int):
     import cuda_qr_tpu_torch as ct
     from cuda_qr_tpu_torch.parallel.mesh import as_row_sharded, mesh_device
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     dev = mesh_device(mesh)
     P, i = mesh.size(0), mesh.get_local_rank(0)
     cfg = ct.DEFAULT_CONFIG
@@ -2349,13 +2361,12 @@ def phase_complex(torch, ct, dev, smi):
     del A, Q, R, Rr, Q3, R3
 
     # Does MIXED_CONFIG's TF32 reach complex64 GEMMs (cuBLAS math mode)?
-    from cuda_qr_tpu_torch.utils.config import matmul_precision
+    from cuda_qr_tpu_torch.ops.gemm import _product
     X, Y = crandn(torch, (2048, 2048), 71, c64, dev), crandn(torch, (2048, 2048), 72, c64, dev)
     exact = X.to(c128) @ Y.to(c128)
     errs = {}
-    for prec in ("highest", "tf32"):
-        with matmul_precision(prec):
-            errs[prec] = float((X @ Y - exact).abs().max() / exact.abs().max())
+    for prec, mode in (("highest", "ieee"), ("tf32", "tf32")):
+        errs[prec] = float((_product(X, Y, mode) - exact).abs().max() / exact.abs().max())
     say(f"  complex64 GEMM 2048^2 vs complex128: 'highest' {errs['highest']:.2e}, 'tf32' "
         f"{errs['tf32']:.2e}: TF32 {'reaches' if errs['tf32'] > 10 * errs['highest'] else 'does not reach'}"
         f" complex64 GEMMs")
@@ -2708,9 +2719,207 @@ def gate(name, chk) -> None:
         raise AssertionError(f"{name} fails the residual/orthogonality gates")
 
 
+def set_caller_state(torch, name: str) -> None:
+    """One of CALLER_STATES, as a caller's script sets it."""
+    if name == "allow_tf32":
+        torch.backends.cuda.matmul.allow_tf32 = True
+    elif name == "matmul_precision_high":
+        torch.set_float32_matmul_precision("high")
+    elif name == "matmul_fp32_precision":
+        torch.backends.cuda.matmul.fp32_precision = "tf32"
+    elif name == "fp32_precision":
+        torch.backends.fp32_precision = "tf32"
+
+
+def fp32_reads(torch) -> list:
+    return [torch.backends.cuda.matmul.fp32_precision, torch.backends.fp32_precision]
+
+
+def caller_state_child(name: str) -> int:
+    """``--caller-state NAME``: in this fresh process, set the state, then
+    ``ct.qr`` of a default_rng(12) N_C11^2 float32 input and ``gemm`` at
+    "highest" and "tf32" at C11_GEMM against float64; print one JSON line:
+    the two fp32_precision reads before and after, the gates, the launch and
+    sync counts and the two normwise GEMM errors."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(HERE))
+    import cuda_qr_tpu_torch as ct
+    from cuda_qr_tpu_torch.ops.gemm import gemm
+
+    dev = torch.device("cuda", 0)
+    set_caller_state(torch, name)
+    before = fp32_reads(torch)
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (N_C11, N_C11), dtype=np.float32)).to(dev)
+    (Q, R), counts, sec = run_counted(torch, lambda: ct.qr(A))
+    chk = ct.check_qr_device(A, Q, R)
+    after_qr = fp32_reads(torch)
+    m, k, n = C11_GEMM
+    g = torch.Generator(device=dev).manual_seed(12)
+    X = torch.randn(m, k, generator=g, device=dev)
+    Y = torch.randn(k, n, generator=g, device=dev)
+    C64 = X.double() @ Y.double()
+    scale = float(X.double().norm() * Y.double().norm())
+    err = {p: float((gemm(X, Y, p).double() - C64).norm()) / scale for p in ("highest", "tf32")}
+    S = X[:, :128].contiguous()
+    host_us = {name: host_call_us(torch, fn) for name, fn in (
+        ("gemm_highest", lambda: gemm(S, S.T, "highest")), ("matmul", lambda: S @ S.T))}
+    print(json.dumps({"state": name, "before": before, "after_qr": after_qr,
+                      "after": fp32_reads(torch), "ok": bool(chk.ok),
+                      "residual": chk.residual, "orthogonality": chk.orthogonality,
+                      "first_call_s": sec, "counts": counts, "gemm_err": err,
+                      "host_us": host_us}))
+    return 0
+
+
+def host_call_us(torch, fn, calls: int = 2000) -> float:
+    """Host microseconds a call of fn (a small product) takes to enqueue,
+    over ``calls`` calls, one synchronize at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def precision_caller_states(torch):
+    """(a) C11: CALLER_STATES, one child process each, all at once.  Every
+    child's qr passes its gates with B1 on every panel and leaves both
+    fp32_precision attributes as it found them; "highest" keeps float32's
+    GEMM error (<= C11_HIGHEST_RATIO x the untouched state's) and "tf32"
+    reads TF32's (>= C11_TF32_RATIO x) in every state, so the
+    fp32_precision API drives cuBLAS.  Returns the children's summed counts."""
+    from cuda_qr_tpu_torch.ops import _build
+    _build.load()                   # built once, before the children load it
+    cmd = [sys.executable, str(HERE / "chip_smoke.py"), "--caller-state"]
+    procs = {name: subprocess.Popen(cmd + [name], cwd=HERE, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name in CALLER_STATES}
+    rows = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=C11_TIMEOUT_S)
+            require(proc.returncode == 0,
+                    f"caller state {name}: rc {proc.returncode}: {err[-3000:]}")
+            rows[name] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    base = rows["untouched"]["gemm_err"]["highest"]
+    total = {}
+    for name, r in rows.items():
+        e = r["gemm_err"]
+        say(f"  C11 caller state {name}: fp32_precision (cuda.matmul, generic) "
+            f"{r['before']} -> {r['after_qr']} after qr, {r['after']} after gemm; qr "
+            f"{N_C11}^2 f32 residual {r['residual']:.3e}, orthogonality "
+            f"{r['orthogonality']:.3e}, ok {r['ok']}, {r['first_call_s']:.3f} s first call, "
+            f"{counts_str(r['counts'])}; gemm {'x'.join(map(str, C11_GEMM))} normwise error "
+            f"'highest' {e['highest']:.3e} ({e['highest'] / base:.3f}x untouched's, <= "
+            f"{C11_HIGHEST_RATIO}), 'tf32' {e['tf32']:.3e} ({e['tf32'] / base:.1f}x, >= "
+            f"{C11_TF32_RATIO}); host us a call, 128^2: gemm 'highest' "
+            f"{r['host_us']['gemm_highest']:.2f}, bare matmul {r['host_us']['matmul']:.2f}")
+        require(r["ok"] and r["counts"]["chol_inv"] >= N_C11 // 128,
+                f"caller state {name}: qr gates or B1 launches: {r}")
+        require(r["before"] == r["after_qr"] == r["after"],
+                f"caller state {name}: fp32_precision changed: {r}")
+        require(e["highest"] <= C11_HIGHEST_RATIO * base and e["tf32"] >= C11_TF32_RATIO * base,
+                f"caller state {name}: GEMM errors {e} against untouched 'highest' {base}")
+        add_counts(total, {k: v for k, v in r["counts"].items() if k != "host_syncs"})
+    return total
+
+
+def precision_factor(torch, ct, A, name, cfg, total, gated: bool):
+    """qr_blocked + orgqr of A at cfg: gates (held when ``gated``), launches,
+    host syncs, first-call s and a second call's ms (CUDA events)."""
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    n = A.shape[0]
+
+    def factor_and_q():
+        f = ct.qr_blocked(A, cfg)
+        return ct.orgqr(f, n, n, cfg), ct.extract_r(f, n)
+
+    (Q, R), c, sec = run_counted(torch, factor_and_q)
+    chk = ct.check_qr_device(A, Q, R)
+    del Q, R
+    ms = cuda_time_ms(factor_and_q, reps=1, warmup=0)
+    say(f"  A7 {name}: qr_blocked + orgqr {n}^2 f32: residual {chk.residual:.3e} (n eps "
+        f"{n * chk.eps:.3e}), orthogonality {chk.orthogonality:.3e} (4n eps "
+        f"{4 * n * chk.eps:.3e}), ok {chk.ok}; {ms:.2f} ms (first call {sec:.3f} s); "
+        f"{counts_str(c)}")
+    if gated:
+        gate(f"A7 {name} {n}^2 f32", chk)
+    add_counts(total, {k: v for k, v in c.items() if k != "host_syncs"})
+    return chk, c
+
+
+def phase_precision(torch, np, ct, dev, smi):
+    """Fault C11 and A7: (a) ``precision_caller_states``; (b) the 8192^2
+    factor + Q with every GEMM at "high" on cholqr2_bk (B1) and geqrt (B2)
+    panels, gated, beside "highest" on both and "tf32" panels (trailing and
+    orgqr "highest", ungated) on the same input; ``qr_pivoted`` at "high" (B3); ``tsqr``
+    1M x 128 at "high" with both leaves, held to phase_tsqr's bounds; and
+    DEFAULT's factor at DEFAULT_B1 launches and DEFAULT_SYNCS host syncs.
+    Returns the launch counts of the path."""
+    say(f"GEMM precision as an argument (C11, A7) on {smi}:")
+    t0 = time.perf_counter()
+    total = precision_caller_states(torch)
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (N_MAIN, N_MAIN), dtype=np.float32)).to(dev)
+    panels = N_MAIN // ct.DEFAULT_CONFIG.panel_width
+    (_, c, _) = run_counted(torch, lambda: ct.qr_blocked(A, ct.DEFAULT_CONFIG))
+    say(f"  DEFAULT factor {N_MAIN}^2 f32: chol_inv launches {c['chol_inv']} (== {DEFAULT_B1}), "
+        f"host syncs {c['host_syncs']} (== {DEFAULT_SYNCS})")
+    require(c["chol_inv"] == DEFAULT_B1 and c["host_syncs"] == DEFAULT_SYNCS,
+            f"DEFAULT factor: {counts_str(c)}, expected {DEFAULT_B1} B1 launches and "
+            f"{DEFAULT_SYNCS} host syncs")
+    add_counts(total, {k: v for k, v in c.items() if k != "host_syncs"})
+    panels_only = dict(trailing_precision="highest", orgqr_precision="highest")
+    runs = (("'high' cholqr2_bk", ct.QRConfig(precision="high"), True),
+            ("'high' geqrt", ct.QRConfig(precision="high", panel_method="geqrt"), True),
+            ("'highest' cholqr2_bk", ct.DEFAULT_CONFIG, True),
+            ("'highest' geqrt", ct.QRConfig(panel_method="geqrt"), True),
+            ("'tf32' panels cholqr2_bk", ct.QRConfig(precision="tf32", **panels_only), False))
+    for name, cfg, gated in runs:
+        _, c = precision_factor(torch, ct, A, name, cfg, total, gated)
+        kernel = "geqrt" if cfg.panel_method == "geqrt" else "chol_inv"
+        require(c[kernel] >= (1 if kernel == "geqrt" else panels),
+                f"A7 {name}: {counts_str(c)}")
+    cfg = ct.QRConfig(precision="high")
+    (Qp, Rp, piv), c, sec = run_counted(torch, lambda: ct.qr_pivoted(A, cfg))
+    say(f"  A7 'high' qr_pivoted {N_MAIN}^2 f32: {sec:.3f} s first call; {counts_str(c)}")
+    gate(f"A7 'high' qr_pivoted {N_MAIN}^2 f32", ct.check_qr_device(A[:, piv], Qp, Rp))
+    require(c["select_pivots"] >= panels, f"A7 'high' qr_pivoted: {counts_str(c)}")
+    add_counts(total, {k: v for k, v in c.items() if k != "host_syncs"})
+    del A, Qp, Rp
+    m, n = N_TSQR
+    A = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (m, n), dtype=np.float32)).to(dev)
+    eps = float(torch.finfo(torch.float32).eps)
+    for leaf, orth_gate in (("householder", 4 * n * eps), ("cholqr2", 4 * m ** 0.5 * eps)):
+        (Q, R), c, sec = run_counted(torch, lambda: ct.tsqr(A, cfg.replace(tsqr_leaf=leaf)))
+        chk = ct.check_qr_device(A, Q, R)
+        del Q, R
+        say(f"  A7 'high' tsqr {m}x{n} f32 {leaf}: residual {chk.residual:.3e} (< "
+            f"{n * eps:.3e}), orthogonality {chk.orthogonality:.3e} (< {orth_gate:.3e}), "
+            f"tril(R) {chk.r_triangular:g}; {sec:.3f} s first call; {counts_str(c)}")
+        require(chk.residual < n * eps and chk.orthogonality < orth_gate
+                and chk.r_triangular == 0.0, f"A7 'high' tsqr {leaf} fails its gates")
+        require(c["geqrt_batched"] == 11 if leaf == "householder" else c["chol_inv"] > 0,
+                f"A7 'high' tsqr {leaf}: {counts_str(c)}")
+        add_counts(total, {k: v for k, v in c.items() if k != "host_syncs"})
+    say(f"  precision phase: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 # phases that ``--only`` can run alone
 STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed",
-              "bench", "stages")
+              "bench", "stages", "precision")
 
 
 def main(argv=None) -> int:
@@ -2719,7 +2928,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--only", default="",
                     help=f"run only these phases, comma-separated, of {', '.join(STANDALONE)}")
-    only = [p for p in ap.parse_args(argv).only.split(",") if p]
+    ap.add_argument("--caller-state", choices=CALLER_STATES, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.caller_state:
+        return caller_state_child(args.caller_state)
+    only = [p for p in args.only.split(",") if p]
     if any(p not in STANDALONE for p in only):
         ap.error(f"--only takes phases of {STANDALONE}, got {only}")
     import numpy as np
@@ -2740,8 +2953,11 @@ def main(argv=None) -> int:
     smi = phase_device(torch)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False   # HIGHEST: full float32
-    torch.backends.cudnn.allow_tf32 = False
+    # The script's own float32 products run in IEEE float32: it starts with
+    # no TF32 mode set, and the port restores the caller's mode after each
+    # of its products (the caller states of phase_precision run in children).
+    require(fp32_reads(torch) == ["none", "none"],
+            f"the process starts with a float32 GEMM mode set: {fp32_reads(torch)}")
     if only:
         if "rotation_bias" in only:
             phase_rotation_bias(torch, dev)
@@ -2759,6 +2975,8 @@ def main(argv=None) -> int:
             phase_bench(torch, smi)
         if "stages" in only:
             phase_stages(torch, np, ct, dev, smi)
+        if "precision" in only:
+            phase_precision(torch, np, ct, dev, smi)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2864,6 +3082,7 @@ def main(argv=None) -> int:
     say("the reference's panel-grouping ladder (scan_stages, stage_schedule, unrolled):")
     stages_counts = phase_stages(torch, np, ct, dev, smi)
     mixed_counts = phase_mixed_precision(torch, np, ct, dev, smi)
+    precision_counts = phase_precision(torch, np, ct, dev, smi)
 
     # ---- the spectral family: randomized tools, QDWH polar and svd, QDWH-eig
     phase_rotation_bias(torch, dev)
@@ -2871,6 +3090,7 @@ def main(argv=None) -> int:
                "orgqr_groups": orgqr_groups,
                "mixed": mixed_counts,
                "stages": stages_counts,
+               "precision": precision_counts,
                "rsvd": phase_rsvd(torch, np, ct, cfg, dev, smi),
                "polar_svd": phase_polar(torch, np, ct, cfg, dev, smi),
                "eigh": phase_eigh(torch, np, ct, cfg, dev, smi)}
@@ -2893,6 +3113,7 @@ def main(argv=None) -> int:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
     for name, needs in (("orgqr_groups", ("chol_inv", "geqrt")), ("mixed", ("chol_inv",)),
                         ("stages", ("chol_inv",)),
+                        ("precision", ("chol_inv", "geqrt", "geqrt_batched", "select_pivots")),
                         ("rsvd", ("geqrt_batched", "select_pivots")),
                         ("polar_svd", ("chol_inv", "geqrt_batched")), ("eigh", ("chol_inv",)),
                         ("dist", ("chol_inv", "geqrt", "geqrt_batched")),

@@ -54,8 +54,9 @@ import numpy as np
 import torch
 
 from .ops.blocked import extract_r, orgqr, qr_blocked
+from .ops.gemm import gemm
 from .ops.smalllinalg import cholesky_with_inv
-from .utils.config import QRConfig, matmul_precision
+from .utils.config import QRConfig
 from .utils.timing import bench, card_name, qr_flops
 
 # MAGMA magma_sgeqrf2_gpu at 4096^2 float32 (the reference's timing.txt:23,
@@ -70,9 +71,8 @@ INSURANCE_DRAW = 1024      # bench.py's first phase draws a 1024^2 input here
 
 def residuals(A: torch.Tensor, Q: torch.Tensor, R: torch.Tensor):
     """(||QR - A||_F / ||A||_F, ||Q^T Q - I||_F) in float32, TF32 off."""
-    with matmul_precision("highest"):
-        resid = torch.linalg.norm(Q @ R - A) / torch.linalg.norm(A)
-        G = Q.mT @ Q
+    resid = torch.linalg.norm(gemm(Q, R, "highest") - A) / torch.linalg.norm(A)
+    G = gemm(Q.mT, Q, "highest")
     G.diagonal().sub_(1.0)
     return float(resid), float(torch.linalg.norm(G))
 
@@ -171,10 +171,9 @@ def main(argv=None) -> int:
     Qb = orgqr(facb, nb16, nb16, bcfg).float()
     Rb = extract_r(facb, nb16).float()
     del facb, Ab
-    with matmul_precision("highest"):
-        _, Li = cholesky_with_inv(Qb.mT @ Qb)
-        Qr = Qb @ Li.mT
-        Rr = torch.triu(Qr.mT @ A32)
+    _, Li = cholesky_with_inv(gemm(Qb.mT, Qb, "highest"), "highest")
+    Qr = gemm(Qb, Li.mT, "highest")
+    Rr = torch.triu(gemm(Qr.mT, A32, "highest"))
     raw_res, raw_orth = residuals(A32, Qb, Rb)
     ref_res, ref_orth = residuals(A32, Qr, Rr)
     del A32, Qb, Rb, Qr, Rr, Li

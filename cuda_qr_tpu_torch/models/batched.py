@@ -20,20 +20,23 @@ from __future__ import annotations
 import torch
 
 from ..ops.blocked import as_tensor
+from ..ops.gemm import gemm
 from ..ops.smalllinalg import chol_with_inv_auto, host_decision
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from .qr import ThinQRFunction
 
 
 def _chol_round(X: torch.Tensor, config: QRConfig):
     """(Q, R, emax): one CholeskyQR round of a (B, m, n) stack; emax =
-    max over the batch of |X^T X - I|, the gate for another round."""
+    max over the batch of |X^T X - I|, the gate for another round.  GEMMs
+    at ``config.precision``."""
     n = X.shape[-1]
-    G = X.mT @ X
+    prec = config.precision
+    G = gemm(X.mT, X, prec)
     emax = (G - torch.eye(n, dtype=X.dtype, device=X.device)).abs().max()
     L, Li = chol_with_inv_auto(G, config)
-    return X @ Li.mT, L.mT, emax                        # X L^-T
+    return gemm(X, Li.mT, prec), L.mT, emax             # X L^-T
 
 
 def qr_batched(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
@@ -69,22 +72,22 @@ def _qr_batched_math(X: torch.Tensor, config: QRConfig):
     dtype = X.dtype
     eps = torch.finfo(dtype).eps
     eye = torch.eye(n, dtype=dtype, device=X.device)
-    with matmul_precision(config.precision):
-        # Shifted round 1: the shift keeps G + sI positive definite through
-        # rounding for cond(X) up to ~1/(8 sqrt(eps)); ||X||_2^2 is bounded
-        # by the Frobenius norm squared.
-        fro2 = (X ** 2).sum((-2, -1))
-        shift = 11.0 * (m * n + n * (n + 1)) * eps * fro2 + torch.finfo(dtype).tiny
-        G = X.mT @ X + shift[:, None, None] * eye
-        L1, L1i = chol_with_inv_auto(G, config)
-        Q1, R1 = X @ L1i.mT, L1.mT
-        # Round 2 always (CholeskyQR2); emax2 ~ eps cond(X)^2 + shift error.
-        Q, R2, emax2 = _chol_round(Q1, config)
-        R = R2 @ R1
-        # Round 3 only when rounds 1+2 cannot have reached O(eps)
-        # orthogonality: one decision for the whole batch.
-        tol = 3e-4 if dtype == torch.float32 else 3e-8
-        if host_decision(emax2 > tol):
-            Q, R3, _ = _chol_round(Q, config)
-            R = R3 @ R
+    prec = config.precision
+    # Shifted round 1: the shift keeps G + sI positive definite through
+    # rounding for cond(X) up to ~1/(8 sqrt(eps)); ||X||_2^2 is bounded
+    # by the Frobenius norm squared.
+    fro2 = (X ** 2).sum((-2, -1))
+    shift = 11.0 * (m * n + n * (n + 1)) * eps * fro2 + torch.finfo(dtype).tiny
+    G = gemm(X.mT, X, prec) + shift[:, None, None] * eye
+    L1, L1i = chol_with_inv_auto(G, config)
+    Q1, R1 = gemm(X, L1i.mT, prec), L1.mT
+    # Round 2 always (CholeskyQR2); emax2 ~ eps cond(X)^2 + shift error.
+    Q, R2, emax2 = _chol_round(Q1, config)
+    R = gemm(R2, R1, prec)
+    # Round 3 only when rounds 1+2 cannot have reached O(eps)
+    # orthogonality: one decision for the whole batch.
+    tol = 3e-4 if dtype == torch.float32 else 3e-8
+    if host_decision(emax2 > tol):
+        Q, R3, _ = _chol_round(Q, config)
+        R = gemm(R3, R, prec)
     return Q, torch.triu(R)   # exact zeros below the diagonal

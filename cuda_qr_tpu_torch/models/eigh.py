@@ -60,8 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.blocked import as_tensor, complex_config
+from ..ops.gemm import gemm
 from ..ops.smalllinalg import _eye, host_decision, host_values
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from .polar import _qdwh_dyn_core, _real_dtype
 from .qr import qr
@@ -189,22 +190,23 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
         J[:, p, q] = s
         J[:, q, p] = -s * ph
         J[:, q, q] = c * ph
-        return J.mH @ (A @ J), V @ J
+        # at "highest" whatever config.precision says, as the reference's
+        # rotation (its _H, cuda_qr_tpu/models/eigh.py:172-174)
+        return gemm(J.mH, gemm(A, J, "highest"), "highest"), gemm(V, J, "highest")
 
     V = _eye(n, A).expand_as(A).contiguous()
     sweeps = 0
-    with matmul_precision("highest"):
-        for _ in range(max_sweeps):
-            active = off2(A) > tol2
-            if not host_decision(active.any()):
-                break
-            A1, V1 = A, V
-            for r in range(n - 1):
-                A1, V1 = one_round(A1, V1, schedule[r])
-            A1 = (A1 + A1.mH) * 0.5
-            keep = active[:, None, None]
-            A, V = torch.where(keep, A1, A), torch.where(keep, V1, V)
-            sweeps += 1
+    for _ in range(max_sweeps):
+        active = off2(A) > tol2
+        if not host_decision(active.any()):
+            break
+        A1, V1 = A, V
+        for r in range(n - 1):
+            A1, V1 = one_round(A1, V1, schedule[r])
+        A1 = (A1 + A1.mH) * 0.5
+        keep = active[:, None, None]
+        A, V = torch.where(keep, A1, A), torch.where(keep, V1, V)
+        sweeps += 1
     last_stats["jacobi_calls"] += 1
     last_stats["jacobi_sweeps"] += sweeps
     w = torch.diagonal(A, 0, -2, -1).real
@@ -262,14 +264,14 @@ def _invariant_bases(P: torch.Tensor, H: torch.Tensor, rank: int, config: QRConf
     order = torch.argsort(-torch.linalg.norm(P, dim=0), stable=True)
     X = P[:, order[:rank]]
     thresh = 10.0 * eps * torch.linalg.norm(H)
+    prec = config.precision
     for it in range(3):
         Q, _ = qr(X, config, mode="complete")
         V1, V2 = Q[:, :rank], Q[:, rank:]
-        with matmul_precision(config.precision):
-            err = torch.linalg.norm(V2.mH @ (H @ V1))
-            if it == 2 or not host_decision(err > thresh):
-                break
-            X = P @ V1
+        err = torch.linalg.norm(gemm(V2.mH, gemm(H, V1, prec), prec))
+        if it == 2 or not host_decision(err > thresh):
+            break
+        X = gemm(P, V1, prec)
     return V1, V2
 
 
@@ -356,16 +358,14 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
             wl, Vj = _jacobi_eigh(F.pad(Hb, (0, be - b, 0, be - b)),
                                   _schedule("circle", be, dev),
                                   max_sweeps=max_sweeps, sort=False)
-            with matmul_precision(prec):
-                vecs[:, o:o + b] = V0 @ Vj[:b, :b]
+            vecs[:, o:o + b] = gemm(V0, Vj[:b, :b], prec)
             w[o:o + b] = wl[:b]
             continue
         V_minus, V_plus, k = split
         last_stats["split_nodes"] += 1
-        with matmul_precision(prec):
-            H1 = V_minus.mH @ (Hb @ V_minus)
-            H2 = V_plus.mH @ (Hb @ V_plus)
-            vecs[:, o:o + b] = torch.cat([V0 @ V_minus, V0 @ V_plus], 1)
+        H1 = gemm(V_minus.mH, gemm(Hb, V_minus, prec), prec)
+        H2 = gemm(V_plus.mH, gemm(Hb, V_plus, prec), prec)
+        vecs[:, o:o + b] = torch.cat([gemm(V0, V_minus, prec), gemm(V0, V_plus, prec)], 1)
         stack.append((o, (H1 + H1.mH) * 0.5))
         stack.append((o + k, (H2 + H2.mH) * 0.5))
 
@@ -379,11 +379,10 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
                             for _, Hb in leaves])
         ws, Vs = _jacobi_eigh(Hstk, _schedule("circle", cutoff, dev),
                               max_sweeps=max_sweeps, sort=False)
-        with matmul_precision(prec):
-            for i, (o, Hb) in enumerate(leaves):
-                b = Hb.shape[0]
-                vecs[:, o:o + b] = vecs[:, o:o + b] @ Vs[i, :b, :b]
-                w[o:o + b] = ws[i, :b]
+        for i, (o, Hb) in enumerate(leaves):
+            b = Hb.shape[0]
+            vecs[:, o:o + b] = gemm(vecs[:, o:o + b], Vs[i, :b, :b], prec)
+            w[o:o + b] = ws[i, :b]
     w, order = torch.sort(w, stable=True)
     return w, vecs[:, order]
 

@@ -28,8 +28,9 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..ops.blocked import as_tensor, extract_r, ormqr, qr_blocked
+from ..ops.gemm import gemm
 from ..parallel.mesh import as_row_sharded, shard_rows
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from .caqr import caqr_r
 
@@ -56,9 +57,8 @@ class _Lstsq(torch.autograd.Function):
     def forward(ctx, A, B, config):
         x, resid, R = _lstsq_math(A, B, config)
         A = A.to(x.dtype)
-        with matmul_precision(config.precision):
-            r = B.to(x.dtype) - A @ x
-        ctx.config = config
+        r = B.to(x.dtype) - gemm(A, x, config.precision)
+        ctx.precision = config.precision
         ctx.save_for_backward(A, x, R, r, resid)
         return x, resid
 
@@ -67,15 +67,15 @@ class _Lstsq(torch.autograd.Function):
         A, x, R, r, resid = ctx.saved_tensors
         xbar = torch.zeros_like(x) if xbar is None else xbar
         rhobar = torch.zeros_like(resid) if rhobar is None else rhobar
-        with matmul_precision(ctx.config.precision):
-            # z solves A^T A z = xbar through R: z = R^-1 R^-T xbar.
-            w = torch.linalg.solve_triangular(R.T, xbar, upper=False)
-            z = torch.linalg.solve_triangular(R, w, upper=True)
-            safe = resid > 0
-            rhat = r / torch.where(safe, resid, torch.ones_like(resid))[None, :]
-            scaled = rhat * torch.where(safe, rhobar, torch.zeros_like(rhobar))[None, :]
-            Az = A @ z
-            Abar = r @ z.T - Az @ x.T - scaled @ x.T
+        prec = ctx.precision
+        # z solves A^T A z = xbar through R: z = R^-1 R^-T xbar.
+        w = torch.linalg.solve_triangular(R.T, xbar, upper=False)
+        z = torch.linalg.solve_triangular(R, w, upper=True)
+        safe = resid > 0
+        rhat = r / torch.where(safe, resid, torch.ones_like(resid))[None, :]
+        scaled = rhat * torch.where(safe, rhobar, torch.zeros_like(rhobar))[None, :]
+        Az = gemm(A, z, prec)
+        Abar = gemm(r, z.T, prec) - gemm(Az, x.T, prec) - gemm(scaled, x.T, prec)
         return Abar, Az + scaled, None
 
 

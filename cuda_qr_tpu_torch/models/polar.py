@@ -40,11 +40,12 @@ import torch
 
 from ..ops.blocked import as_matrix, complex_config
 from ..ops.chol_kernel import supported
+from ..ops.gemm import gemm
 from ..ops.smalllinalg import _eye, chol_with_inv_auto, cholesky_with_inv, library_eigh
 from ..parallel.collectives import pmax, psum
 from ..parallel.mesh import as_row_sharded, shard_rows
 from ..parallel.tsqr_dist import _check as _check_tsqr, _small_qr_q, _tsqr_dist_local
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
 from .qr import qr
@@ -119,6 +120,7 @@ def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig) -> torch.Tensor:
     m, n = X.shape
     dt = X.dtype
     cplx = X.is_complex()
+    prec = config.precision
     eye = _eye(n, X)
     for a, b, c, use_qr in schedule:
         a, b, c = float(a), float(b), float(c)
@@ -126,14 +128,12 @@ def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig) -> torch.Tensor:
         if use_qr or cplx:
             sc = math.sqrt(c)
             Q = _thin_q2(torch.cat([sc * X, eye], 0), config).to(dt)
-            with matmul_precision(config.precision):
-                X = bc * X + ((a - bc) / sc) * (Q[:m] @ Q[m:].mH)
+            X = bc * X + ((a - bc) / sc) * gemm(Q[:m], Q[m:].mH, prec)
         else:
-            with matmul_precision(config.precision):
-                Z = eye + c * (X.T @ X)
-                _, Li = _chol_inv_padded(Z, config)
-                # X Z^{-1} = (X L^{-T}) L^{-1}  with  Z = L L^T
-                X = bc * X + (a - bc) * ((X @ Li.T) @ Li)
+            Z = eye + c * gemm(X.T, X, prec)
+            _, Li = _chol_inv_padded(Z, config)
+            # X Z^{-1} = (X L^{-T}) L^{-1}  with  Z = L L^T
+            X = bc * X + (a - bc) * gemm(gemm(X, Li.T, prec), Li, prec)
     return X
 
 
@@ -289,8 +289,7 @@ def _svd_finish(Up, w, V, config: QRConfig):
     the real dtype."""
     w = w.flip(0).clamp_min(0.0)                    # descending, clipped PSD
     V = V.flip(1)
-    with matmul_precision(config.precision):
-        U = Up @ V.to(Up.dtype)
+    U = gemm(Up, V.to(Up.dtype), config.precision)
     return U, w.to(Up.real.dtype), V.mH.to(Up.dtype).resolve_conj()
 
 
@@ -304,8 +303,8 @@ def _prep(A: torch.Tensor) -> torch.Tensor:
 
 
 def _form_h(U, A, side: str, config: QRConfig) -> torch.Tensor:
-    with matmul_precision(config.precision):
-        Hm = U.mH @ A if side == "right" else A @ U.mH
+    Hm = (gemm(U.mH, A, config.precision) if side == "right"
+          else gemm(A, U.mH, config.precision))
     return (Hm + Hm.mH) * 0.5
 
 
@@ -327,6 +326,7 @@ def _qdwh_dist(X: torch.Tensor, schedule, mesh, config: QRConfig, strategy: str)
     Complex X takes the QR step at every weight."""
     n = X.shape[1]
     cplx = X.is_complex()
+    prec = config.precision
     eye = _eye(n, X)
     for a, b, c, use_qr in schedule:
         a, b, c = float(a), float(b), float(c)
@@ -334,14 +334,12 @@ def _qdwh_dist(X: torch.Tensor, schedule, mesh, config: QRConfig, strategy: str)
         if use_qr or cplx:
             sc = math.sqrt(c)
             Qd, Rd = _tsqr_dist_local(X, mesh, config, strategy)
-            with matmul_precision(config.precision):
-                Qs, _ = _small_qr_q(torch.cat([sc * Rd, eye], 0), config)
-                X = bc * X + ((a - bc) / sc) * (Qd @ (Qs[:n] @ Qs[n:].mH))
+            Qs, _ = _small_qr_q(torch.cat([sc * Rd, eye], 0), config)
+            X = bc * X + ((a - bc) / sc) * gemm(Qd, gemm(Qs[:n], Qs[n:].mH, prec), prec)
         else:
-            with matmul_precision(config.precision):
-                Z = eye + c * psum(X.T @ X, mesh)
-                _, Li = cholesky_with_inv(Z)
-                X = bc * X + (a - bc) * ((X @ Li.T) @ Li)
+            Z = eye + c * psum(gemm(X.T, X, prec), mesh)
+            _, Li = cholesky_with_inv(Z, prec)
+            X = bc * X + (a - bc) * gemm(gemm(X, Li.T, prec), Li, prec)
     return X
 
 
@@ -380,8 +378,7 @@ def polar_dist(A, mesh, l0: float | None = None, config: QRConfig = DEFAULT_CONF
         l0 = eps / 10.0
     schedule = _qdwh_schedule(l0 / (m * n) ** 0.25, eps, max_iter)
     U = _qdwh_dist(_prep_dist(a, mesh), schedule, mesh, config, strategy)
-    with matmul_precision(config.precision):
-        Hm = psum(U.mH @ a, mesh)
+    Hm = psum(gemm(U.mH, a, config.precision), mesh)
     return as_row_sharded(U, mesh, m), (Hm + Hm.mH) * 0.5
 
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.blocked import PackedQR, as_tensor, complex_config, extract_r, orgqr, ormqr, qr_blocked
+from ..ops.gemm import gemm
 from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
@@ -48,30 +49,33 @@ def qr_factor(A, config: QRConfig = DEFAULT_CONFIG) -> QRResult:
     return QRResult(qr_blocked(A, config), m, n, config)
 
 
-def thin_qr_vjp(Q, R, dQ, dR):
+def thin_qr_vjp(Q, R, dQ, dR, precision: str = "highest"):
     """Reverse rule for any thin QR, m >= n (the copyltu formula):
         M = R dR^T - dQ^T Q
         dA = (dQ + Q (tril(M,-1) + tril(M,-1)^T + diag(M))) R^{-T}
     Depends only on the primal outputs, so every thin-QR algorithm of the
     package (blocked Householder, TSQR, batched CholeskyQR) shares it.
-    Leading dimensions are a batch.
+    Leading dimensions are a batch; the three GEMMs run at ``precision``,
+    the factorization's ``config.precision`` (``cuda_qr_tpu/models/qr.py:60-83``).
     """
-    M = R @ dR.mT - dQ.mT @ Q
+    M = gemm(R, dR.mT, precision) - gemm(dQ.mT, Q, precision)
     tri = torch.tril(M, -1)
     copyltu = tri + tri.mT + torch.diag_embed(torch.diagonal(M, 0, -2, -1))
-    rhs = dQ + Q @ copyltu
+    rhs = dQ + gemm(Q, copyltu, precision)
     return torch.linalg.solve_triangular(R, rhs.mT, upper=True).mT
 
 
 class ThinQRFunction(torch.autograd.Function):
     """A thin QR ``factor(A, config) -> (Q, R)`` with the reference's custom
     VJP (``thin_qr_vjp``): the factorization's loops and host decisions are
-    not differentiated through.  ``apply(A, config, factor)``."""
+    not differentiated through.  ``apply(A, config, factor)``; the backward
+    runs at ``config.precision``."""
 
     @staticmethod
     def forward(ctx, A, config, factor):
         Q, R = factor(A, config)
         ctx.save_for_backward(Q, R)
+        ctx.precision = config.precision
         return Q, R
 
     @staticmethod
@@ -79,7 +83,7 @@ class ThinQRFunction(torch.autograd.Function):
         Q, R = ctx.saved_tensors
         dQ = torch.zeros_like(Q) if dQ is None else dQ
         dR = torch.zeros_like(R) if dR is None else dR
-        return thin_qr_vjp(Q, R, dQ, dR), None, None
+        return thin_qr_vjp(Q, R, dQ, dR, ctx.precision), None, None
 
 
 def _thin_qr_factor(A, config):

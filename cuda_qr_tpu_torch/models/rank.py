@@ -11,7 +11,10 @@ COD: A P = Q [R1; 0] with R1 (r x n); the LQ step R1 = T Z (from the QR of
 R1^H) gives A P = Q1 T Z with T (r x r) lower-triangular and Z (r x n)
 with orthonormal rows, and the minimum-norm solution of min ||Ax - b|| is
 x = P Z^H T^{-1} Q1^H b.  Complex A runs at ``complex_config`` throughout
-(the reference's ``_complexify``).
+(the reference's ``_complexify``).  The back-transforms by Z^H are
+default-precision products in the reference
+(``cuda_qr_tpu/models/rank.py:104,127``), whose TPU default is one bf16
+pass; here they run at "highest" at any ``config.precision``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.blocked import as_tensor, complex_config, extract_r, orgqr, ormqr, qr_blocked
+from ..ops.gemm import gemm
 from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
@@ -85,7 +89,7 @@ def lstsq_rr(A, b, rcond: float | None = None,
     else:
         _, Zt, T_low = _lq(R[:r, :n], config)
         y = torch.linalg.solve_triangular(T_low, QtB[:r], upper=False)
-        x = _unpermute(Zt @ y, piv)
+        x = _unpermute(gemm(Zt, y, "highest"), piv)
         resid = torch.linalg.norm(QtB[r:m], dim=0)
     if vec:
         x, resid = x[:, 0], resid[0]
@@ -104,7 +108,7 @@ def pinv(A, rcond: float | None = None,
     _, Zt, T_low = _lq(R[:r, :n], config)
     Q1 = orgqr(factors, m, factors.packed.shape[1], config)[:, :r]
     W = torch.linalg.solve_triangular(T_low, Q1.mH, upper=False)     # (r, m)
-    return _unpermute(Zt @ W, jpvt[:n])
+    return _unpermute(gemm(Zt, W, "highest"), jpvt[:n])
 
 
 def null_space(A, rcond: float | None = None,

@@ -32,11 +32,12 @@ from __future__ import annotations
 import torch
 
 from ..ops.blocked import as_matrix, complex_config, orgqr
+from ..ops.gemm import gemm
 from ..ops.smalllinalg import library_eigh
 from ..parallel.collectives import broadcast, coord, psum
 from ..parallel.mesh import as_row_sharded, shard_rows
 from ..parallel.tsqr_dist import _tsqr_dist_local
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from .qr import qr
 from .tsqr import tsqr
@@ -47,8 +48,7 @@ SKETCH_SEED = 12   # the reference's PRNGKey(12)
 def _mm(X: torch.Tensor, Y: torch.Tensor, config: QRConfig) -> torch.Tensor:
     """X @ Y at config.precision; mixed dtypes promote, as jnp.einsum does."""
     dt = torch.promote_types(X.dtype, Y.dtype)
-    with matmul_precision(config.precision):
-        return X.to(dt) @ Y.to(dt)
+    return gemm(X.to(dt), Y.to(dt), config.precision)
 
 
 def _thin_qr(Y: torch.Tensor, config: QRConfig) -> torch.Tensor:

@@ -18,6 +18,9 @@ Each ``lax.cond`` of the reference is one ``smalllinalg.host_decision``
 here (counted in ``host_syncs``): the direct path's Taylor bypass and its
 fallback, and the cholqr2 leaf fallback of a tree.
 
+Every GEMM runs at ``config.precision`` through ``ops.gemm.gemm``, but the
+direct path's two full-height ones, at the trailing precision.
+
 Complex input keeps its dtype and takes Householder leaves and tree nodes
 on the plain geqr2 + larft, whatever ``tsqr_leaf`` says
 (``_complex_config``, the reference's routing).
@@ -33,7 +36,7 @@ from ..ops.gemm import gemm
 from ..ops.geqrt import geqrt_base, geqrt_batched, geqrt_batched_plain, supported
 from ..ops.householder import larfb, unpack_r, unpack_v
 from ..ops.smalllinalg import _eye, chol_with_inv_auto, host_decision
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import ceildiv
 from .qr import ThinQRFunction
@@ -43,10 +46,10 @@ def _geqrt(A: torch.Tensor, config: QRConfig, off: int = 0):
     """geqr2 + larft of rows >= off of one (b, n) block (a column slice is
     read in place), or of every block of a stack (L, b, n) at once: on the
     geqrt kernel (its batch grid for a stack) when eligible, else the plain
-    version."""
+    version at ``config.precision``."""
     if config.use_kernels and supported(A.shape, A.dtype):
         return (geqrt_base if A.dim() == 2 else geqrt_batched)(A, off)
-    return geqrt_batched_plain(A, off)
+    return geqrt_batched_plain(A, off, config.precision)
 
 
 def _batched_qr(blocks: torch.Tensor, config: QRConfig):
@@ -56,12 +59,13 @@ def _batched_qr(blocks: torch.Tensor, config: QRConfig):
     return packed, T, unpack_r(packed)[..., :n, :]
 
 
-def _batched_orgqr(packed: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+def _batched_orgqr(packed: torch.Tensor, T: torch.Tensor,
+                   precision: str = "highest") -> torch.Tensor:
     """Explicit thin Q (L, b, n) from batched packed factors: larfb of
     I (b x n), whose V^H I is the top n x n block of V^H."""
     n = packed.shape[-1]
     V = unpack_v(packed)
-    Q = -(V @ (T @ V[..., :n, :].mH))
+    Q = -gemm(V, gemm(T, V[..., :n, :].mH, precision), precision)
     Q[..., :n, :] += _eye(n, Q)
     return Q
 
@@ -74,15 +78,17 @@ def _batched_cholqr2(blocks: torch.Tensor, config: QRConfig):
     above ~0.05 the second round cannot restore O(eps) orthogonality, and
     the Cholesky may stay finite anyway, so callers gate on it.
     """
+    prec = config.precision
+
     def one_round(A):
-        G = A.mT @ A
+        G = gemm(A.mT, A, prec)
         Lc, Li = chol_with_inv_auto(G, config)
-        return A @ Li.mT, Lc.mT, G                     # A L^-T, R upper
+        return gemm(A, Li.mT, prec), Lc.mT, G          # A L^-T, R upper
 
     Q1, R1, _ = one_round(blocks)
     Q, R2, G2 = one_round(Q1)
     emax = (G2 - _eye(blocks.shape[-1], G2)).abs().max()
-    return Q, R2 @ R1, emax
+    return Q, gemm(R2, R1, prec), emax
 
 
 def _leaf_qr(blocks: torch.Tensor, config: QRConfig, with_q: bool = True):
@@ -97,7 +103,7 @@ def _leaf_qr(blocks: torch.Tensor, config: QRConfig, with_q: bool = True):
         if not host_decision(bad):
             return Q, R
     packed, T, R = _batched_qr(blocks, config)
-    return (_batched_orgqr(packed, T) if with_q else None), R
+    return (_batched_orgqr(packed, T, config.precision) if with_q else None), R
 
 
 def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
@@ -114,11 +120,11 @@ def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
     round-1 defect, or a cond(A) proxy near cond^2 * eps ~ 1.
     """
     n = A.shape[1]
-    gprec = config.resolved_trailing_precision()
+    gprec, prec = config.resolved_trailing_precision(), config.precision
     eye = _eye(n, A)
     G = gemm(A.T, A, gprec)                                  # pass 1
     L1, L1i = chol_with_inv_auto(G, config)
-    G2 = L1i @ G @ L1i.T
+    G2 = gemm(gemm(L1i, G, prec), L1i.T, prec)
     E = G2 - eye
     emax = E.abs().max()
     tol = 3e-4 if A.dtype == torch.float32 else 3e-8
@@ -127,11 +133,11 @@ def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
         L2, L2i = eye + C, eye - C
     else:
         L2, L2i = chol_with_inv_auto(E + eye, config)
-    Rinv = L1i.T @ L2i.T
+    Rinv = gemm(L1i.T, L2i.T, prec)
     Q = None
     if with_q:
         Q = gemm(A, Rinv, gprec)                             # pass 2
-    R = torch.triu(L2.T @ L1.T)   # exact zeros below the diagonal
+    R = torch.triu(gemm(L2.T, L1.T, prec))   # exact zeros below the diagonal
     d = torch.diagonal(L1).abs()
     cond_proxy = d.max() / torch.clamp(d.min(), min=1e-30)
     eps = torch.finfo(A.dtype).eps
@@ -183,22 +189,22 @@ def _householder_small(A: torch.Tensor, config: QRConfig, with_q: bool = True):
     R = unpack_r(packed)[:n]
     if not with_q:
         return None, R
-    return larfb(_eye(m, A)[:, :n], unpack_v(packed), T, transpose=False), R
+    return larfb(_eye(m, A)[:, :n], unpack_v(packed), T, transpose=False,
+                 precision=config.precision), R
 
 
 def _tsqr_impl(A: torch.Tensor, config: QRConfig):
     m, n = A.shape
-    with matmul_precision(config.precision):
-        if m <= max(config.block_rows, 2 * n):
-            return _householder_small(A, config)
-        if config.tsqr_leaf == "cholqr2":
-            # Direct two-pass CholeskyQR2; the tree only as the fallback for
-            # cond(A) >~ 1/sqrt(eps), where Householder leaves are required.
-            Q, R, bad = _cholqr2_direct(A, config)
-            if not host_decision(bad):
-                return Q, R
-            config = config.replace(tsqr_leaf="householder")
-        return _tsqr_tree(A, config)
+    if m <= max(config.block_rows, 2 * n):
+        return _householder_small(A, config)
+    if config.tsqr_leaf == "cholqr2":
+        # Direct two-pass CholeskyQR2; the tree only as the fallback for
+        # cond(A) >~ 1/sqrt(eps), where Householder leaves are required.
+        Q, R, bad = _cholqr2_direct(A, config)
+        if not host_decision(bad):
+            return Q, R
+        config = config.replace(tsqr_leaf="householder")
+    return _tsqr_tree(A, config)
 
 
 def _blocks(A: torch.Tensor, config: QRConfig) -> torch.Tensor:
@@ -229,13 +235,14 @@ def _tsqr_tree(A: torch.Tensor, config: QRConfig):
         levels.append(Qk)                              # (nodes, 2n, n)
     # Q build-down: root -> leaves.  A padded (phantom) sibling has no
     # parent slice: take only the real nodes' n x n pieces.
+    prec = config.precision
     Qcur = None
     for Qk in reversed(levels):
         if Qcur is not None:
-            Qk = Qk @ Qcur[:Qk.shape[0]]
+            Qk = gemm(Qk, Qcur[:Qk.shape[0]], prec)
         Qcur = Qk.reshape(Qk.shape[0] * 2, n, n)
     if Qcur is not None:
-        Qleaf = Qleaf @ Qcur[:L]
+        Qleaf = gemm(Qleaf, Qcur[:L], prec)
     return Qleaf.reshape(-1, n)[:m], R[0]
 
 
@@ -247,15 +254,14 @@ def tsqr_r(A, config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:
 
 def _tsqr_r_impl(A: torch.Tensor, config: QRConfig) -> torch.Tensor:
     m, n = A.shape
-    with matmul_precision(config.precision):
-        if m <= max(config.block_rows, 2 * n):
-            return _householder_small(A, config, with_q=False)[1]
-        if config.tsqr_leaf == "cholqr2":
-            _, R, bad = _cholqr2_direct(A, config, with_q=False)
-            if not host_decision(bad):
-                return R
-            config = config.replace(tsqr_leaf="householder")
-        _, R = _leaf_qr(_blocks(A, config), config, with_q=False)
-        while R.shape[0] > 1:
-            _, R = _leaf_qr(_tree_level(R), config, with_q=False)
-        return R[0]
+    if m <= max(config.block_rows, 2 * n):
+        return _householder_small(A, config, with_q=False)[1]
+    if config.tsqr_leaf == "cholqr2":
+        _, R, bad = _cholqr2_direct(A, config, with_q=False)
+        if not host_decision(bad):
+            return R
+        config = config.replace(tsqr_leaf="householder")
+    _, R = _leaf_qr(_blocks(A, config), config, with_q=False)
+    while R.shape[0] > 1:
+        _, R = _leaf_qr(_tree_level(R), config, with_q=False)
+    return R[0]

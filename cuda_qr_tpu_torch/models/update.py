@@ -17,6 +17,11 @@ inputs unchanged.  Complex factors follow LAPACK's clartg convention, as
 the reference's: G = [[c, -s], [conj(s), c]] with real c, applied as
 M <- G M and Q <- Q G^H; ``qr_rank1_update`` computes A + u v^H
 (scipy.linalg.qr_update's convention; v^H = v^T for real v).
+
+GEMM precision: the projections onto span(Q) run at the ``precision`` the
+function takes, as the reference's; the rotations are exact float32 products
+in the reference (elementwise), so their 2 x 2 GEMMs run at "highest"
+whatever the caller's TF32 state.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..utils.config import matmul_precision
+from ..ops.gemm import gemm
 
 
 def _givens(a: torch.Tensor, b: torch.Tensor):
@@ -56,18 +61,19 @@ def _rotate(M: torch.Tensor, Q: torch.Tensor, i: int, j: int, c, s) -> None:
     """In place: rows (i, j) of M <- G [M_i; M_j] and columns (i, j) of Q
     <- [Q_i, Q_j] G^H, for G = [[c, -s], [conj(s), c]]."""
     G = torch.stack([c.to(s.dtype), -s, s.conj(), c.to(s.dtype)]).reshape(2, 2)
-    rows = G @ torch.stack([M[i], M[j]])
+    rows = gemm(G, torch.stack([M[i], M[j]]), "highest")
     M[i], M[j] = rows[0], rows[1]
-    cols = torch.stack([Q[:, i], Q[:, j]], 1) @ G.mH
+    cols = gemm(torch.stack([Q[:, i], Q[:, j]], 1), G.mH, "highest")
     Q[:, i], Q[:, j] = cols[:, 0], cols[:, 1]
 
 
-def _orthogonal_complement(Q: torch.Tensor, u: torch.Tensor):
+def _orthogonal_complement(Q: torch.Tensor, u: torch.Tensor, precision: str):
     """(q, Q^H u, rho): q is the unit residual of u against span(Q) (zero
     when u already lies in the span -- the chains then never mix the dead
-    column in, because its Givens weight is zero), rho its norm (real)."""
-    w = Q.mH @ u
-    r = u - Q @ w
+    column in, because its Givens weight is zero), rho its norm (real); the
+    two products at ``precision``."""
+    w = gemm(Q.mH, u, precision)
+    r = u - gemm(Q, w, precision)
     rho = torch.linalg.norm(r)
     safe = rho > 0
     q = torch.where(safe, r / torch.where(safe, rho, 1.0), 0.0)
@@ -85,20 +91,19 @@ def qr_rank1_update(Q: torch.Tensor, R: torch.Tensor, u: torch.Tensor,
     triangularity.  2n rotations.
     """
     m, n = Q.shape
-    with matmul_precision(precision):
-        q, w, rho = _orthogonal_complement(Q, u.to(Q.dtype))
-        Q1 = torch.cat([Q, q[:, None]], 1)
-        M = torch.cat([R, R.new_zeros(1, n)], 0)
-        we = torch.cat([w, rho.to(w.dtype)[None]])
-        for i in range(n - 1, -1, -1):
-            c, s, r = _givens(we[i], we[i + 1])
-            we[i] = r
-            we[i + 1].zero_()
-            _rotate(M, Q1, i, i + 1, c, s)
-        M[0] += we[0] * v.to(M.dtype).conj()
-        for i in range(n):
-            c, s, _ = _givens(M[i, i], M[i + 1, i])
-            _rotate(M, Q1, i, i + 1, c, s)
+    q, w, rho = _orthogonal_complement(Q, u.to(Q.dtype), precision)
+    Q1 = torch.cat([Q, q[:, None]], 1)
+    M = torch.cat([R, R.new_zeros(1, n)], 0)
+    we = torch.cat([w, rho.to(w.dtype)[None]])
+    for i in range(n - 1, -1, -1):
+        c, s, r = _givens(we[i], we[i + 1])
+        we[i] = r
+        we[i + 1].zero_()
+        _rotate(M, Q1, i, i + 1, c, s)
+    M[0] += we[0] * v.to(M.dtype).conj()
+    for i in range(n):
+        c, s, _ = _givens(M[i, i], M[i + 1, i])
+        _rotate(M, Q1, i, i + 1, c, s)
     return Q1[:, :n], torch.triu(M[:n])
 
 
@@ -152,8 +157,7 @@ def qr_row_delete(Q: torch.Tensor, R: torch.Tensor, k: int,
         raise ValueError(f"row_delete needs m > n (thin QR after deletion), got {m}x{n}")
     ek = Q.new_zeros(m)
     ek[k].fill_(1)
-    with matmul_precision(precision):
-        w, q, _ = _orthogonal_complement(Q, ek)
+    w, q, _ = _orthogonal_complement(Q, ek, precision)
     Qe = torch.cat([Q, w[:, None]], 1)
     M = torch.cat([R, R.new_zeros(1, n)], 0)
     # gamma^2 = 1 - ||q||^2, real also for complex Q (Bjorck)
@@ -178,8 +182,7 @@ def qr_col_insert(Q: torch.Tensor, R: torch.Tensor, a: torch.Tensor, k: int,
     m, n = Q.shape
     if m <= n:
         raise ValueError(f"col_insert needs m > n to extend the basis, got {m}x{n}")
-    with matmul_precision(precision):
-        q, w, rho = _orthogonal_complement(Q, a.to(Q.dtype))
+    q, w, rho = _orthogonal_complement(Q, a.to(Q.dtype), precision)
     Q1 = torch.cat([Q, q[:, None]], 1)
     Rp = F.pad(R, (0, 0, 0, 1))
     newcol = torch.cat([w, rho.to(w.dtype)[None]])[:, None]

@@ -17,10 +17,10 @@ merged g*nb-deep block reflector updates the trailing columns.  Each group
 works on rows >= its first panel's offset, since the rows above are final.
 
 Storage is ``PackedQR`` (packed V/R, taus, Ts, VJs), the reference's, so
-factors compare one to one and carry across (``utils/interop.py``).  The
-trailing, merge and orgqr GEMMs go through ``ops/gemm.gemm`` at the
-trailing or orgqr precision ("high" is 3xTF32); the panels run under
-``matmul_precision(config.precision)``.
+factors compare one to one and carry across (``utils/interop.py``).  Every
+GEMM goes through ``ops/gemm.gemm``: the trailing, merge and orgqr GEMMs at
+the trailing or orgqr precision, the panels' at ``config.precision`` ("high"
+is 3xTF32 in each).
 
 Complex input (LAPACK cgeqrf conventions) runs the plain geqr2 panels at its
 own dtype whatever ``panel_method`` says, as the reference routes it
@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
 from .gemm import gemm
@@ -150,7 +150,8 @@ def _groups(k: int, width: int, stages: int, schedule=None):
 
 
 def _panel_factor(panel: torch.Tensor, off: int, config: QRConfig):
-    """Factor rows >= off of a (m x nb) panel: (packed, tau, T, VJ)."""
+    """Factor rows >= off of a (m x nb) panel: (packed, tau, T, VJ), its
+    GEMMs at ``config.precision``."""
     nb = panel.shape[1]
     method = config.panel_method if config.use_kernels else "geqr2"
     if method == "cholqr2_bk":
@@ -164,8 +165,8 @@ def _panel_factor(panel: torch.Tensor, off: int, config: QRConfig):
         packed, tau, T = geqrt_panel(panel, off, config)
     else:
         cdt = torch.float32 if panel.dtype == torch.bfloat16 else panel.dtype
-        lo, tau = geqr2(panel[off:].to(cdt))
-        T = panel_larft(unpack_v(lo), tau)
+        lo, tau = geqr2(panel[off:].to(cdt), precision=config.precision)
+        T = panel_larft(unpack_v(lo), tau, config.precision)
         packed = torch.cat([panel[:off], lo.to(panel.dtype)], 0)
     return packed, tau, T, unit_vj(packed, off, nb)
 
@@ -208,8 +209,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
             block = Ap[r0:, c:c + nb]
             for V, T in zip(Vs, Tg):
                 block = larfb(block, V, T, transpose=True, precision=prec)
-            with matmul_precision(config.precision):
-                packed, tau, T, VJ = _panel_factor(block.to(sdt), off, config)
+            packed, tau, T, VJ = _panel_factor(block.to(sdt), off, config)
             packed = packed.to(cdt)
             Ap[r0:, c:c + nb] = packed
             taus[i], Ts[i], VJs[i] = tau, T, VJ

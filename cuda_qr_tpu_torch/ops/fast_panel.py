@@ -11,6 +11,10 @@ reconstruction (counterpart of ``cuda_qr_tpu/ops/fast_panel.py``).
   3. Householder fallback (geqr2 + larft) on Cholesky breakdown or a
      round-1 Gram error above ``_EMAX_GATE``.
 
+Every product runs at ``config.precision`` (the reference's ``prec``), the
+Householder fallback's included; the chol_inv kernel computes in float32
+at any precision.
+
 The panel's live rows are rows >= off; the functions slice them instead of
 masking a full-height panel, and return full-height packed panels whose
 rows above ``off`` are the input's.  The reference's device-side branches
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .gemm import gemm
 from .householder import geqr2, larft, unpack_v
 from .smalllinalg import chol_with_inv_auto, host_decision, lu_with_inv, newton_inverse
 
@@ -42,10 +47,11 @@ def _cholqr2(X: torch.Tensor, config=None):
     """
     nb = X.shape[1]
     dtype = X.dtype
+    prec = config.precision
     eye = _eye(nb, X)
-    L1, L1i = chol_with_inv_auto(X.T @ X, config)
-    Q1 = X @ L1i.T
-    E = Q1.T @ Q1 - eye
+    L1, L1i = chol_with_inv_auto(gemm(X.T, X, prec), config)
+    Q1 = gemm(X, L1i.T, prec)
+    E = gemm(Q1.T, Q1, prec) - eye
     emax = E.abs().max()
     tol = 3e-4 if dtype == torch.float32 else 3e-8
     if host_decision(emax < tol):
@@ -53,12 +59,12 @@ def _cholqr2(X: torch.Tensor, config=None):
         L2, L2i = eye + C, eye - C
     else:
         L2, L2i = chol_with_inv_auto(E + eye, config)
-    Q = Q1 @ L2i.T
-    Rpos = L2.T @ L1.T
+    Q = gemm(Q1, L2i.T, prec)
+    Rpos = gemm(L2.T, L1.T, prec)
     return Q, Rpos, emax
 
 
-def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor):
+def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor, precision: str):
     """Householder reconstruction from CholeskyQR2's live Q (m' x nb) and
     positive-diagonal R: (packed_live, tau, T, VJ) with unit-lower VJ."""
     nb = Q.shape[1]
@@ -66,12 +72,12 @@ def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor):
     QJ = Q[:nb]
     s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(Q.dtype)
     YJ = eye - QJ * s[None, :]
-    VJl, W, VJi, Wi = lu_with_inv(YJ)
+    VJl, W, VJi, Wi = lu_with_inv(YJ, precision)
     # V = (E_J - Q S) Wi = place(Wi at rows J) - Q (S Wi)
-    Z = Q @ (s[:, None] * Wi)
+    Z = gemm(Q, s[:, None] * Wi, precision)
     V = -Z
     V[:nb] = Wi - Z[:nb]
-    T = W @ VJi.T
+    T = gemm(W, VJi.T, precision)
     tau = torch.diagonal(T).clone()
     R_house = s[:, None] * Rpos
     packed = V
@@ -80,11 +86,11 @@ def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor):
     return packed, tau, T, VJ
 
 
-def _householder_fallback(panel: torch.Tensor, off: int):
+def _householder_fallback(panel: torch.Tensor, off: int, precision: str):
     """geqr2 + larft on the live rows (packed_live, tau, T, VJ)."""
     nb = panel.shape[1]
-    lo, tau = geqr2(panel[off:])
-    T = larft(unpack_v(lo), tau)
+    lo, tau = geqr2(panel[off:], precision=precision)
+    T = larft(unpack_v(lo), tau, precision)
     VJ = torch.tril(lo[:nb], -1) + _eye(nb, lo)
     return lo, tau, T, VJ
 
@@ -100,9 +106,9 @@ def panel_factor_cholqr2hr(panel: torch.Tensor, off: int, config):
     if cast_back is not None:
         panel = panel.float()
     Q, Rpos, emax = _cholqr2(panel[off:], config)
-    live, tau, T, _ = _hr_construct(Q, Rpos)
+    live, tau, T, _ = _hr_construct(Q, Rpos, config.precision)
     if _bad(live, T, emax):
-        live, tau, T, _ = _householder_fallback(panel, off)
+        live, tau, T, _ = _householder_fallback(panel, off, config.precision)
     packed = torch.cat([panel[:off], live], 0)
     if cast_back is not None:
         packed = packed.to(cast_back)
@@ -125,25 +131,26 @@ def panel_factor_cholqr2bk(panel: torch.Tensor, off: int, config):
     if cast_back is not None:
         panel = panel.float()
     dtype = panel.dtype
+    prec = config.precision
     Q, Rpos, emax = _cholqr2(panel[off:], config)
     eye = _eye(nb, Q)
     QJ = Q[:nb]
     s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(dtype)
     M = eye - s[:, None] * QJ
-    N, _ = newton_inverse(M)
+    N, _ = newton_inverse(M, prec)
     # H deviates from orthogonality by <= 16 ||N||^2 ||I - M N|| to first
     # order, and cond(M) is unbounded for near-square live panels.
-    errN = (eye - M @ N).abs().max()
+    errN = (eye - gemm(M, N, prec)).abs().max()
     cert = N.abs().max() ** 2 * errN
     if host_decision(~(cert <= 100 * torch.finfo(dtype).eps)):   # NaN -> HR
-        live, tau, T, VJ = _hr_construct(Q, Rpos)
+        live, tau, T, VJ = _hr_construct(Q, Rpos, prec)
     else:
         T = N.T
         tau = torch.diagonal(T).clone()
         VJ = QJ - torch.diag(s)
         live = torch.cat([torch.triu(s[:, None] * Rpos), Q[nb:]], 0)
     if _bad(live, T, emax):
-        live, tau, T, VJ = _householder_fallback(panel, off)
+        live, tau, T, VJ = _householder_fallback(panel, off, prec)
     packed = torch.cat([panel[:off], live], 0)
     if cast_back is not None:
         packed = packed.to(cast_back)

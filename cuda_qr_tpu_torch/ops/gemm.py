@@ -1,8 +1,9 @@
 """float32 GEMMs at the reference's precisions, as the card computes them.
 
 No counterpart module in the reference: there, every einsum takes XLA's
-``precision=``, and XLA picks the TPU's passes.  Here a precision is a
-string, and this module is how the card computes each:
+``precision=``, and XLA picks the TPU's passes.  Here every float32 GEMM of
+the package is ``gemm(a, b, precision)``, its precision a string passed
+down as an argument, and this module is how the card computes each:
 
   "highest": full float32, TF32 off (``Precision.HIGHEST``);
   "tf32":    one TF32 tensor-core product, 10 explicit mantissa bits in
@@ -20,17 +21,24 @@ PERF.md).  So up to K = ``K_CHUNK`` "high" is ONE product of the operands
 concatenated along K, [hi_a | lo_a | hi_a] [lo_b; hi_b; hi_b] (one output
 written, not three); past it, three products, hi_a hi_b summed over K in
 chunks of ``K_CHUNK`` whose products are added in float32 by ``torch.sum``.
+cuBLAS has no TF32 matrix-vector product: a 1-D operand's passes run in
+IEEE float32 on the card whatever the precision.
 
 Inputs that are not float32 (float64, complex) ignore the precision and
-run with TF32 off.  The TF32 flag is set around exactly these products and
-restored after, as ``utils.config.matmul_precision`` does.
+run with TF32 off.  ``_product`` is the one place in the package that
+touches PyTorch's TF32 state: it sets
+``torch.backends.cuda.matmul.fp32_precision`` around exactly one product
+and restores it after, also when the product raises.  It never reads or
+writes PyTorch's legacy TF32 flag or its setter: PyTorch (2.9 and later)
+refuses to read the legacy flag once a caller has used the
+``fp32_precision`` API.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..utils.config import matmul_precision
+from ..utils.config import PRECISIONS
 
 K_CHUNK = 256
 _LOW = (1 << 13) - 1               # float32's 23 mantissa bits minus TF32's 10
@@ -52,10 +60,28 @@ def split_tf32(x: torch.Tensor):
     return hi, torch.where(normal, x - hi, 0.0)
 
 
+def _product(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """``torch.matmul(a, b)`` with cuBLAS's float32 mode ``mode`` ("ieee" or
+    "tf32").  The mode is written only when it differs from the caller's
+    ("none", nothing set anywhere, is IEEE), and the caller's comes back
+    after: "none" first, so that a mode inherited from
+    ``torch.backends.fp32_precision`` stays inherited, else the value read."""
+    flags = torch.backends.cuda.matmul
+    saved = flags.fp32_precision
+    if saved == mode or (saved == "none" and mode == "ieee"):
+        return torch.matmul(a, b)
+    flags.fp32_precision = mode
+    try:
+        return torch.matmul(a, b)
+    finally:
+        flags.fp32_precision = "none"
+        if flags.fp32_precision != saved:
+            flags.fp32_precision = saved
+
+
 def _tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """One float32 product with TF32 on (``torch.matmul`` semantics)."""
-    with matmul_precision("tf32"):
-        return torch.matmul(a, b)
+    return _product(a, b, "tf32")
 
 
 def _tf32_chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,14 +102,14 @@ def _tf32_chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
-    """``torch.matmul(a, b)`` (batch-aware) at ``precision``: "highest",
-    "tf32" or "high" (3xTF32) for float32 operands; other dtypes run with
-    TF32 off whatever ``precision`` says."""
-    if precision not in ("highest", "tf32", "high"):
-        raise ValueError(f"precision={precision!r}; expected 'highest', 'tf32' or 'high'")
+    """``torch.matmul(a, b)`` (batch-aware, 1-D operands as matmul takes
+    them) at ``precision``: "highest", "tf32" or "high" (3xTF32) for float32
+    operands; other dtypes run with TF32 off whatever ``precision`` says.
+    "highest" is one ``torch.matmul``, nothing more."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}; expected one of {PRECISIONS}")
     if precision == "highest" or a.dtype != torch.float32 or b.dtype != torch.float32:
-        with matmul_precision("highest"):
-            return torch.matmul(a, b)
+        return _product(a, b, "ieee")
     if precision == "tf32":
         return _tf32_product(a, b)
     hi_a, lo_a = split_tf32(a)
@@ -94,3 +120,4 @@ def gemm(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
                              torch.cat([lo_b, hi_b, hi_b], k_axis))
     small = _tf32_product(hi_a, lo_b) + _tf32_product(lo_a, hi_b)
     return small + _tf32_chunked(hi_a, hi_b)
+

@@ -9,8 +9,9 @@ design does about that.  The plain PyTorch version is ``geqr2`` + ``larft``
 
 ``geqrt_base`` takes the plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.  Around it, ``_geqrt_recursive`` halves the
-panel down to ``config.panel_base`` columns and joins the halves with GEMMs,
-as the reference does.
+panel down to ``config.panel_base`` columns and joins the halves with GEMMs
+at ``config.precision``, as the reference does; the kernel computes in
+float32 at any precision, as the reference's does at HIGHEST.
 
 ``geqrt_batched`` factors a stack of equal panels in one launch of the
 kernel's batch grid: the TSQR leaves and tree nodes (``models/tsqr.py``),
@@ -30,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .gemm import gemm
 from .householder import geqr2, larfb, panel_larft, unpack_v
 
 MAX_W = 128
@@ -47,13 +49,14 @@ def supported(shape, dtype) -> bool:
     return dtype in (torch.float32, torch.float64) and 1 <= w <= min(MAX_W, m)
 
 
-def geqrt_base_plain(panel: torch.Tensor, off: int):
-    """geqr2 + larft on rows >= off: (packed, tau, T).  Leading dimensions
+def geqrt_base_plain(panel: torch.Tensor, off: int, precision: str = "highest"):
+    """geqr2 + larft on rows >= off: (packed, tau, T), the products at
+    ``precision`` ("highest" is the kernel's function).  Leading dimensions
     are a batch, reduced column by column all at once.  T is
     ``panel_larft``'s: a float32 Gram accumulated in float64, as the kernel
     sums it from partial sums."""
-    lo, tau = geqr2(panel[..., off:, :])
-    T = panel_larft(unpack_v(lo), tau)
+    lo, tau = geqr2(panel[..., off:, :], precision=precision)
+    T = panel_larft(unpack_v(lo), tau, precision)
     return torch.cat([panel[..., :off, :], lo], -2), tau, T
 
 
@@ -183,11 +186,12 @@ def _geqrt_recursive(panel: torch.Tensor, off: int, config):
         return geqrt_base(panel, off)
     h = nb // 2
     lp, tau_l, T_l = _geqrt_recursive(panel[:, :h], off, config)
+    prec = config.precision
     V_l = unpack_v(lp, off)
-    right = larfb(panel[:, h:], V_l, T_l, transpose=True)
+    right = larfb(panel[:, h:], V_l, T_l, transpose=True, precision=prec)
     rp, tau_r, T_r = _geqrt_recursive(right, off + h, config)
     V_r = unpack_v(rp, off + h)
-    T12 = -(T_l @ (V_l.T @ V_r) @ T_r)
+    T12 = -gemm(gemm(T_l, gemm(V_l.T, V_r, prec), prec), T_r, prec)
     z = torch.zeros((nb - h, h), dtype=T_l.dtype, device=T_l.device)
     T = torch.cat([torch.cat([T_l, T12], 1), torch.cat([z, T_r], 1)], 0)
     return torch.cat([lp, rp], 1), torch.cat([tau_l, tau_r]), T

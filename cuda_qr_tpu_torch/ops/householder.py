@@ -17,36 +17,34 @@ complex input can reach is the conjugate one (``.mH``, ``.conj()``), which
 for a real tensor is the plain transpose (the same view), so real results
 are unchanged bit for bit.
 
-GEMM precision: ``larfb`` and ``merge_wy`` take ``precision=`` (a string
-of ``ops/gemm.py``, "high" included), as the reference's do; None, the
-default, and every other function here run under the flag the caller set
-around the call (``utils.config.matmul_precision``).
+GEMM precision: every product here goes through ``ops.gemm.gemm`` at the
+``precision`` its function takes (a string of ``ops/gemm.py``, "high"
+included), "highest" by default, as the reference's functions take
+``precision=`` (``cuda_qr_tpu/ops/householder.py``).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
 from .gemm import gemm
 
 
-def vecmat(v: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+def vecmat(v: torch.Tensor, M: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """v^T M (no conjugation) over leading batch dims: v (..., k), M (..., k, n) -> (..., n).
 
     The unbatched case stays a 1-D product, so its rounding is that of the
     2-D code."""
     if v.dim() == 1 and M.dim() == 2:
-        return v @ M
-    return (v.unsqueeze(-2) @ M).squeeze(-2)
+        return gemm(v, M, precision)
+    return gemm(v.unsqueeze(-2), M, precision).squeeze(-2)
 
 
-def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def matvec(M: torch.Tensor, v: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """M v over leading batch dims: M (..., m, k), v (..., k) -> (..., m)."""
     if v.dim() == 1 and M.dim() == 2:
-        return M @ v
-    return (M @ v.unsqueeze(-1)).squeeze(-1)
+        return gemm(M, v, precision)
+    return gemm(M, v.unsqueeze(-1), precision).squeeze(-1)
 
 
 def make_reflector(col: torch.Tensor, d: int):
@@ -106,14 +104,17 @@ def _make_reflector_complex(col: torch.Tensor, d: int):
     return v, tau, torch.where(degenerate, x0, beta.to(col.dtype))
 
 
-def geqr2(A: torch.Tensor, row_offset: int = 0):
+def geqr2(A: torch.Tensor, row_offset: int = 0, precision: str = "highest"):
     """Unblocked Householder QR of rows >= row_offset of A (..., m, n).
 
     Column j is reduced over rows >= row_offset + j; rows above row_offset
     are untouched.  Returns (packed, tau): R on/above the shifted diagonal,
     reflector tails below, one tau per column.  A is not modified.  Leading
     dimensions are a batch, reduced column by column all at once.  Each
-    column applies H^H = I - conj(tau) v v^H (H itself for real input).
+    column applies H^H = I - conj(tau) v v^H (H itself for real input); its
+    vector-matrix product runs at ``precision`` (on the card an unbatched
+    one is a matrix-vector product, which has no TF32 path: IEEE float32
+    at any precision).
     """
     A = A.clone()
     m, n = A.shape[-2:]
@@ -125,7 +126,7 @@ def geqr2(A: torch.Tensor, row_offset: int = 0):
         v, tj, beta = make_reflector(A[..., :, j], d)
         vl = v[..., d:]
         if j + 1 < n:
-            w = tj.conj()[..., None] * vecmat(vl.conj(), A[..., d:, j + 1:])
+            w = tj.conj()[..., None] * vecmat(vl.conj(), A[..., d:, j + 1:], precision)
             A[..., d:, j + 1:] -= vl[..., :, None] * w[..., None, :]
         A[..., d, j] = beta
         A[..., d + 1:, j] = vl[..., 1:]
@@ -149,53 +150,50 @@ def unpack_r(packed: torch.Tensor, row_offset: int = 0) -> torch.Tensor:
     return torch.where(r <= c + row_offset, packed, torch.zeros_like(packed))
 
 
-def larft(V: torch.Tensor, tau: torch.Tensor, gram_dtype=None) -> torch.Tensor:
+def larft(V: torch.Tensor, tau: torch.Tensor, precision: str = "highest",
+          gram_dtype=None) -> torch.Tensor:
     """Forward compact-WY T: Q = I - V T V^H, T upper triangular.
 
     T[:j, j] = -tau_j T[:j, :j] (V[:, :j]^H v_j), T[j, j] = tau_j, with the
     Gram matrix V^H V formed once, accumulated in ``gram_dtype`` (None: V's
-    own) and rounded to V's.  V (..., m, n), tau (..., n)."""
+    own) and rounded to V's; every product at ``precision``.  V (..., m, n),
+    tau (..., n)."""
     n = V.shape[-1]
     W = V if gram_dtype is None else V.to(gram_dtype)
-    G = (W.mH @ W).to(V.dtype)
+    G = gemm(W.mH, W, precision).to(V.dtype)
     T = torch.zeros(V.shape[:-2] + (n, n), dtype=V.dtype, device=V.device)
     for j in range(n):
         if j:
-            T[..., :j, j] = -tau[..., j, None] * matvec(T[..., :j, :j], G[..., :j, j])
+            T[..., :j, j] = -tau[..., j, None] * matvec(T[..., :j, :j], G[..., :j, j], precision)
         T[..., j, j] = tau[..., j]
     return T
 
 
-def panel_larft(V: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-    """larft of a factored panel, the Gram of float32 V accumulated in
-    float64.  T's rounding is mostly its Gram's.  The geqrt kernels sum each
-    Gram entry from partial sums over row slices (``csrc/geqrt.cu``,
-    ``column_steps``; the reference's, one dot product over the rows,
-    ``cuda_qr_tpu/ops/geqrt.py:79-82``); a float32 GEMM sums in the
-    library's order, up to 1.8x further from exact (MKL on the CPU at 512 x
-    128).  Other dtypes keep their own Gram."""
-    return larft(V, tau, torch.float64 if V.dtype == torch.float32 else None)
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor, precision: Optional[str]) -> torch.Tensor:
-    """a @ b at ``precision``, or under the caller's flag for None."""
-    return a @ b if precision is None else gemm(a, b, precision)
+def panel_larft(V: torch.Tensor, tau: torch.Tensor, precision: str = "highest") -> torch.Tensor:
+    """larft of a factored panel at ``precision``, the Gram of float32 V
+    accumulated in float64.  T's rounding is mostly its Gram's.  The geqrt
+    kernels sum each Gram entry from partial sums over row slices
+    (``csrc/geqrt.cu``, ``column_steps``; the reference's, one dot product
+    over the rows, ``cuda_qr_tpu/ops/geqrt.py:79-82``); a float32 GEMM sums
+    in the library's order, up to 1.8x further from exact (MKL on the CPU
+    at 512 x 128).  Other dtypes keep their own Gram."""
+    return larft(V, tau, precision, torch.float64 if V.dtype == torch.float32 else None)
 
 
 def larfb(B: torch.Tensor, V: torch.Tensor, T: torch.Tensor,
-          transpose: bool = True, precision: Optional[str] = None) -> torch.Tensor:
+          transpose: bool = True, precision: str = "highest") -> torch.Tensor:
     """Q^H B (transpose=True) or Q B for Q = I - V T V^H (batch-aware):
     B - V T^H (V^H B) or B - V T (V^H B), each product at ``precision``."""
-    W = _mm(V.mH, B, precision)
-    W = _mm(T.mH if transpose else T, W, precision)
-    return B - _mm(V, W, precision)
+    W = gemm(V.mH, B, precision)
+    W = gemm(T.mH if transpose else T, W, precision)
+    return B - gemm(V, W, precision)
 
 
 def merge_wy(V1: torch.Tensor, T1: torch.Tensor, V2: torch.Tensor,
-             T2: torch.Tensor, precision: Optional[str] = None) -> torch.Tensor:
+             T2: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """T of (I - V1 T1 V1^H)(I - V2 T2 V2^H) = I - [V1 V2] T [V1 V2]^H:
         T = [[T1, -T1 (V1^H V2) T2], [0, T2]], each product at ``precision``."""
-    T12 = -_mm(T1, _mm(_mm(V1.mH, V2, precision), T2, precision), precision)
+    T12 = -gemm(T1, gemm(gemm(V1.mH, V2, precision), T2, precision), precision)
     z = torch.zeros((T2.shape[0], T1.shape[0]), dtype=T1.dtype, device=T1.device)
     return torch.cat([torch.cat([T1, T12], 1), torch.cat([z, T2], 1)], 0)
 

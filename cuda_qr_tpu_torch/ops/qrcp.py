@@ -32,10 +32,11 @@ import math
 
 import torch
 
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
 from .blocked import PackedQR, _panel_factor, as_tensor, complex_config
+from .gemm import gemm
 from .householder import panel_v
 from .select_kernel import select_pivots_kernel, select_pivots_plain, supported
 
@@ -58,8 +59,9 @@ def _select_pivots(B: torch.Tensor, j0: int, nb: int, cand: int,
     """ordsel (n_pad,) int32: selection step 0..nb-1 of the nb columns chosen
     from the sketch B (l, n_pad) among columns >= j0, -1 elsewhere.
 
-    config=None takes the plain selection; a config with use_kernels and
-    use_select_kernel takes kernel B3 where ``supported`` admits the tile.
+    config=None takes the plain selection at "highest"; a config with
+    use_kernels and use_select_kernel takes kernel B3 where ``supported``
+    admits the tile, else the plain selection at ``config.precision``.
     """
     l, n_pad = B.shape
     col = torch.arange(n_pad, device=B.device)
@@ -73,7 +75,8 @@ def _select_pivots(B: torch.Tensor, j0: int, nb: int, cand: int,
             and supported(l, cand, nb, B.dtype)):
         ord_c = select_pivots_kernel(Sc, norms_c, nb)
     else:
-        ord_c = select_pivots_plain(Sc, norms_c, nb)
+        ord_c = select_pivots_plain(Sc, norms_c, nb,
+                                    "highest" if config is None else config.precision)
     ordsel = torch.full((n_pad,), -1, dtype=torch.int32, device=B.device)
     return ordsel.index_copy_(0, cand_idx, ord_c)
 
@@ -146,8 +149,8 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
     l = sketch_rows(m_pad, nb)
     cand = min(n_pad, 4 * nb)
     Omega = _sketch(m_pad, l, cdt, dev, generator, omega)
-    with matmul_precision(config.precision):
-        B = Omega @ Ap
+    prec = config.precision
+    B = gemm(Omega, Ap, prec)
 
     jpvt = torch.arange(n_pad, device=dev)
     taus = torch.zeros((kp, nb), dtype=cdt, device=dev)
@@ -156,16 +159,14 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
     eps = torch.finfo(cdt).eps
     for j in range(kp):
         j0, j1 = j * nb, (j + 1) * nb
-        with matmul_precision(config.precision):
-            ordsel = _select_pivots(B, j0, nb, cand, config)
+        ordsel = _select_pivots(B, j0, nb, cand, config)
         src = _block_perm(ordsel, j0, nb)[j0:]
         # Every row moves: rows above j0 hold these columns' R12 entries.
         Ap[:, j0:] = Ap.index_select(1, src)
         B[:, j0:] = B.index_select(1, src)
         jpvt[j0:] = jpvt.index_select(0, src)
 
-        with matmul_precision(config.precision):
-            packed, tau, T, VJ = _panel_factor(Ap[j0:, j0:j1].to(sdt), 0, config)
+        packed, tau, T, VJ = _panel_factor(Ap[j0:, j0:j1].to(sdt), 0, config)
         packed = packed.to(cdt)
         Ap[j0:, j0:j1] = packed
         taus[j], Ts[j], VJs[j] = tau, T, VJ
@@ -175,9 +176,8 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
         # Trailing update (I - V T V^H)^H on rows >= j0, columns >= j0 + nb,
         # at ``precision`` as in the reference (``trailing_precision`` is
         # qr_blocked's knob; the reference's QRCP does not read it).
-        with matmul_precision(config.precision):
-            V, Tc = panel_v(packed, 0, VJ), T.to(cdt)
-            rest -= V @ (Tc.mH @ (V.mH @ rest))
+        V, Tc = panel_v(packed, 0, VJ), T.to(cdt)
+        rest -= gemm(V, gemm(Tc.mH, gemm(V.mH, rest, prec), prec), prec)
         if sdt != cdt:
             rest.copy_(rest.to(sdt))
 
@@ -189,8 +189,7 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
         safe = d.abs() > eps * torch.clamp_min(d.abs().max(), 1)
         R1 = R1 + torch.diag(torch.where(safe, 0.0, 1.0 - d))
         X = torch.linalg.solve_triangular(R1, Ap[j0:j1, j1:], upper=True)
-        with matmul_precision(config.precision):
-            B[:, j1:] -= B[:, j0:j1] @ X
+        B[:, j1:] -= gemm(B[:, j0:j1], X, prec)
 
     kb = kp * nb
     factors = PackedQR(packed=Ap[:, :kb].to(sdt), taus=taus, Ts=Ts, VJs=VJs)

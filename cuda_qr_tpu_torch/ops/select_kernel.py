@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .gemm import gemm
 
 MAX_TILE_BYTES = 4 * 1024 * 1024
 # The kernel's tiles: every one QRCP makes (l = nb + 32, cand = 4 nb, nb <= 256).
@@ -40,12 +41,14 @@ def supported(l: int, cand: int, nb: int, dtype) -> bool:
             and 1 <= nb <= 256 and l * cand * 4 <= MAX_TILE_BYTES)
 
 
-def select_pivots_plain(S: torch.Tensor, norms: torch.Tensor, nb: int) -> torch.Tensor:
+def select_pivots_plain(S: torch.Tensor, norms: torch.Tensor, nb: int,
+                        precision: str = "highest") -> torch.Tensor:
     """ord (cand,) int32: selection step 0..nb-1 of each chosen column of the
     (l, cand) tile S, -1 elsewhere; norms (cand,) has -1 at ineligible
     columns.  Ties go to the lowest index (``torch.argmax``).  A complex S
     takes real norms and |proj|^2 downdates, as the reference's loop
-    (``cuda_qr_tpu/ops/qrcp.py:94-104``).
+    (``cuda_qr_tpu/ops/qrcp.py:94-104``), its projection at ``precision``
+    ("highest" is the kernel's function).
 
     The argmax stays on the device and the column is taken with a device
     index, so the loop takes no host sync.
@@ -59,7 +62,7 @@ def select_pivots_plain(S: torch.Tensor, norms: torch.Tensor, nb: int) -> torch.
         q = S.index_select(1, p.reshape(1))                      # (l, 1)
         nq = torch.sqrt(torch.clamp_min((q * q.conj()).real.sum(), 0))
         qn = q * torch.where(nq > 0, 1 / nq, zero)
-        proj = qn.mH @ S                                         # (1, cand)
+        proj = gemm(qn.mH, S, precision)                         # (1, cand)
         S = S - qn * proj
         nn = torch.maximum(norms - (proj[0] * proj[0].conj()).real, zero)
         hit = iota == p

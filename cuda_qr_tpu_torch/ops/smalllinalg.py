@@ -3,6 +3,8 @@
 Counterpart of ``cuda_qr_tpu/ops/smalllinalg.py``: triangular inversion by
 block doubling, Cholesky and unpivoted LU by 2-way recursion (each fused with
 the inverses the recursion needs anyway), and a Newton-Schulz inverse.
+Every product runs at the ``precision`` its function takes ("highest" by
+default), as the reference's recursions take ``precision=``.
 ``cholesky_with_inv`` is the plain version of the chol_inv kernel
 (``ops/chol_kernel.py``).  Every routine takes leading batch dimensions
 (the reference's ``jax.vmap``); a 2-D input runs the same ops as before.  A non-PD input gives NaN/Inf, no raise: callers
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .gemm import gemm
 from .householder import vecmat
 
 _BASE = 16
@@ -59,17 +62,19 @@ def _block(A, B, C, D) -> torch.Tensor:
 
 
 def _inv_upper_base(U: torch.Tensor) -> torch.Tensor:
-    """Back-substitution inverse of a small upper-triangular block."""
+    """Back-substitution inverse of a small upper-triangular block.  Its
+    products are the reference's default-precision ones
+    (``cuda_qr_tpu/ops/smalllinalg.py:33``): "highest" here."""
     n = U.shape[-1]
     X = torch.zeros_like(U)
     eye = _eye(n, U)
     for j in range(n - 1, -1, -1):
-        X[..., j, :] = ((eye[j] - vecmat(U[..., j, j + 1:], X[..., j + 1:, :]))
+        X[..., j, :] = ((eye[j] - vecmat(U[..., j, j + 1:], X[..., j + 1:, :], "highest"))
                         / U[..., j, j, None])
     return X
 
 
-def inv_upper(U: torch.Tensor) -> torch.Tensor:
+def inv_upper(U: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """Inverse of upper-triangular U (..., n, n).
 
     Power-of-two sizes: batched block doubling, level s inverting all n/2s
@@ -78,7 +83,7 @@ def inv_upper(U: torch.Tensor) -> torch.Tensor:
     """
     n = U.shape[-1]
     if n & (n - 1):
-        return _inv_upper_rec(U)
+        return _inv_upper_rec(U, precision)
     lead = U.shape[:-2]
     M = (1.0 / torch.diagonal(U, 0, -2, -1)).reshape(lead + (n, 1, 1))
     s = 1
@@ -88,26 +93,26 @@ def inv_upper(U: torch.Tensor) -> torch.Tensor:
         dblk = torch.diagonal(view, 0, -4, -2).movedim(-1, -3)   # (..., nblk, 2s, 2s)
         B = dblk[..., :s, s:]
         Ai, Ci = M[..., 0::2, :, :], M[..., 1::2, :, :]
-        top = -(Ai @ B @ Ci)
+        top = -gemm(gemm(Ai, B, precision), Ci, precision)
         M = _block(Ai, top, torch.zeros_like(Ai), Ci)
         s *= 2
     return M[..., 0, :, :]
 
 
-def _inv_upper_rec(U: torch.Tensor) -> torch.Tensor:
+def _inv_upper_rec(U: torch.Tensor, precision: str) -> torch.Tensor:
     n = U.shape[-1]
     if n <= _BASE:
         return _inv_upper_base(U)
     h = n // 2
-    Ai = _inv_upper_rec(U[..., :h, :h])
-    Ci = _inv_upper_rec(U[..., h:, h:])
-    top = -(Ai @ U[..., :h, h:] @ Ci)
+    Ai = _inv_upper_rec(U[..., :h, :h], precision)
+    Ci = _inv_upper_rec(U[..., h:, h:], precision)
+    top = -gemm(gemm(Ai, U[..., :h, h:], precision), Ci, precision)
     return _block(Ai, top, _zeros(U, n - h, h), Ci)
 
 
-def inv_lower(L: torch.Tensor) -> torch.Tensor:
+def inv_lower(L: torch.Tensor, precision: str = "highest") -> torch.Tensor:
     """Inverse of lower-triangular L via the upper routine on L^T."""
-    return inv_upper(L.mT.contiguous()).mT
+    return inv_upper(L.mT.contiguous(), precision).mT
 
 
 def _chol_base(G: torch.Tensor) -> torch.Tensor:
@@ -122,25 +127,26 @@ def _chol_base(G: torch.Tensor) -> torch.Tensor:
     return L
 
 
-def cholesky_with_inv(G: torch.Tensor):
+def cholesky_with_inv(G: torch.Tensor, precision: str = "highest"):
     """(L, L^{-1}) of SPD G (..., n, n) in one 2-way recursion:
         inv([[L1, 0], [L21, L2]]) = [[L1i, 0], [-L2i L21 L1i, L2i]].
     Leading dimensions are a batch (the reference vmaps the 2-D recursion)."""
     n = G.shape[-1]
     if n <= _BASE:
         L = _chol_base(G)
-        return L, inv_lower(L)
+        return L, inv_lower(L, precision)
     h = n // 2
-    L1, L1i = cholesky_with_inv(G[..., :h, :h])
-    L21 = G[..., h:, :h] @ L1i.mT
-    S = G[..., h:, h:] - L21 @ L21.mT
-    L2, L2i = cholesky_with_inv(S)
-    bot = -(L2i @ L21 @ L1i)
+    L1, L1i = cholesky_with_inv(G[..., :h, :h], precision)
+    L21 = gemm(G[..., h:, :h], L1i.mT, precision)
+    S = G[..., h:, h:] - gemm(L21, L21.mT, precision)
+    L2, L2i = cholesky_with_inv(S, precision)
+    bot = -gemm(gemm(L2i, L21, precision), L1i, precision)
     z = _zeros(G, h, n - h)
     return _block(L1, z, L21, L2), _block(L1i, z, bot, L2i)
 
 
-def newton_inverse(M: torch.Tensor, tol: float | None = None, max_iters: int = 48):
+def newton_inverse(M: torch.Tensor, precision: str = "highest", tol: float | None = None,
+                   max_iters: int = 48):
     """Dense inverse of a well-conditioned square M by Newton-Schulz.
 
     X_{k+1} = X_k (2I - M X_k), starting from 2I - M when M is near I, else
@@ -163,9 +169,9 @@ def newton_inverse(M: torch.Tensor, tol: float | None = None, max_iters: int = 4
     for _ in range(max_iters):
         if not host_decision(err > tol):
             break
-        P = M @ X
+        P = gemm(M, X, precision)
         err = (eye - P).abs().max()
-        X = X @ (2 * eye - P)
+        X = gemm(X, 2 * eye - P, precision)
     return X, err
 
 
@@ -181,22 +187,22 @@ def _lu_base(Y: torch.Tensor):
     return L, U
 
 
-def lu_with_inv(Y: torch.Tensor):
+def lu_with_inv(Y: torch.Tensor, precision: str = "highest"):
     """(L, U, L^{-1}, U^{-1}) of an unpivoted-LU-safe Y in one recursion."""
     n = Y.shape[0]
     if n <= _BASE:
         L, U = _lu_base(Y)
-        return L, U, inv_lower(L), inv_upper(U)
+        return L, U, inv_lower(L, precision), inv_upper(U, precision)
     h = n // 2
-    L11, U11, L11i, U11i = lu_with_inv(Y[:h, :h])
-    U12 = L11i @ Y[:h, h:]
-    L21 = Y[h:, :h] @ U11i
-    S = Y[h:, h:] - L21 @ U12
-    L22, U22, L22i, U22i = lu_with_inv(S)
+    L11, U11, L11i, U11i = lu_with_inv(Y[:h, :h], precision)
+    U12 = gemm(L11i, Y[:h, h:], precision)
+    L21 = gemm(Y[h:, :h], U11i, precision)
+    S = Y[h:, h:] - gemm(L21, U12, precision)
+    L22, U22, L22i, U22i = lu_with_inv(S, precision)
     zl = torch.zeros((h, n - h), dtype=Y.dtype, device=Y.device)
     zu = torch.zeros((n - h, h), dtype=Y.dtype, device=Y.device)
-    Lbot = -(L22i @ L21 @ L11i)
-    Utop = -(U11i @ U12 @ U22i)
+    Lbot = -gemm(gemm(L22i, L21, precision), L11i, precision)
+    Utop = -gemm(gemm(U11i, U12, precision), U22i, precision)
     return (torch.cat([torch.cat([L11, zl], 1), torch.cat([L21, L22], 1)], 0),
             torch.cat([torch.cat([U11, U12], 1), torch.cat([zu, U22], 1)], 0),
             torch.cat([torch.cat([L11i, zl], 1), torch.cat([Lbot, L22i], 1)], 0),
@@ -229,9 +235,13 @@ def library_eigh(H: torch.Tensor):
 def chol_with_inv_auto(G: torch.Tensor, config=None):
     """cholesky_with_inv of G (n x n) or a stack (b x n x n), on the chol_inv
     kernel's batch grid when the config allows it and G is eligible (the
-    reference's routing, ``smalllinalg.py:148-162``)."""
+    reference's routing, ``smalllinalg.py:148-162``), else the recursion at
+    ``config.precision`` ("highest" without a config).  The kernel computes
+    in float32 at any precision, as the reference's kernel does at HIGHEST
+    (``ops/pallas_chol.py:63,76``)."""
     from .chol_kernel import chol_with_inv_kernel, supported
-    if (config is not None and config.use_kernels and config.use_chol_kernel
-            and supported(G.shape, G.dtype)):
+    if config is None:
+        return cholesky_with_inv(G)
+    if config.use_kernels and config.use_chol_kernel and supported(G.shape, G.dtype):
         return chol_with_inv_kernel(G)
-    return cholesky_with_inv(G)
+    return cholesky_with_inv(G, config.precision)

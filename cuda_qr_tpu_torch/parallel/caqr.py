@@ -43,9 +43,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.tsqr import _geqrt
 from ..ops.blocked import is_complex
+from ..ops.gemm import gemm
 from ..ops.householder import larfb, unpack_v
 from ..ops.smalllinalg import _eye, lu_with_inv
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import ceildiv
 from .collectives import agree, all_gather, coord, psum
@@ -198,16 +199,17 @@ def _bk_combine(Rl: torch.Tensor, owner: int, c: _Ctx):
     its LU is of Y_J = I - M_J S with |diag| >= 1.
     """
     nb, dt = Rl.shape[0], Rl.dtype
+    prec = c.config.precision
     eye = _eye(nb, Rl)
-    M_i, Rfin, bad = _cholesky_combine(Rl, c.mesh)
+    M_i, Rfin, bad = _cholesky_combine(Rl, c.mesh, prec)
     if agree(bad, c.mesh):
         M_i, Rfin = _gathered_combine(Rl, c.mesh, c.config)
     MJ = all_gather(M_i, c.mesh)[owner]
     s = torch.where(torch.diagonal(MJ) >= 0, -1.0, 1.0).to(dt)
-    _, W, VJi, Wi = lu_with_inv(eye - MJ * s[None, :])
-    N = W @ VJi.T                                       # W VJ^-T
+    _, W, VJi, Wi = lu_with_inv(eye - MJ * s[None, :], prec)
+    N = gemm(W, VJi.T, prec)                            # W VJ^-T
     EmMS = (eye if c.i == owner else torch.zeros_like(eye)) - M_i * s[None, :]
-    return EmMS @ Wi, N, s, Rfin
+    return gemm(EmMS, Wi, prec), N, s, Rfin
 
 
 def _panel_step_bk(a: torch.Tensor, kk: int, c: _Ctx):
@@ -215,6 +217,7 @@ def _panel_step_bk(a: torch.Tensor, kk: int, c: _Ctx):
     Returns (ltau, lT, Y_i, N, s, Rfin)."""
     nb, pcol = c.nb, kk * c.nb
     owner = c.owner_of(kk)
+    prec = c.config.precision
     off, V, tau, T, Rl = _leaf(a, kk, c)
     Y_i, N, s, Rfin = _bk_combine(Rl, owner, c)
 
@@ -223,11 +226,11 @@ def _panel_step_bk(a: torch.Tensor, kk: int, c: _Ctx):
         X' = G^T (I - V T^T V^T) X, the strip rows through one all_reduce."""
         block = a[:, cols]
         if V is not None:
-            block[off:] = larfb(block[off:], V, T, transpose=True)
+            block[off:] = larfb(block[off:], V, T, transpose=True, precision=prec)
         strip = _strip(block, off, c)
-        C = psum(Y_i.T @ strip, c.mesh)
+        C = psum(gemm(Y_i.T, strip, prec), c.mesh)
         if V is not None:
-            block[off:off + nb] = strip - Y_i @ (N.T @ C)
+            block[off:off + nb] = strip - gemm(Y_i, gemm(N.T, C, prec), prec)
 
     w = c.n - pcol - nb
     if w:
@@ -243,17 +246,18 @@ def _panel_step(a: torch.Tensor, kk: int, c: _Ctx):
     """One panel of the "allgather" combine, in place in ``a``.
     Returns (ltau, lT, tree_packed, tree_T)."""
     nb, pcol = c.nb, kk * c.nb
+    prec = c.config.precision
     owner = c.owner_of(kk)
     off, V, tau, T, Rl = _leaf(a, kk, c)
     w = c.n - pcol - nb
     if w and V is not None:
-        a[off:, pcol + nb:] = larfb(a[off:, pcol + nb:], V, T, transpose=True)
+        a[off:, pcol + nb:] = larfb(a[off:, pcol + nb:], V, T, transpose=True, precision=prec)
     stacked = _roll_to_owner(all_gather(Rl, c.mesh), owner)     # (P*nb, nb)
     tp, _, T2 = _geqrt(stacked, c.config)
     if w:
         strip = _strip(a[:, pcol + nb:], off, c)
         stackW = _roll_to_owner(all_gather(strip, c.mesh), owner)
-        stackW = larfb(stackW, unpack_v(tp), T2, transpose=True)
+        stackW = larfb(stackW, unpack_v(tp), T2, transpose=True, precision=prec)
         slot = (c.i - owner) % c.P
         if V is not None:
             a[off:off + nb, pcol + nb:] = stackW[slot * nb:(slot + 1) * nb]
@@ -347,11 +351,10 @@ def caqr_factor(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
     c = _ctx(mesh, config, layout, a.shape[0], a.shape[1])
     step = _panel_step_bk if combine == "bk" else _panel_step
     cols = {f: [] for f in FIELDS[combine]}
-    with matmul_precision(config.precision):
-        for kk in range(c.n // c.nb):
-            for f, v in zip(FIELDS[combine], step(a, kk, c)):
-                cols[f].append(v)
-        return _assemble(a, cols, layout, combine, c)
+    for kk in range(c.n // c.nb):
+        for f, v in zip(FIELDS[combine], step(a, kk, c)):
+            cols[f].append(v)
+    return _assemble(a, cols, layout, combine, c)
 
 
 def _factors_local(factors):
@@ -366,17 +369,18 @@ def _factors_local(factors):
 
 def _tree_apply(x, kk, off, owner, bk, tree, transpose, c: _Ctx):
     """The tree level of panel kk applied to this rank's rows x, in place."""
-    nb = c.nb
+    nb, prec = c.nb, c.config.precision
     strip = _strip(x, off, c)
     if bk:
         Ys, Ns = tree
         Y_i, Nk = Ys[kk], Ns[kk]
-        C = psum(Y_i.T @ strip, c.mesh)
-        mine = strip - Y_i @ ((Nk.T if transpose else Nk) @ C)
+        C = psum(gemm(Y_i.T, strip, prec), c.mesh)
+        mine = strip - gemm(Y_i, gemm(Nk.T if transpose else Nk, C, prec), prec)
     else:
         tpacked, tTs = tree
         stackW = _roll_to_owner(all_gather(strip, c.mesh), owner)
-        stackW = larfb(stackW, unpack_v(tpacked[kk]), tTs[kk], transpose=transpose)
+        stackW = larfb(stackW, unpack_v(tpacked[kk]), tTs[kk], transpose=transpose,
+                       precision=prec)
         slot = (c.i - owner) % c.P
         mine = stackW[slot * nb:(slot + 1) * nb]
     if off < c.mloc:
@@ -387,7 +391,7 @@ def _leaf_apply(x, ap, lTs, kk, off, transpose, c: _Ctx):
     """The leaf reflectors of panel kk applied to this rank's rows x, in place."""
     if off < c.mloc:
         V = unpack_v(ap[off:, kk * c.nb:(kk + 1) * c.nb])
-        x[off:] = larfb(x[off:], V, lTs[kk], transpose=transpose)
+        x[off:] = larfb(x[off:], V, lTs[kk], transpose=transpose, precision=c.config.precision)
 
 
 def caqr_orgqr(factors, mesh: DeviceMesh, n_cols: int,
@@ -401,11 +405,10 @@ def caqr_orgqr(factors, mesh: DeviceMesh, n_cols: int,
     # my rows of I(m, n_cols), by logical row index
     logical = _logical_rows(layout, c.nb, c.mloc, c.P, c.i, c.mloc).to(ap.device)
     q = (logical[:, None] == torch.arange(n_cols, device=ap.device)[None, :]).to(ap.dtype)
-    with matmul_precision(config.precision):
-        for kk in reversed(range(n // c.nb)):
-            off = c.offset_of(c.i, kk)
-            _tree_apply(q, kk, off, c.owner_of(kk), bk, tree, False, c)
-            _leaf_apply(q, ap, lTs, kk, off, False, c)
+    for kk in reversed(range(n // c.nb)):
+        off = c.offset_of(c.i, kk)
+        _tree_apply(q, kk, off, c.owner_of(kk), bk, tree, False, c)
+        _leaf_apply(q, ap, lTs, kk, off, False, c)
     return as_row_sharded(q, mesh, m)
 
 
@@ -430,12 +433,11 @@ def caqr_ormqr(factors, B, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG,
     b = b.to(ap.dtype, copy=True)
     c = _ctx(mesh, config, layout, ap.shape[0], n)
     order = range(n // c.nb) if transpose else reversed(range(n // c.nb))
-    with matmul_precision(config.precision):
-        for kk in order:
-            off = c.offset_of(c.i, kk)
-            if transpose:                  # leaf first (factorization order)
-                _leaf_apply(b, ap, lTs, kk, off, True, c)
-            _tree_apply(b, kk, off, c.owner_of(kk), bk, tree, transpose, c)
-            if not transpose:              # leaf after the tree (reverse sweep)
-                _leaf_apply(b, ap, lTs, kk, off, False, c)
+    for kk in order:
+        off = c.offset_of(c.i, kk)
+        if transpose:                  # leaf first (factorization order)
+            _leaf_apply(b, ap, lTs, kk, off, True, c)
+        _tree_apply(b, kk, off, c.owner_of(kk), bk, tree, transpose, c)
+        if not transpose:              # leaf after the tree (reverse sweep)
+            _leaf_apply(b, ap, lTs, kk, off, False, c)
     return as_row_sharded(b, mesh, m)

@@ -27,7 +27,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..utils.checkpoint import load_state, save_state
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from .caqr import (FIELDS, LOCAL_FIELDS, _assemble, _check_factor, _ctx, _local_copy,
                    _panel_step, _panel_step_bk)
 from .collectives import agree, pmin
@@ -75,14 +75,13 @@ def caqr_factor_resumable(A, mesh: DeviceMesh, config: QRConfig = DEFAULT_CONFIG
     if checkpoint_path:
         start = _resume(a, cols, checkpoint_path, meta, fields, c)
     step = _panel_step_bk if combine == "bk" else _panel_step
-    with matmul_precision(config.precision):
-        for kk in range(start, k):
-            for f, v in zip(fields, step(a, kk, c)):
-                cols[f].append(v)
-            done = kk + 1
-            if checkpoint_path and done < k:
-                _snapshot(a, cols, checkpoint_path, kk, done, every, meta, fields, c)
-        return _assemble(a, cols, layout, combine, c)
+    for kk in range(start, k):
+        for f, v in zip(fields, step(a, kk, c)):
+            cols[f].append(v)
+        done = kk + 1
+        if checkpoint_path and done < k:
+            _snapshot(a, cols, checkpoint_path, kk, done, every, meta, fields, c)
+    return _assemble(a, cols, layout, combine, c)
 
 
 def _snapshot(a, cols, path, kk, done, every, meta, fields, c) -> None:

@@ -26,9 +26,10 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..models.tsqr import _complex_config, _geqrt, tsqr as tsqr_local
 from ..ops.blocked import is_complex
+from ..ops.gemm import gemm
 from ..ops.householder import larfb, unpack_r, unpack_v
 from ..ops.smalllinalg import _eye, cholesky_with_inv
-from ..utils.config import DEFAULT_CONFIG, QRConfig, matmul_precision
+from ..utils.config import DEFAULT_CONFIG, QRConfig
 from .collectives import agree, all_gather, coord, ppermute, psum
 from .mesh import as_row_sharded, shard_rows
 
@@ -37,24 +38,26 @@ STRATEGIES = ("allgather", "butterfly", "cholesky")
 
 def _small_qr_q(stacked: torch.Tensor, config: QRConfig):
     """Explicit (rows x n) Q and (n x n) R of a small stacked matrix: one
-    geqrt (the geqrt kernel where it is eligible) and a larfb of I."""
+    geqrt (the geqrt kernel where it is eligible) and a larfb of I at
+    ``config.precision``."""
     rows, n = stacked.shape
     packed, _, T = _geqrt(stacked, config)
-    Q = larfb(_eye(rows, stacked)[:, :n], unpack_v(packed), T, transpose=False)
+    Q = larfb(_eye(rows, stacked)[:, :n], unpack_v(packed), T, transpose=False,
+              precision=config.precision)
     return Q, unpack_r(packed)[:n]
 
 
-def _cholesky_combine(R_l: torch.Tensor, mesh: DeviceMesh):
+def _cholesky_combine(R_l: torch.Tensor, mesh: DeviceMesh, precision: str):
     """(mine, R, bad): CholeskyQR2 of the all-reduced Gram of the local R
-    factors.  Two n x n all_reduces; each rank's n x n map ``mine``
-    satisfies R_l = mine @ R with the stacked ``mine`` orthonormal.  ``bad``
-    is a 0-d bool tensor of this rank's view."""
+    factors, every product at ``precision``.  Two n x n all_reduces; each
+    rank's n x n map ``mine`` satisfies R_l = mine @ R with the stacked
+    ``mine`` orthonormal.  ``bad`` is a 0-d bool tensor of this rank's view."""
     n = R_l.shape[1]
     eye = _eye(n, R_l)
-    G = psum(R_l.T @ R_l, mesh)
-    L1, L1i = cholesky_with_inv(G)
-    M0 = R_l @ L1i.T
-    G2 = psum(M0.T @ M0, mesh)
+    G = psum(gemm(R_l.T, R_l, precision), mesh)
+    L1, L1i = cholesky_with_inv(G, precision)
+    M0 = gemm(R_l, L1i.T, precision)
+    G2 = psum(gemm(M0.T, M0, precision), mesh)
     E = G2 - eye
     emax = E.abs().max()
     tol = 3e-4 if R_l.dtype == torch.float32 else 3e-8
@@ -62,9 +65,9 @@ def _cholesky_combine(R_l: torch.Tensor, mesh: DeviceMesh):
         C = torch.tril(E, -1) + 0.5 * torch.diag(torch.diagonal(E))
         L2, L2i = eye + C, eye - C
     else:
-        L2, L2i = cholesky_with_inv(E + eye)
-    mine = M0 @ L2i.T
-    R = L2.T @ L1.T
+        L2, L2i = cholesky_with_inv(E + eye, precision)
+    mine = gemm(M0, L2i.T, precision)
+    R = gemm(L2.T, L1.T, precision)
     bad = ~torch.isfinite(mine.sum()) | (emax > 0.3)
     return mine, torch.triu(R), bad
 
@@ -88,7 +91,7 @@ def _butterfly_combine(R_l: torch.Tensor, mesh: DeviceMesh, config: QRConfig):
         first = (i & step) == 0          # do I supply the top block?
         top, bot = (R, other) if first else (other, R)
         Qp, R = _small_qr_q(torch.cat([top, bot]), config)
-        mine = mine @ (Qp[:n] if first else Qp[n:])
+        mine = gemm(mine, Qp[:n] if first else Qp[n:], config.precision)
         step *= 2
     return mine, R
 
@@ -97,16 +100,15 @@ def _tsqr_dist_local(a: torch.Tensor, mesh: DeviceMesh, config: QRConfig,
                      strategy: str):
     """(this rank's rows of Q, R replicated) for this rank's rows ``a``."""
     Q_l, R_l = tsqr_local(a, config)
-    with matmul_precision(config.precision):
-        if strategy == "cholesky":
-            mine, R, bad = _cholesky_combine(R_l, mesh)
-            if agree(bad, mesh):
-                mine, R = _gathered_combine(R_l, mesh, config)
-        elif strategy == "allgather":
+    if strategy == "cholesky":
+        mine, R, bad = _cholesky_combine(R_l, mesh, config.precision)
+        if agree(bad, mesh):
             mine, R = _gathered_combine(R_l, mesh, config)
-        else:
-            mine, R = _butterfly_combine(R_l, mesh, config)
-        return Q_l @ mine, R
+    elif strategy == "allgather":
+        mine, R = _gathered_combine(R_l, mesh, config)
+    else:
+        mine, R = _butterfly_combine(R_l, mesh, config)
+    return gemm(Q_l, mine, config.precision), R
 
 
 def _check(strategy: str, m: int, P: int, complex_input: bool = False) -> None:

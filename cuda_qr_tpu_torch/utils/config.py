@@ -16,23 +16,23 @@ Precision.  The reference's ``jax.lax.Precision`` becomes a string
              the nearest counterpart of Precision.DEFAULT;
   "high":    3xTF32, three TF32 passes on operands split as hi + lo -- the
              counterpart of Precision.HIGH (bf16x3 on the TPU).  Its error
-             beyond float32's is the rounding of lo, ~2^-22 |x|.  Only
-             ``trailing_precision`` and ``orgqr_precision`` take it: the
-             panels (``precision``) run under ``matmul_precision``, which
-             sets one flag and cannot express three passes.
-float64 and complex GEMMs run with TF32 off whatever the value.
+             beyond float32's is the rounding of lo, ~2^-22 |x|.
+Each of ``precision``, ``trailing_precision`` and ``orgqr_precision`` takes
+any of the three.  Every float32 GEMM of the package is
+``ops.gemm.gemm(a, b, precision)`` with its precision passed down as an
+argument, so no module sets a process-wide flag around a block of code and
+no result depends on the TF32 state the caller left set.  float64 and
+complex GEMMs run with TF32 off whatever the value.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 
 PRECISIONS = ("highest", "tf32", "high")
-PANEL_PRECISIONS = ("highest", "tf32")
 TSQR_LEAVES = ("householder", "cholqr2")
 
 
@@ -46,7 +46,9 @@ class QRConfig:
         most this many columns run the geqrt kernel.
       dtype: computation dtype (float32, float64, or bfloat16 storage with
         float32 panels).
-      precision: GEMM precision of the panel factorization.
+      precision: GEMM precision of the panel factorization and of every
+        GEMM the reference runs at ``config.precision`` (QRCP, TSQR, the
+        spectral family, CAQR, the VJP): "highest", "tf32" or "high".
       trailing_precision / orgqr_precision: precision overrides for the
         trailing update of ``qr_blocked`` (and the two full-height GEMMs of
         TSQR's direct cholqr2 path) and for orgqr/ormqr (None = follow
@@ -107,10 +109,8 @@ class QRConfig:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.precision not in PANEL_PRECISIONS:
-            raise ValueError(f"precision={self.precision!r}; expected one of "
-                             f"{PANEL_PRECISIONS} (\"high\" is for trailing_precision "
-                             f"and orgqr_precision only)")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision={self.precision!r}; expected one of {PRECISIONS}")
         for name in ("trailing_precision", "orgqr_precision"):
             value = getattr(self, name)
             if value is not None and value not in PRECISIONS:
@@ -128,26 +128,6 @@ class QRConfig:
 
     def replace(self, **kw) -> "QRConfig":
         return dataclasses.replace(self, **kw)
-
-
-@contextlib.contextmanager
-def matmul_precision(precision: str):
-    """Set float32 GEMM precision for the enclosed GEMMs and restore it after.
-
-    The flag is process-global in PyTorch, so it is set around exactly the
-    GEMMs that asked for it and never left changed.  "high" (3xTF32) is not
-    one flag: it goes through ``ops.gemm.gemm``.
-    """
-    if precision not in PANEL_PRECISIONS:
-        raise ValueError(f"matmul_precision({precision!r}); expected one of "
-                         f"{PANEL_PRECISIONS} (\"high\" runs through ops.gemm.gemm)")
-    flags = torch.backends.cuda.matmul
-    saved = flags.allow_tf32
-    flags.allow_tf32 = precision == "tf32"
-    try:
-        yield
-    finally:
-        flags.allow_tf32 = saved
 
 
 DEFAULT_CONFIG = QRConfig()

@@ -45,9 +45,8 @@ def config_from_reference(cfg, device: str = DEFAULT_CONFIG.device) -> QRConfig:
     """This package's QRConfig from a ``cuda_qr_tpu.QRConfig``.
 
     Carried over: panel_width, panel_base, dtype, precision,
-    trailing_precision, orgqr_precision (HIGH as "high", 3xTF32; a
-    ``precision`` of HIGH raises QRConfig's ValueError: the panels take
-    "highest" or "tf32" only), use_pallas (as use_kernels),
+    trailing_precision, orgqr_precision (each HIGH as "high", 3xTF32),
+    use_pallas (as use_kernels),
     panel_method, apply_aggregate, factor_lookahead, scan_stages and
     stage_schedule (they set the panel grouping), use_chol_kernel,
     use_select_kernel, block_rows, tsqr_leaf.  driver="unrolled" becomes

@@ -26,6 +26,8 @@ from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pi
                                                  selection_margin)
 from cuda_qr_tpu_torch.ops.smalllinalg import chol_with_inv_auto, cholesky_with_inv
 
+from torch_caller_states import CALLER_STATES, caller_state, fp32_reads
+
 pytestmark = pytest.mark.cuda
 TOLS = {torch.float32: 1e-4, torch.float64: 1e-10}
 
@@ -548,5 +550,48 @@ def test_tail_schedule_on_the_card(dev):
     before = chol_with_inv_kernel.launches
     f = ct.qr_blocked(A, cfg)
     assert chol_with_inv_kernel.launches - before >= n // nb
+    chk = ct.check_qr_device(A, ct.orgqr(f, n, n, cfg), ct.extract_r(f, n))
+    assert chk.ok, chk
+
+
+@pytest.mark.parametrize("state", list(CALLER_STATES))
+def test_caller_states_on_the_card(dev, state):
+    """C11: under each way a caller leaves the float32 GEMM mode set,
+    ``qr`` at 1024^2 (B1 on every panel) passes its gates and leaves both
+    fp32_precision reads as it found them; "tf32" reads TF32's error and
+    "highest" float32's, so the fp32_precision API drives cuBLAS."""
+    from cuda_qr_tpu_torch.ops.gemm import gemm
+    n = 1024
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    X = torch.randn(128, 8192, generator=g, device=dev)
+    Y = torch.randn(8192, 1024, generator=g, device=dev)
+    C64 = X.double() @ Y.double()
+    scale = float(X.double().norm() * Y.double().norm())
+    with caller_state(state):
+        before = fp32_reads()
+        launches = chol_with_inv_kernel.launches
+        Q, R = ct.qr(A, ct.DEFAULT_CONFIG)
+        err = {p: float((gemm(X, Y, p).double() - C64).norm()) / scale
+               for p in ("highest", "tf32")}
+        assert fp32_reads() == before
+    assert chol_with_inv_kernel.launches - launches >= n // 128
+    assert ct.check_qr_device(A, Q, R).ok
+    assert err["tf32"] >= 50 * err["highest"], err
+
+
+@pytest.mark.parametrize("method", ["cholqr2_bk", "geqrt"])
+def test_high_panels_on_the_card(dev, method):
+    """A7: precision="high" (every GEMM 3xTF32) at 2048^2 passes the gates
+    on both kernels' panels, and the panel's kernel runs."""
+    n = 2048
+    cfg = ct.QRConfig(precision="high", panel_method=method)
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    kernel = geqrt_base if method == "geqrt" else chol_with_inv_kernel
+    before = kernel.launches
+    f = ct.qr_blocked(A, cfg)
+    assert kernel.launches > before
     chk = ct.check_qr_device(A, ct.orgqr(f, n, n, cfg), ct.extract_r(f, n))
     assert chk.ok, chk

@@ -24,6 +24,7 @@ from cuda_qr_tpu_torch.ops import gemm as gemm_mod
 from cuda_qr_tpu_torch.ops.gemm import gemm, split_tf32
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
+from torch_caller_states import CALLER_STATES, caller_state, fp32_reads
 from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
 EPS = float(np.finfo(np.float32).eps)
@@ -234,44 +235,49 @@ def test_precision_mappings():
                                 device="cpu")
     assert cfg.orgqr_precision == "high"
     ct.QRConfig(orgqr_precision="high")
-    with pytest.raises(ValueError, match="precision='high'"):
-        ct.QRConfig(precision="high")
-    with pytest.raises(ValueError, match="precision='high'"):
-        config_from_reference(ref.QRConfig(precision=jax.lax.Precision.HIGH), device="cpu")
+    assert ct.QRConfig(precision="high").precision == "high"
+    cfg = config_from_reference(ref.QRConfig(precision=jax.lax.Precision.HIGH), device="cpu")
+    assert cfg.precision == cfg.resolved_trailing_precision() == "high"
 
 
-# -- (f) the TF32 flag
+# -- (f) the TF32 mode
 
-@pytest.mark.parametrize("start", [False, True])
+def ieee(mode: str) -> str:
+    """The mode cuBLAS runs in: "none" (nothing set anywhere) is IEEE."""
+    return "ieee" if mode == "none" else mode
+
+
+@pytest.mark.parametrize("start", list(CALLER_STATES))
 def test_gemm_sets_tf32_around_its_passes_and_restores_it(monkeypatch, start):
-    """Each pass sees the flag it asked for, and the caller's flag comes
-    back, also when a pass raises.  "high" is one pass up to K_CHUNK (the
-    operands concatenated along K), three past it."""
+    """Each pass sees the mode it asked for in
+    ``torch.backends.cuda.matmul.fp32_precision``, and the caller's state
+    comes back, also when a pass raises, whichever of the five caller states
+    was set.  "high" is one pass up to K_CHUNK (the operands concatenated
+    along K), three past it."""
     flags = torch.backends.cuda.matmul
-    saved = flags.allow_tf32
-    seen, fail = [], []
-    matmul = torch.matmul
+    with caller_state(start):
+        before = fp32_reads()
+        seen, fail = [], []
+        matmul = torch.matmul
 
-    def spy(a, b):
-        seen.append(flags.allow_tf32)
-        if fail:
-            raise RuntimeError("pass failed")
-        return matmul(a, b)
+        def spy(a, b):
+            seen.append(ieee(flags.fp32_precision))
+            if fail:
+                raise RuntimeError("pass failed")
+            return matmul(a, b)
 
-    monkeypatch.setattr(flags, "allow_tf32", start)
-    monkeypatch.setattr(torch, "matmul", spy)
-    S, L = torch.ones((8, 4)), torch.ones((8, 2 * gemm_mod.K_CHUNK))
-    for A, precision, expect in ((S, "highest", [False]), (S, "tf32", [True]),
-                                 (S, "high", [True]), (L, "high", [True] * 3)):
-        seen.clear()
-        gemm(A, A.T, precision)
-        assert seen == expect and flags.allow_tf32 is start
-    fail.append(True)
-    for A in (S, L):
-        with pytest.raises(RuntimeError, match="pass failed"):
-            gemm(A, A.T, "high")
-        assert flags.allow_tf32 is start
-    monkeypatch.undo()
-    assert flags.allow_tf32 == saved
-    ct.qr(np.eye(64, dtype=np.float32), ct.MIXED_CONFIG.replace(panel_width=32, device="cpu"))
-    assert flags.allow_tf32 == saved
+        monkeypatch.setattr(torch, "matmul", spy)
+        S, L = torch.ones((8, 4)), torch.ones((8, 2 * gemm_mod.K_CHUNK))
+        for A, precision, expect in ((S, "highest", ["ieee"]), (S, "tf32", ["tf32"]),
+                                     (S, "high", ["tf32"]), (L, "high", ["tf32"] * 3)):
+            seen.clear()
+            gemm(A, A.T, precision)
+            assert seen == expect and fp32_reads() == before
+        fail.append(True)
+        for A, precision in ((S, "highest"), (S, "high"), (L, "high")):
+            with pytest.raises(RuntimeError, match="pass failed"):
+                gemm(A, A.T, precision)
+            assert fp32_reads() == before
+        monkeypatch.undo()
+        ct.qr(np.eye(64, dtype=np.float32), ct.MIXED_CONFIG.replace(panel_width=32, device="cpu"))
+        assert fp32_reads() == before

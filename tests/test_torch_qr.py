@@ -18,7 +18,7 @@ import torch
 
 import cuda_qr_tpu as ref
 import cuda_qr_tpu_torch as ct
-from cuda_qr_tpu_torch.utils.config import matmul_precision
+from cuda_qr_tpu_torch.ops import gemm as gemm_mod
 
 from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
 
@@ -120,16 +120,25 @@ def test_numpy_input_goes_to_config_device_and_dtype(rng):
     assert Q.device.type == "cpu" and R.device.type == "cpu" and Q.dtype == torch.float32
 
 
-def test_matmul_precision_sets_and_restores():
+def test_matmul_precision_sets_and_restores(monkeypatch):
+    """``ops.gemm._product``, the one place that sets cuBLAS's float32 mode:
+    the product sees the mode it asked for, and the caller's comes back,
+    also when the product raises."""
     flags = torch.backends.cuda.matmul
-    saved = flags.allow_tf32
+    saved = flags.fp32_precision
+    seen = []
+
+    def fails(a, b):
+        seen.append(flags.fp32_precision)
+        raise RuntimeError
+
+    monkeypatch.setattr(torch, "matmul", fails)
     with pytest.raises(RuntimeError):
-        with matmul_precision("tf32"):
-            assert flags.allow_tf32 is True
-            raise RuntimeError
-    assert flags.allow_tf32 == saved
+        gemm_mod._product(torch.ones(2, 2), torch.ones(2, 2), "tf32")
+    monkeypatch.undo()
+    assert seen == ["tf32"] and flags.fp32_precision == saved
     ct.qr(np.eye(64, dtype=np.float32), ct.MIXED_CONFIG.replace(panel_width=32, device="cpu"))
-    assert flags.allow_tf32 == saved
+    assert flags.fp32_precision == saved
 
 
 def test_import_leaves_jax_out():

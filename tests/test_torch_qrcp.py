@@ -22,7 +22,7 @@ import cuda_qr_tpu as ref
 from cuda_qr_tpu.ops import qrcp as rq
 from cuda_qr_tpu_torch import (MIXED_CONFIG, QRConfig, QRShapeError, check_qr, extract_r,
                                orgqr, qr_pivoted)
-from cuda_qr_tpu_torch.ops import qrcp as pq
+from cuda_qr_tpu_torch.ops import gemm as gemm_mod, qrcp as pq
 from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
 from cuda_qr_tpu_torch.utils.geometry import round_up
 from cuda_qr_tpu_torch.utils.interop import config_from_reference, packed_from_numpy
@@ -168,18 +168,18 @@ def test_mixed_config_asks_for_no_tf32(rng, monkeypatch):
     ``precision`` (cuda_qr_tpu/ops/qrcp.py:194-196), so MIXED_CONFIG's
     trailing TF32 must never reach the pivoted factorization."""
     asked = []
-    real = pq.matmul_precision
+    real = gemm_mod._product
 
-    def record(precision):
-        asked.append(precision)
-        return real(precision)
+    def record(a, b, mode):
+        asked.append(mode)
+        return real(a, b, mode)
 
-    monkeypatch.setattr(pq, "matmul_precision", record)
+    monkeypatch.setattr(gemm_mod, "_product", record)   # every GEMM's one product call
     A = rng.standard_normal((96, 64)).astype(np.float32)
     cfg = MIXED_CONFIG.replace(panel_width=16, device="cpu")
     pq.qrcp_blocked(A, cfg)
     assert asked and "tf32" not in asked
-    assert set(asked) == {"highest"}
+    assert set(asked) == {"ieee"}
 
 
 def test_input_not_modified_and_bf16_storage(rng):
