@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench,
-                                  stages,precision]
+                                  stages,precision,slogdet]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
 kernel's batch grid and the chol_inv kernel's stack included), drives the
 port's paths (8192^2 float32 ``qr`` at the default configuration, the geqrt
 panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, the
-rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``tsqr``/``tsqr_r`` at
+rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``slogdet``'s sign at
+4096^2 on 8 seeds beside the reference's rule, ``tsqr``/``tsqr_r`` at
 1,048,576 x 128 with both leaves and an ill-conditioned input that takes
 the fallback, ``qr_batched`` on 8192 x 256 x 64, lq/rq/ql and
 ``qr_multiply`` in float64, the QR updates on an 8192 x 1024 thin QR,
@@ -68,7 +69,7 @@ is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
 factor alone, MIXED_CONFIG's phase, the headline record, the grouping
-ladder, the precision phase) and ends with
+ladder, the precision phase, slogdet) and ends with
 the same last line, "only" added.  Run from another checkout's root, a
 copy of this script with ``--only factor`` times that checkout's factor.
 """
@@ -86,6 +87,7 @@ N_MAIN = 8192
 N_GEQRT = 4096
 N_RANK = (8192, 2048, 1536)   # BASELINE config 4's shape; rank of the solver phase
 RANK_TRUNC = 1024
+N_SLOGDET = (4096, 8)         # n, seeds 0..7: slogdet's sign at DEFAULT_CONFIG (fault C12)
 # (l, cand, nb, seed): the default block step's tile, and the gate's extremes
 SELECT_TILES = ((160, 512, 128, 5), (64, 128, 32, 1), (288, 1024, 256, 0))
 MIN_GAP = 1e-5  # "well separated": float32 rounding moves a downdated norm ~1e-7
@@ -493,8 +495,9 @@ def phase_select(torch, np, dev):
 
 
 def phase_rank(torch, np, ct, cfg, dev):
-    """Rank-revealing solvers on an exactly rank-r 8192 x 2048 A = B C, and
-    full-rank lstsq on a Gaussian of the same shape."""
+    """Rank-revealing solvers on an exactly rank-r 8192 x 2048 A = B C,
+    full-rank lstsq on a Gaussian of the same shape, then phase_slogdet,
+    whose counts it returns."""
     m, n, r = N_RANK
     rng = np.random.default_rng(4)
     B = torch.from_numpy(rng.standard_normal((m, r))).to(dev)
@@ -547,6 +550,59 @@ def phase_rank(torch, np, ct, cfg, dev):
         f"float64 (< 1e-4), {t_ls:.3f} s")
     if not (ex < 1e-4 and er < 1e-4):
         raise AssertionError("lstsq disagrees with torch.linalg.lstsq in float64")
+    return phase_slogdet(torch, np, ct, cfg, dev)
+
+
+def phase_slogdet(torch, np, ct, cfg, dev):
+    """slogdet of N_SLOGDET Gaussian float32 n^2 inputs (n a multiple of the
+    panel width: the last panel is square), sign held to
+    torch.linalg.slogdet in float64 (no wrong sign), logabsdet to 1e-4
+    relative.  Beside it, the reference's rule (the parity of tau != 0) on
+    the same factors: qr_blocked at the cholqr2_hr panels slogdet swaps in,
+    whose logabsdet must equal slogdet's bit for bit.  Times (one call a
+    seed, CUDA events, median): slogdet, that factor alone (the rest is the
+    sign rule), the default cholqr2_bk factor, and torch.linalg.slogdet in
+    float32.  Returns the counts of the slogdet calls."""
+    n, seeds = N_SLOGDET
+    hr = cfg.replace(panel_method="cholqr2_hr")
+    total, wrong, wrong_old, errs, same = {}, 0, 0, [], True
+    ms = {"slogdet": [], "factor": [], "bk factor": [], "library": []}
+    for seed in range(seeds):
+        A = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (n, n), dtype=np.float32)).to(dev)
+        (sign, logabs), c, _ = run_counted(torch, lambda: ct.slogdet(A, cfg))
+        add_counts(total, c)
+        for key, fn in (("slogdet", lambda: ct.slogdet(A, cfg)),
+                        ("factor", lambda: ct.qr_blocked(A, hr)),
+                        ("bk factor", lambda: ct.qr_blocked(A, cfg)),
+                        ("library", lambda: torch.linalg.slogdet(A))):
+            ms[key].append(event_call_ms(torch, fn))
+        want_sign, want_logabs = torch.linalg.slogdet(A.double())
+        fac = ct.qr_blocked(A, hr)
+        d = torch.diagonal(fac.packed)[:n]
+        same &= torch.equal(torch.log(d.abs()).sum(), logabs)
+        flips = int((fac.taus.reshape(-1)[:n] != 0).sum())
+        old = float(torch.prod(torch.sign(d))) * (-1.0) ** flips
+        wrong += float(sign) != float(want_sign)
+        wrong_old += old != float(want_sign)
+        errs.append(abs(float(logabs) - float(want_logabs)) / abs(float(want_logabs)))
+    say(f"slogdet {n}^2 f32 at DEFAULT_CONFIG, seeds 0-{seeds - 1}: wrong signs {wrong} of "
+        f"{seeds} vs torch.linalg.slogdet float64 (must be 0); the reference's tau != 0 rule "
+        f"on the same factors: {wrong_old} of {seeds} wrong (factors the same: {same}); "
+        f"logabsdet rel err max {max(errs):.3e} (< 1e-4); chol_inv launches "
+        f"{total['chol_inv']} ({total['chol_inv'] / seeds:.2f} a call), host syncs "
+        f"{total['host_syncs']}")
+    med = {key: sorted(v)[seeds // 2] for key, v in ms.items()}
+    say(f"slogdet {n}^2 ms a call (median of {seeds}): {med['slogdet']:.3f}; its cholqr2_hr "
+        f"factor alone {med['factor']:.3f}; the default cholqr2_bk factor "
+        f"{med['bk factor']:.3f}; torch.linalg.slogdet f32 {med['library']:.3f}")
+    require(wrong == 0, f"slogdet: {wrong} of {seeds} signs wrong")
+    require(same, "slogdet's logabsdet differs from qr_blocked's at cholqr2_hr")
+    require(max(errs) < 1e-4, f"slogdet: logabsdet rel err {max(errs)} over 1e-4")
+    require(total["chol_inv"] >= seeds * n // cfg.panel_width,
+            f"slogdet launched chol_inv {total['chol_inv']} times, expected >= "
+            f"{seeds * n // cfg.panel_width} (one per panel)")
+    return total
 
 
 def phase_geqrt_batched(torch, np, dev):
@@ -2919,7 +2975,7 @@ def phase_precision(torch, np, ct, dev, smi):
 
 # phases that ``--only`` can run alone
 STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed",
-              "bench", "stages", "precision")
+              "bench", "stages", "precision", "slogdet")
 
 
 def main(argv=None) -> int:
@@ -2977,6 +3033,8 @@ def main(argv=None) -> int:
             phase_stages(torch, np, ct, dev, smi)
         if "precision" in only:
             phase_precision(torch, np, ct, dev, smi)
+        if "slogdet" in only:
+            phase_slogdet(torch, np, ct, ct.DEFAULT_CONFIG, dev)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3070,7 +3128,7 @@ def main(argv=None) -> int:
     if not r12 < r12_tol:
         raise AssertionError("qr_pivoted truncated: R12 is not Q^T A2")
     del Qt, Rt, A2
-    phase_rank(torch, np, ct, cfg, dev)
+    slogdet_counts = phase_rank(torch, np, ct, cfg, dev)
 
     # ---- this slice's paths: TSQR (BASELINE config 3), qr_batched, decomp, update
     launches["geqrt_batched"] = phase_tsqr(torch, np, ct, dev, smi)
@@ -3087,6 +3145,7 @@ def main(argv=None) -> int:
     # ---- the spectral family: randomized tools, QDWH polar and svd, QDWH-eig
     phase_rotation_bias(torch, dev)
     by_path = {"qr, geqrt, qr_pivoted, tsqr": dict(launches),
+               "slogdet": slogdet_counts,
                "orgqr_groups": orgqr_groups,
                "mixed": mixed_counts,
                "stages": stages_counts,
@@ -3111,7 +3170,8 @@ def main(argv=None) -> int:
         say(f"path {name}: {counts_str({'host_syncs': '-', **path_counts})}")
     for kernel in launches:
         launches[kernel] = sum(c[kernel] for c in by_path.values())
-    for name, needs in (("orgqr_groups", ("chol_inv", "geqrt")), ("mixed", ("chol_inv",)),
+    for name, needs in (("slogdet", ("chol_inv",)),
+                        ("orgqr_groups", ("chol_inv", "geqrt")), ("mixed", ("chol_inv",)),
                         ("stages", ("chol_inv",)),
                         ("precision", ("chol_inv", "geqrt", "geqrt_batched", "select_pivots")),
                         ("rsvd", ("geqrt_batched", "select_pivots")),

@@ -131,12 +131,20 @@ def null_space(A, rcond: float | None = None,
 def slogdet(A, config: QRConfig = DEFAULT_CONFIG):
     """(sign, logabsdet) of a square real matrix via QR.
 
-    |det A| = prod |diag R|; sign(det A) = sign(prod diag R) * det Q with
-    det Q = (-1)^(number of reflectors with tau != 0): each such
-    H = I - tau v v^T is a reflection, and the zero-column guard's tau = 0
-    is the identity.  That needs Householder-convention panels, so the
-    basis-kernel default is swapped for Householder reconstruction.  A zero
-    diagonal gives sign 0, as numpy.linalg.slogdet.
+    |det A| = prod |diag R|; sign(det A) = sign(prod diag R) * det Q, and
+    det Q = prod_j det H_j = prod_j (1 - tau_j ||v_j||^2) for the reflectors
+    H_j = I - tau_j v_j v_j^T, with ||v_j||^2 = 1 + the squares of the packed
+    factor's column j below the diagonal (float64, on the factor's device).
+    Each factor is +1 (tau = 0, the identity) or -1 (tau ||v||^2 = 2, a
+    reflection) up to rounding, so its sign is exact.  The reference counts
+    the reflectors with tau != 0 instead (``cuda_qr_tpu/models/rank.py:172``),
+    which is wrong on this panel path: when the last panel is square (n a
+    multiple of the panel width), its last reflector acts on one row, and the
+    Householder reconstruction's tau = diag(T) of an LU comes out as rounding
+    noise (~1e-7) where the identity's is 0.  The basis-kernel default is
+    swapped for Householder reconstruction, as in the reference (genuine
+    (v, tau) pairs; ``logabsdet`` is the reference's).  A zero diagonal gives
+    sign 0, as numpy.linalg.slogdet.
     """
     A = as_tensor(A, config)
     m, n = A.shape
@@ -146,8 +154,9 @@ def slogdet(A, config: QRConfig = DEFAULT_CONFIG):
            else config.replace(panel_method="cholqr2_hr"))
     fac = qr_blocked(A, cfg)
     d = torch.diagonal(fac.packed)[:n]
-    refl = (fac.taus.reshape(-1)[:n] != 0).sum()
-    sign_q = torch.where(refl % 2 == 0, 1.0, -1.0).to(d.dtype)
+    v2 = fac.packed[:n, :n].to(torch.float64, copy=True).tril_(-1).square_().sum(0) + 1.0
+    det_h = 1.0 - fac.taus.reshape(-1)[:n].to(torch.float64) * v2
+    sign_q = torch.prod(torch.sign(det_h)).to(d.dtype)
     sign = torch.where((d == 0).any(), torch.zeros_like(sign_q),
                        torch.prod(torch.sign(d)) * sign_q)
     return sign, torch.log(d.abs()).sum()

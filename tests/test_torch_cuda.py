@@ -595,3 +595,19 @@ def test_high_panels_on_the_card(dev, method):
     assert kernel.launches > before
     chk = ct.check_qr_device(A, ct.orgqr(f, n, n, cfg), ct.extract_r(f, n))
     assert chk.ok, chk
+
+
+def test_slogdet_sign_on_the_card(dev):
+    """C12: slogdet at 1024^2 (nb 128, 8 panels, the last square) on 8
+    seeds: the sign equals torch.linalg.slogdet's in float64 on the same
+    input, logabsdet agrees to 1e-4 relative, and B1 runs on every panel."""
+    n = 1024
+    for seed in range(8):
+        A = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (n, n), dtype=np.float32)).to(dev)
+        before = chol_with_inv_kernel.launches
+        sign, logabs = ct.slogdet(A, ct.DEFAULT_CONFIG)
+        assert chol_with_inv_kernel.launches - before >= n // 128
+        want_sign, want_logabs = torch.linalg.slogdet(A.double())
+        assert float(sign) == float(want_sign), seed
+        assert abs(float(logabs) - float(want_logabs)) < 1e-4 * abs(float(want_logabs)), seed

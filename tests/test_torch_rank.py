@@ -19,8 +19,8 @@ import torch
 from cuda_qr_tpu.models import lstsq as rlstsq
 from cuda_qr_tpu.models import rank as rrank
 from cuda_qr_tpu.utils.config import QRConfig as RefConfig
-from cuda_qr_tpu_torch import (QRShapeError, lstsq, lstsq_rr, matrix_rank, null_space, pinv,
-                               slogdet, solve)
+from cuda_qr_tpu_torch import (QRConfig, QRShapeError, lstsq, lstsq_rr, matrix_rank,
+                               null_space, pinv, slogdet, solve)
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 
 from torch_threads import one_thread  # noqa: F401  (autouse: one intra-op thread)
@@ -126,6 +126,52 @@ def test_slogdet_singular_and_shape(rng):
     assert float(slogdet(A, config=CFG)[0]) == float(rrank.slogdet(A, config=RCFG)[0]) == 0.0
     with pytest.raises(QRShapeError):
         slogdet(np.zeros((4, 3), np.float32), config=CFG)
+
+
+SIGN_SEEDS = range(20)
+
+
+def sign_misses(n, nb, dtype, kind="gaussian", seeds=SIGN_SEEDS, **cfg):
+    """Seeds whose slogdet sign differs from numpy's in float64 on the same
+    (rounded) input; ``cfg`` goes to the port's QRConfig."""
+    config = QRConfig(device="cpu", panel_width=nb, dtype=dtype, **cfg)
+    wrong = []
+    for seed in seeds:
+        A = np.random.default_rng(seed).standard_normal((n, n))
+        if kind == "graded":
+            A *= np.logspace(0, 4, n)
+        A = A.astype(np.float32 if dtype == torch.float32 else np.float64)
+        if float(slogdet(A, config=config)[0]) != np.linalg.slogdet(A.astype(np.float64))[0]:
+            wrong.append(seed)
+    return wrong
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "graded"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+@pytest.mark.parametrize("nb", [16, 32])
+@pytest.mark.parametrize("n", [32, 64, 96, 128, 100])
+def test_slogdet_sign_sweep(n, nb, dtype, kind):
+    """20 seeds a case, no wrong sign: n a multiple of nb (a square last
+    panel) and n = 100 (a padded one), Gaussian and graded columns."""
+    assert sign_misses(n, nb, dtype, kind) == []
+
+
+def test_slogdet_sign_square_last_panel():
+    """float32, nb 32, n 64, seed 0: the last reflector acts on one row and
+    its tau is rounding noise, not 0; counting tau != 0 read sign +1 here."""
+    A = np.random.default_rng(0).standard_normal((64, 64)).astype(np.float32)
+    sign, logabs = slogdet(A, config=QRConfig(device="cpu", panel_width=32))
+    want_sign, want_logabs = np.linalg.slogdet(A.astype(np.float64))
+    assert float(sign) == want_sign == -1.0
+    assert abs(float(logabs) - want_logabs) < 64 * 1e-5 * abs(want_logabs)
+
+
+@pytest.mark.parametrize("method", ["geqr2", "geqrt", "cholqr2_hr", "cholqr2_bk"])
+def test_slogdet_sign_every_panel_method(method):
+    """The rule holds where tau is exactly 0 (geqr2, geqrt's plain version on
+    the CPU) as well as on the reconstruction (cholqr2_hr, and cholqr2_bk,
+    which slogdet swaps for it)."""
+    assert sign_misses(64, 16, torch.float32, panel_method=method) == []
 
 
 @pytest.mark.parametrize("m,n,k,damp", [(64, 32, 1, 0.0), (100, 40, 3, 0.0), (50, 50, 2, 0.0),
