@@ -17,6 +17,7 @@ from ..ops.gemm import gemm
 from ..ops.qrcp import qrcp_blocked
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
+from ..utils.profiling import span
 
 
 class QRResult:
@@ -36,7 +37,8 @@ class QRResult:
         return extract_r(self.factors, self.n)
 
     def apply_qt(self, B) -> torch.Tensor:
-        return ormqr(self.factors, B, transpose=True, config=self.config)
+        with span("entry.apply_qt"):
+            return ormqr(self.factors, B, transpose=True, config=self.config)
 
     def apply_q(self, B) -> torch.Tensor:
         return ormqr(self.factors, B, transpose=False, config=self.config)
@@ -134,8 +136,25 @@ def qr(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
       m >= n input only.
     Leading batch dimensions are factored one matrix at a time.  Complex
     input works in every mode (geqr2 panels at its dtype; not differentiable).
+    Each matrix's call is the span ``entry.qr``.
     """
     A = as_tensor(A, config)
+    if mode not in ("reduced", "complete", "r", "raw"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode != "raw" and A.dim() > 2:
+        batch = A.shape[:-2]
+        outs = [qr(a, config, mode) for a in A.reshape((-1,) + A.shape[-2:])]
+        if mode == "r":
+            return torch.stack(outs).reshape(batch + outs[0].shape)
+        Qs = torch.stack([o[0] for o in outs])
+        Rs = torch.stack([o[1] for o in outs])
+        return (Qs.reshape(batch + Qs.shape[-2:]), Rs.reshape(batch + Rs.shape[-2:]))
+    with span("entry.qr"):
+        return _qr_matrix(A, config, mode)
+
+
+def _qr_matrix(A: torch.Tensor, config: QRConfig, mode: str):
+    """``qr`` of one matrix (``mode="raw"``: of any input, which it checks)."""
     if mode == "raw":
         if A.dim() != 2 or A.shape[0] < A.shape[1]:
             raise QRShapeError(
@@ -145,16 +164,6 @@ def qr(A, config: QRConfig = DEFAULT_CONFIG, mode: str = "reduced"):
                else config.replace(panel_method="cholqr2_hr"))
         fac = qr_blocked(A, cfg)
         return fac.packed[:m, :n].T, fac.taus.reshape(-1)[:n]
-    if mode not in ("reduced", "complete", "r"):
-        raise ValueError(f"unknown mode {mode!r}")
-    if A.dim() > 2:
-        batch = A.shape[:-2]
-        outs = [qr(a, config, mode) for a in A.reshape((-1,) + A.shape[-2:])]
-        if mode == "r":
-            return torch.stack(outs).reshape(batch + outs[0].shape)
-        Qs = torch.stack([o[0] for o in outs])
-        Rs = torch.stack([o[1] for o in outs])
-        return (Qs.reshape(batch + Qs.shape[-2:]), Rs.reshape(batch + Rs.shape[-2:]))
     m, n = A.shape
     if m >= n:
         if mode == "reduced" and not A.is_complex():

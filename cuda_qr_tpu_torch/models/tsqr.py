@@ -39,6 +39,7 @@ from ..ops.smalllinalg import _eye, chol_with_inv_auto, host_decision
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import ceildiv
+from ..utils.profiling import span
 from .qr import ThinQRFunction
 
 
@@ -175,11 +176,13 @@ def tsqr(A, config: QRConfig = DEFAULT_CONFIG):
 
     Differentiable through the shared thin-QR VJP (``models/qr.py``) for
     real input; complex input takes Householder leaves, not differentiated.
+    The call is the span ``entry.tsqr``.
     """
-    A, config = _prepare(A, config)
-    if A.is_complex():
-        return _tsqr_impl(A, config)
-    return ThinQRFunction.apply(A, config, _tsqr_impl)
+    with span("entry.tsqr"):
+        A, config = _prepare(A, config)
+        if A.is_complex():
+            return _tsqr_impl(A, config)
+        return ThinQRFunction.apply(A, config, _tsqr_impl)
 
 
 def _householder_small(A: torch.Tensor, config: QRConfig, with_q: bool = True):
@@ -227,23 +230,26 @@ def _tree_level(R: torch.Tensor) -> torch.Tensor:
 def _tsqr_tree(A: torch.Tensor, config: QRConfig):
     """Binary-reduction-tree TSQR (leaves per config.tsqr_leaf)."""
     m, n = A.shape
-    Qleaf, R = _leaf_qr(_blocks(A, config), config)
+    with span("driver.tsqr_leaves"):
+        Qleaf, R = _leaf_qr(_blocks(A, config), config)
     L = Qleaf.shape[0]
     levels = []
     while R.shape[0] > 1:
-        Qk, R = _leaf_qr(_tree_level(R), config)
+        with span("driver.tsqr_level"):
+            Qk, R = _leaf_qr(_tree_level(R), config)
         levels.append(Qk)                              # (nodes, 2n, n)
     # Q build-down: root -> leaves.  A padded (phantom) sibling has no
     # parent slice: take only the real nodes' n x n pieces.
     prec = config.precision
-    Qcur = None
-    for Qk in reversed(levels):
+    with span("driver.tsqr_q"):
+        Qcur = None
+        for Qk in reversed(levels):
+            if Qcur is not None:
+                Qk = gemm(Qk, Qcur[:Qk.shape[0]], prec)
+            Qcur = Qk.reshape(Qk.shape[0] * 2, n, n)
         if Qcur is not None:
-            Qk = gemm(Qk, Qcur[:Qk.shape[0]], prec)
-        Qcur = Qk.reshape(Qk.shape[0] * 2, n, n)
-    if Qcur is not None:
-        Qleaf = gemm(Qleaf, Qcur[:L], prec)
-    return Qleaf.reshape(-1, n)[:m], R[0]
+            Qleaf = gemm(Qleaf, Qcur[:L], prec)
+        return Qleaf.reshape(-1, n)[:m], R[0]
 
 
 def tsqr_r(A, config: QRConfig = DEFAULT_CONFIG) -> torch.Tensor:

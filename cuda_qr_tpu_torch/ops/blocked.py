@@ -40,6 +40,7 @@ import torch
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
+from ..utils.profiling import span
 from .gemm import gemm
 from .householder import geqr2, larfb, merge_wy, panel_larft, panel_v, unit_vj, unpack_v
 
@@ -152,23 +153,24 @@ def _groups(k: int, width: int, stages: int, schedule=None):
 def _panel_factor(panel: torch.Tensor, off: int, config: QRConfig):
     """Factor rows >= off of a (m x nb) panel: (packed, tau, T, VJ), its
     GEMMs at ``config.precision``."""
-    nb = panel.shape[1]
-    method = config.panel_method if config.use_kernels else "geqr2"
-    if method == "cholqr2_bk":
-        from .fast_panel import panel_factor_cholqr2bk
-        return panel_factor_cholqr2bk(panel, off, config)
-    if method == "cholqr2_hr":
-        from .fast_panel import panel_factor_cholqr2hr
-        packed, tau, T = panel_factor_cholqr2hr(panel, off, config)
-    elif method == "geqrt":
-        from .geqrt import geqrt_panel
-        packed, tau, T = geqrt_panel(panel, off, config)
-    else:
-        cdt = torch.float32 if panel.dtype == torch.bfloat16 else panel.dtype
-        lo, tau = geqr2(panel[off:].to(cdt), precision=config.precision)
-        T = panel_larft(unpack_v(lo), tau, config.precision)
-        packed = torch.cat([panel[:off], lo.to(panel.dtype)], 0)
-    return packed, tau, T, unit_vj(packed, off, nb)
+    with span("panel.factor"):
+        nb = panel.shape[1]
+        method = config.panel_method if config.use_kernels else "geqr2"
+        if method == "cholqr2_bk":
+            from .fast_panel import panel_factor_cholqr2bk
+            return panel_factor_cholqr2bk(panel, off, config)
+        if method == "cholqr2_hr":
+            from .fast_panel import panel_factor_cholqr2hr
+            packed, tau, T = panel_factor_cholqr2hr(panel, off, config)
+        elif method == "geqrt":
+            from .geqrt import geqrt_panel
+            packed, tau, T = geqrt_panel(panel, off, config)
+        else:
+            cdt = torch.float32 if panel.dtype == torch.bfloat16 else panel.dtype
+            lo, tau = geqr2(panel[off:].to(cdt), precision=config.precision)
+            T = panel_larft(unpack_v(lo), tau, config.precision)
+            packed = torch.cat([panel[:off], lo.to(panel.dtype)], 0)
+        return packed, tau, T, unit_vj(packed, off, nb)
 
 
 def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
@@ -191,37 +193,39 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     m_pad, n_pad = round_up(m, nb), round_up(n, nb)
     k = n_pad // nb
     groups = _groups(k, config.factor_lookahead, config.scan_stages, config.stage_schedule)
-    sdt = config.dtype
-    cdt = torch.float32 if sdt == torch.bfloat16 else sdt
-    Ap = torch.zeros((m_pad, n_pad), dtype=cdt, device=A.device)
-    Ap[:m, :n] = A.to(sdt)
-    taus = torch.zeros((k, nb), dtype=cdt, device=A.device)
-    Ts = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
-    VJs = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
-    prec = config.resolved_trailing_precision()
-    for i0, i1 in groups:
-        gsz = i1 - i0
-        r0 = i0 * nb
-        Vs, Tg = [], []
-        for l in range(gsz):
-            i, off = i0 + l, l * nb
-            c = r0 + off
-            block = Ap[r0:, c:c + nb]
-            for V, T in zip(Vs, Tg):
-                block = larfb(block, V, T, transpose=True, precision=prec)
-            packed, tau, T, VJ = _panel_factor(block.to(sdt), off, config)
-            packed = packed.to(cdt)
-            Ap[r0:, c:c + nb] = packed
-            taus[i], Ts[i], VJs[i] = tau, T, VJ
-            Vs.append(panel_v(packed, off, VJ))
-            Tg.append(T.to(cdt))
-        rest = Ap[r0:, r0 + gsz * nb:]
-        if rest.shape[1]:
-            V, T = _merge_group(Vs, Tg, prec)
-            rest -= gemm(V, gemm(T.mH, gemm(V.mH, rest, prec), prec), prec)
-            if sdt != cdt:
-                rest.copy_(rest.to(sdt))
-    return PackedQR(packed=Ap.to(sdt), taus=taus, Ts=Ts, VJs=VJs)
+    with span("driver.factor"):
+        sdt = config.dtype
+        cdt = torch.float32 if sdt == torch.bfloat16 else sdt
+        Ap = torch.zeros((m_pad, n_pad), dtype=cdt, device=A.device)
+        Ap[:m, :n] = A.to(sdt)
+        taus = torch.zeros((k, nb), dtype=cdt, device=A.device)
+        Ts = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
+        VJs = torch.zeros((k, nb, nb), dtype=cdt, device=A.device)
+        prec = config.resolved_trailing_precision()
+        for i0, i1 in groups:
+            with span("driver.group"):
+                gsz = i1 - i0
+                r0 = i0 * nb
+                Vs, Tg = [], []
+                for l in range(gsz):
+                    i, off = i0 + l, l * nb
+                    c = r0 + off
+                    block = Ap[r0:, c:c + nb]
+                    for V, T in zip(Vs, Tg):
+                        block = larfb(block, V, T, transpose=True, precision=prec)
+                    packed, tau, T, VJ = _panel_factor(block.to(sdt), off, config)
+                    packed = packed.to(cdt)
+                    Ap[r0:, c:c + nb] = packed
+                    taus[i], Ts[i], VJs[i] = tau, T, VJ
+                    Vs.append(panel_v(packed, off, VJ))
+                    Tg.append(T.to(cdt))
+                rest = Ap[r0:, r0 + gsz * nb:]
+                if rest.shape[1]:
+                    V, T = _merge_group(Vs, Tg, prec)
+                    rest -= gemm(V, gemm(T.mH, gemm(V.mH, rest, prec), prec), prec)
+                    if sdt != cdt:
+                        rest.copy_(rest.to(sdt))
+        return PackedQR(packed=Ap.to(sdt), taus=taus, Ts=Ts, VJs=VJs)
 
 
 def _group_reflector(factors: PackedQR, i0: int, i1: int, nb: int, dtype,
@@ -252,14 +256,16 @@ def orgqr(factors: PackedQR, m: int, n: int,
     nb = config.panel_width
     k = n_pad // nb
     cdt = torch.float32 if packed.dtype == torch.bfloat16 else packed.dtype
-    Q = torch.eye(m_pad, n, dtype=cdt, device=packed.device)
-    prec = config.resolved_orgqr_precision()
-    for i0, i1 in reversed(_groups(k, config.apply_aggregate, config.scan_stages)):
-        r0 = i0 * nb
-        c0 = min(r0, n)
-        V, T = _group_reflector(factors, i0, i1, nb, cdt, prec)
-        Q[r0:, c0:] = larfb(Q[r0:, c0:], V, T, transpose=False, precision=prec)
-    return Q[:m].to(packed.dtype)
+    with span("driver.orgqr"):
+        Q = torch.eye(m_pad, n, dtype=cdt, device=packed.device)
+        prec = config.resolved_orgqr_precision()
+        for i0, i1 in reversed(_groups(k, config.apply_aggregate, config.scan_stages)):
+            with span("driver.orgqr_group"):
+                r0 = i0 * nb
+                c0 = min(r0, n)
+                V, T = _group_reflector(factors, i0, i1, nb, cdt, prec)
+                Q[r0:, c0:] = larfb(Q[r0:, c0:], V, T, transpose=False, precision=prec)
+        return Q[:m].to(packed.dtype)
 
 
 def ormqr(factors: PackedQR, B, transpose: bool = True,
@@ -275,15 +281,16 @@ def ormqr(factors: PackedQR, B, transpose: bool = True,
     k = n_pad // nb
     cdt = torch.float32 if packed.dtype == torch.bfloat16 else packed.dtype
     mB = B.shape[0]
-    Bp = torch.zeros((m_pad, B.shape[1]), dtype=cdt, device=packed.device)
-    Bp[:mB] = B.to(packed.device, cdt)
-    groups = _groups(k, config.apply_aggregate, config.scan_stages)
-    prec = config.resolved_orgqr_precision()
-    for i0, i1 in (groups if transpose else reversed(groups)):
-        r0 = i0 * nb
-        V, T = _group_reflector(factors, i0, i1, nb, cdt, prec)
-        Bp[r0:] = larfb(Bp[r0:], V, T, transpose=transpose, precision=prec)
-    return Bp[:mB].to(packed.dtype)
+    with span("driver.ormqr"):
+        Bp = torch.zeros((m_pad, B.shape[1]), dtype=cdt, device=packed.device)
+        Bp[:mB] = B.to(packed.device, cdt)
+        groups = _groups(k, config.apply_aggregate, config.scan_stages)
+        prec = config.resolved_orgqr_precision()
+        for i0, i1 in (groups if transpose else reversed(groups)):
+            r0 = i0 * nb
+            V, T = _group_reflector(factors, i0, i1, nb, cdt, prec)
+            Bp[r0:] = larfb(Bp[r0:], V, T, transpose=transpose, precision=prec)
+        return Bp[:mB].to(packed.dtype)
 
 
 def extract_r(factors: PackedQR, n: int, square: bool = True) -> torch.Tensor:

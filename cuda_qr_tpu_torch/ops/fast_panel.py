@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .gemm import gemm
 from .householder import geqr2, larft, unpack_v
 from .smalllinalg import chol_with_inv_auto, host_decision, lu_with_inv, newton_inverse
@@ -108,7 +109,8 @@ def panel_factor_cholqr2hr(panel: torch.Tensor, off: int, config):
     Q, Rpos, emax = _cholqr2(panel[off:], config)
     live, tau, T, _ = _hr_construct(Q, Rpos, config.precision)
     if _bad(live, T, emax):
-        live, tau, T, _ = _householder_fallback(panel, off, config.precision)
+        with span("panel.retry_geqr2"):
+            live, tau, T, _ = _householder_fallback(panel, off, config.precision)
     packed = torch.cat([panel[:off], live], 0)
     if cast_back is not None:
         packed = packed.to(cast_back)
@@ -143,14 +145,16 @@ def panel_factor_cholqr2bk(panel: torch.Tensor, off: int, config):
     errN = (eye - gemm(M, N, prec)).abs().max()
     cert = N.abs().max() ** 2 * errN
     if host_decision(~(cert <= 100 * torch.finfo(dtype).eps)):   # NaN -> HR
-        live, tau, T, VJ = _hr_construct(Q, Rpos, prec)
+        with span("panel.retry_hr"):
+            live, tau, T, VJ = _hr_construct(Q, Rpos, prec)
     else:
         T = N.T
         tau = torch.diagonal(T).clone()
         VJ = QJ - torch.diag(s)
         live = torch.cat([torch.triu(s[:, None] * Rpos), Q[nb:]], 0)
     if _bad(live, T, emax):
-        live, tau, T, VJ = _householder_fallback(panel, off, prec)
+        with span("panel.retry_geqr2"):
+            live, tau, T, VJ = _householder_fallback(panel, off, prec)
     packed = torch.cat([panel[:off], live], 0)
     if cast_back is not None:
         packed = packed.to(cast_back)

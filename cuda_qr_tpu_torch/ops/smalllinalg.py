@@ -14,13 +14,16 @@ Data-dependent branches.  The reference decides them on the device
 (``lax.cond`` / ``lax.while_loop``); eager PyTorch decides them on the host,
 and every such decision is one device->host sync.  ``host_decision`` (a
 boolean) and ``host_values`` (numbers, such as a split size) are the only
-places that take one, and ``host_syncs`` counts them.
+places that take one, and ``host_syncs`` counts them; the blocking read
+itself is the span ``driver.host_sync`` (``utils/profiling.span``), so its
+seconds are the host's wait at the sync.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .gemm import gemm
 from .householder import vecmat
 
@@ -35,7 +38,8 @@ def host_decision(flag: torch.Tensor) -> bool:
     """Bring a 0-d boolean tensor to the host (one sync on a device)."""
     global host_syncs
     host_syncs += 1
-    return bool(flag)
+    with span("driver.host_sync"):
+        return bool(flag)
 
 
 def host_values(values: torch.Tensor):
@@ -43,7 +47,8 @@ def host_values(values: torch.Tensor):
     device, however many numbers it holds)."""
     global host_syncs
     host_syncs += 1
-    return values.tolist()
+    with span("driver.host_sync"):
+        return values.tolist()
 
 
 def _eye(n: int, like: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,9 @@ on one rank over NCCL (``--only`` keeps the runs whose name starts with
 TEXT): the
 call's window on the host clock (ending in a synchronize), the device busy
 time (the union of the CUDA events' intervals), the busy share, the host
-syncs, and the device time and count of each kernel, largest first.  The
+syncs, the host's wait at them and the panel and driver layers' own host
+time (from the program's spans, ``utils/profiling.span_totals``), and the
+device time and count of each kernel, largest first.  The
 trace must hold one event for every launch the port's kernel wrappers
 counted in the call (chol_inv, geqrt, select_pivots); a call whose trace
 lost one fails.  Prints
@@ -39,6 +41,7 @@ from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
+from cuda_qr_tpu_torch.utils import profiling
 from cuda_qr_tpu_torch.utils.timing import card_name
 
 # The port's kernels: the names their device events carry, and the wrappers
@@ -60,6 +63,25 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def device_work(events) -> list:
+    """The profiler events that are device work: the CUDA events but the
+    device-side range that a span (``record_function``) leaves over its
+    whole length."""
+    return [ev for ev in events
+            if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation]
+
+
+def _span_seconds() -> dict:
+    """The span totals so far: the host's wait at the syncs, and the panel
+    and driver layers' own host time (each span less its direct children;
+    the driver's without the syncs)."""
+    totals = list(profiling.span_totals.items())
+    return {"sync_wait": sum(t.total_s for k, t in totals if k == "driver.host_sync"),
+            "panel_self": sum(t.self_s for k, t in totals if k.startswith("panel.")),
+            "driver_self": sum(t.self_s for k, t in totals
+                               if k.startswith("driver.") and k != "driver.host_sync")}
+
+
 def profile(fn) -> dict:
     """One profiled call of ``fn`` (after one warm-up call); raises if the
     trace lacks an event for a kernel launch that a wrapper counted."""
@@ -70,16 +92,16 @@ def profile(fn) -> dict:
         for w in wrappers:
             w.launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    spans = _span_seconds()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     syncs = smalllinalg.host_syncs
+    span_ms = {f"{k}_ms": (v - spans[k]) * 1e3 for k, v in _span_seconds().items()}
     sums, counts, intervals = defaultdict(float), defaultdict(int), []
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in device_work(prof.events()):
         start, end = ev.time_range.start, ev.time_range.end
         intervals.append((start, end))
         sums[ev.name] += end - start
@@ -96,8 +118,8 @@ def profile(fn) -> dict:
     kernels = sorted(({"name": k, "ms": v / 1e3, "count": counts[k]} for k, v in sums.items()),
                      key=lambda r: -r["ms"])
     return {"window_ms": window_ms, "busy_ms": busy_ms, "busy_share": busy_ms / window_ms,
-            "device_events": len(intervals), "host_syncs": syncs, "launches": launches,
-            "kernels": kernels}
+            "device_events": len(intervals), "host_syncs": syncs, **span_ms,
+            "launches": launches, "kernels": kernels}
 
 
 def _caqr_rank(mesh, n: int) -> dict:
@@ -177,7 +199,9 @@ def main() -> int:
                    f"{100 * b3_ms / rec['busy_ms']:.1f} % of busy") if b3 else ""
         print(f"{name}: window {rec['window_ms']:.2f} ms, device busy {rec['busy_ms']:.2f} ms "
               f"({100 * rec['busy_share']:.1f} %), {rec['device_events']} device events, "
-              f"{rec['host_syncs']} host syncs, launches {rec['launches']} (each traced)"
+              f"{rec['host_syncs']} host syncs waiting {rec['sync_wait_ms']:.2f} ms, panel self "
+              f"{rec['panel_self_ms']:.2f} ms, driver self {rec['driver_self_ms']:.2f} ms, "
+              f"launches {rec['launches']} (each traced)"
               f"{b3_line}; top: {top}", flush=True)
     path = Path(args.out)
     path.mkdir(parents=True, exist_ok=True)

@@ -68,7 +68,7 @@ def test_device_memory_stats_cpu():
 def test_trace_writes_a_chrome_trace(tmp_path):
     logdir = tmp_path / "tr"
     with profiling.trace(str(logdir)):
-        with profiling.annotate("gemm"):
+        with profiling.span("gemm"):
             torch.ones(16, 16) @ torch.ones(16, 16)
     trace = logdir / "trace.json"
     assert trace.exists() and "gemm" in trace.read_text()
