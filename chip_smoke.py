@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench,
-                                  stages,precision,slogdet]
+                                  stages,precision,slogdet,newton]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
@@ -59,7 +59,10 @@ and, where one exists, the PyTorch call that computes the same function
 lines say which kernel body (shared-memory sub-panels or L2 streaming) each
 shape took.  The pivot selection (B3, a thread block cluster) is checked
 on ties, a tie across the cluster's CTAs and a NaN, and timed on every tile
-shape.  Every phase raises on
+shape.  The Newton-Schulz inverse with its certificate (B4, a cluster too)
+is held to its plain twin on live panels' M at nb 32, 64 and 128 and on a
+NaN, and timed on the M of every panel of the 8192^2 factor beside the plain
+chain and torch.linalg.inv.  Every phase raises on
 failure, so any failure exits non-zero; it also fails on a machine without
 a CUDA device.
 
@@ -69,7 +72,7 @@ is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
 factor alone, MIXED_CONFIG's phase, the headline record, the grouping
-ladder, the precision phase, slogdet) and ends with
+ladder, the precision phase, slogdet, B4 on its own) and ends with
 the same last line, "only" added.  Run from another checkout's root, a
 copy of this script with ``--only factor`` times that checkout's factor.
 """
@@ -77,6 +80,7 @@ copy of this script with ``--only factor`` times that checkout's factor.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -108,6 +112,10 @@ GEQRT_BATCHED = ((1024, 1024, 128, 0, False, False), (64, 256, 128, 0, False, Fa
                  (8, 2048, 77, 3, True, False), (16, 512, 64, 0, False, True),
                  (64, 1024, 72, 0, False, False), (32, 144, 72, 0, False, False))
 CHOL_STACK = (4096, 64)
+# B4 against its plain twin: M of live panels of these rows at these widths
+NEWTON_ROWS = (8192, 2048, 512, 160, 128)
+NEWTON_NBS = (32, 64, 128)
+NEWTON_TOL = 1e-5   # N where the certificate passes: converged, so rounding only
 N_TSQR = (1 << 20, 128)          # BASELINE config 3
 N_TSQR_ILL = (65536, 128, 7)     # cond 1e7: the cholqr2 path must fall back
 N_BATCHED = (8192, 256, 64)
@@ -155,7 +163,9 @@ C11_GEMM = (128, 8192, 8064)        # the 8192^2 factor's V^H rest
 C11_HIGHEST_RATIO = 2.0             # "highest" error over the untouched state's, at most
 C11_TF32_RATIO = 50.0               # "tf32" error over the untouched "highest", at least
 C11_TIMEOUT_S = 300
-DEFAULT_B1, DEFAULT_SYNCS = 65, 806   # the 8192^2 factor at DEFAULT_CONFIG (PERF.md)
+# the 8192^2 factor at DEFAULT_CONFIG (PERF.md): B1 launches, and 3 host syncs
+# a panel (round 2's test, B4's certificate, the fallback test)
+DEFAULT_B1, DEFAULT_SYNCS = 65, 192
 MIXED_CLI_FACTOR = ["--mixed", "factor", "4096", "4096"]
 MIXED_CLI_TSQR = ["--tsqr-leaf", "cholqr2", "tsqr", "1048576", "128"]
 MIXED_TSQR_RATIO = 2.0              # MIXED cholqr2 tsqr residual over DEFAULT's
@@ -286,6 +296,12 @@ def select_bound(l: int, cand: int, nb: int) -> dict:
     return bound(4 * l * cand * nb, (l * cand + 2 * cand) * 4)
 
 
+def newton_bound(nb: int, iters: int) -> dict:
+    """iters Newton-Schulz iterations (two nb^3 products each, 4 nb^3) and
+    the certificate's product (2 nb^3); read M, write N."""
+    return bound((4 * iters + 2) * nb ** 3, 2 * nb * nb * 4)
+
+
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
@@ -357,6 +373,104 @@ def phase_chol(torch, np, dev):
         f"{out['ms']:.4f} ms vs plain {out['plain_ms']:.4f} ms, library (cholesky_ex + "
         f"solve_triangular) {out['library_ms']:.4f} ms (cholesky_ex alone "
         f"{out['cholesky_ex_ms']:.4f} ms), bound {out['bound_ms']:.6f} ms ({out['bound_by']})")
+    return out
+
+
+def panel_M(torch, np, ct, dev, m: int, nb: int, seed: int):
+    """M = I - S Q_J of the basis-kernel panel of a Gaussian m x nb panel, Q
+    from CholeskyQR2 on the card, as ``panel_factor_cholqr2bk`` forms it."""
+    from cuda_qr_tpu_torch.ops.fast_panel import _cholqr2
+    A = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (m, nb), dtype=np.float32)).to(dev)
+    Q, _, _ = _cholqr2(A, ct.DEFAULT_CONFIG)
+    QJ = Q[:nb]
+    s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(Q.dtype)
+    return torch.eye(nb, device=dev) - s[:, None] * QJ
+
+
+def phase_newton(torch, np, ct, dev):
+    """B4 (an 8-CTA cluster: Newton-Schulz and its certificate) against its
+    plain twin ``newton_certified`` on M of live panels of NEWTON_ROWS rows at
+    every NEWTON_NBS width (the same certificate decision, iterations within
+    one, N within NEWTON_TOL where the certificate passes) and on a NaN; then
+    the M of every panel of the 8192^2 factor at DEFAULT_CONFIG (one B4
+    launch a panel, DEFAULT_SYNCS host syncs), each timed by CUDA events:
+    the kernel, the plain chain (host syncs included) and
+    torch.linalg.inv, beside the bound of its iterations."""
+    from cuda_qr_tpu_torch.ops import _build, fast_panel, smalllinalg
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    _build.load()
+    say(f"ptxas newton_inv.cu:\n{_build.build_log.get('newton_inv.cu', '(cached library)')}")
+    thr = 100 * torch.finfo(torch.float32).eps
+    out = {"max_abs_err": 0.0, "body": "cluster", "cluster": 8}
+    for nb in NEWTON_NBS:
+        for m in NEWTON_ROWS:
+            m = max(m, nb)
+            M = panel_M(torch, np, ct, dev, m, nb, seed=m + nb)
+            N, err, cert, iters = newton_certified_kernel(M)
+            syncs = smalllinalg.host_syncs
+            Np, errp, certp = smalllinalg.newton_certified(M)
+            iters_p = smalllinalg.host_syncs - syncs - 1
+            ok, ok_p = bool(cert <= thr), bool(certp <= thr)
+            e = rel_err(N, Np)
+            say(f"newton_inv nb={nb}, {m} live rows: iterations {int(iters)} (plain {iters_p}), "
+                f"err {float(err):.2e} ({float(errp):.2e}), cert {float(cert):.2e} "
+                f"({float(certp):.2e}; passes at <= {thr:.2e}: {ok}, plain {ok_p}); rel err N "
+                f"{e:.2e} (< {NEWTON_TOL:g} where it passes)")
+            require(ok == ok_p and abs(int(iters) - iters_p) <= 1 and (not ok or e < NEWTON_TOL),
+                    f"newton_inv disagrees with its plain twin at nb={nb}, {m} rows")
+            if ok:
+                out["max_abs_err"] = max(out["max_abs_err"], abs_err(N, Np))
+    M = panel_M(torch, np, ct, dev, 2048, 128, seed=1)
+    M[7, 100] = float("nan")
+    N, err, cert, iters = newton_certified_kernel(M)
+    require(not bool(torch.isfinite(N).any()) and bool(torch.isnan(err)) and int(iters) == 1
+            and not bool(cert <= thr), f"newton_inv on a NaN: iters {int(iters)}, err "
+            f"{float(err)}, cert {float(cert)}")
+    say("newton_inv: a NaN in M -> non-finite N, NaN err and cert after 1 iteration: ok")
+
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (N_MAIN, N_MAIN), dtype=np.float32)).to(dev)
+    recorded = []
+    launch = fast_panel.newton_certified_kernel
+
+    def record(M, *args, **kwargs):
+        recorded.append(M.clone())
+        return launch(M, *args, **kwargs)
+
+    fast_panel.newton_certified_kernel = record
+    try:
+        _, c, _ = run_counted(torch, lambda: ct.qr_blocked(A, ct.DEFAULT_CONFIG))
+    finally:
+        fast_panel.newton_certified_kernel = launch
+    panels = N_MAIN // ct.DEFAULT_CONFIG.panel_width
+    say(f"newton_inv: factor {N_MAIN}^2 f32 DEFAULT_CONFIG: {counts_str(c)} (newton_inv == "
+        f"{panels}, host syncs == {DEFAULT_SYNCS})")
+    require(c["newton_inv"] == panels == len(recorded) and c["host_syncs"] == DEFAULT_SYNCS,
+            f"newton_inv factor: {counts_str(c)}")
+    iters = [int(newton_certified_kernel(M)[3]) for M in recorded]
+    t_k = [cuda_time_ms(lambda M=M: newton_certified_kernel(M), reps=20) for M in recorded]
+    t_p = [cuda_time_ms(lambda M=M: smalllinalg.newton_certified(M), reps=3, warmup=1)
+           for M in recorded]
+    t_l = [cuda_time_ms(lambda M=M: torch.linalg.inv(M), reps=20) for M in recorded]
+    t_b = [newton_bound(128, i)["bound_ms"] for i in iters]
+    slope, fixed = np.polyfit(iters, t_k, 1) if len(set(iters)) > 1 else (0.0, t_k[0])
+    out.update(ms=statistics.median(t_k), plain_ms=statistics.median(t_p),
+               library_ms=statistics.median(t_l), bound_ms=statistics.median(t_b),
+               bound_by="operations", iters_min=min(iters),
+               iters_median=statistics.median(iters), iters_max=max(iters),
+               us_per_iteration=1e3 * slope, fixed_us=1e3 * fixed,
+               factor_ms=sum(t_k), factor_plain_ms=sum(t_p), factor_library_ms=sum(t_l),
+               factor_bound_ms=sum(t_b))
+    say(f"newton_inv on the {panels} panels of the {N_MAIN}^2 factor (nb 128): iterations "
+        f"{min(iters)}-{max(iters)} (median {out['iters_median']}); kernel median "
+        f"{out['ms']:.4f} ms a launch ({out['us_per_iteration']:.2f} us an iteration + "
+        f"{out['fixed_us']:.2f} us, least squares over the panels), plain chain "
+        f"{out['plain_ms']:.4f} ms, torch.linalg.inv {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.6f} ms (operations); a factor's panels: kernel "
+        f"{out['factor_ms']:.3f} ms, plain {out['factor_plain_ms']:.3f} ms, torch.linalg.inv "
+        f"{out['factor_library_ms']:.3f} ms, bound {out['factor_bound_ms']:.4f} ms")
     return out
 
 
@@ -692,8 +806,10 @@ def counters():
     from cuda_qr_tpu_torch.ops import smalllinalg
     from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
     from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
     from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
-    return smalllinalg, (chol_with_inv_kernel, geqrt_base, geqrt_batched, select_pivots_kernel)
+    return smalllinalg, (chol_with_inv_kernel, geqrt_base, geqrt_batched, select_pivots_kernel,
+                         newton_certified_kernel)
 
 
 def reset_counts(torch) -> None:
@@ -705,16 +821,16 @@ def reset_counts(torch) -> None:
 
 
 def read_counts() -> dict:
-    sl, (chol, base, batched, select) = counters()
+    sl, (chol, base, batched, select, newton) = counters()
     return {"chol_inv": chol.launches, "geqrt": base.launches,
             "geqrt_batched": batched.launches, "select_pivots": select.launches,
-            "host_syncs": sl.host_syncs}
+            "newton_inv": newton.launches, "host_syncs": sl.host_syncs}
 
 
 def counts_str(c: dict) -> str:
     return (f"launches chol_inv {c['chol_inv']}, geqrt {c['geqrt']}, geqrt_batched "
-            f"{c['geqrt_batched']}, select_pivots {c['select_pivots']}; host syncs "
-            f"{c['host_syncs']}")
+            f"{c['geqrt_batched']}, select_pivots {c['select_pivots']}, newton_inv "
+            f"{c['newton_inv']}; host syncs {c['host_syncs']}")
 
 
 def run_counted(torch, fn):
@@ -2325,6 +2441,7 @@ def phase_complex(torch, ct, dev, smi):
     tensor.  Returns the path's counts (all kernels 0)."""
     from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
     from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
     from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     cfg = ct.DEFAULT_CONFIG
@@ -2446,7 +2563,8 @@ def phase_complex(torch, ct, dev, smi):
             ("geqrt_batched", lambda: geqrt_batched(crandn(torch, (4, 256, 64), 69, c64, dev), 0)),
             ("select_pivots", lambda: select_pivots_kernel(
                 crandn(torch, (160, 512), 70, c64, dev), torch.ones(512, dtype=c64, device=dev),
-                128))):
+                128)),
+            ("newton_inv", lambda: newton_certified_kernel(torch.eye(64, dtype=c64, device=dev)))):
         try:
             call()
         except (TypeError, ValueError) as exc:
@@ -2975,7 +3093,7 @@ def phase_precision(torch, np, ct, dev, smi):
 
 # phases that ``--only`` can run alone
 STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed",
-              "bench", "stages", "precision", "slogdet")
+              "bench", "stages", "precision", "slogdet", "newton")
 
 
 def main(argv=None) -> int:
@@ -3002,6 +3120,7 @@ def main(argv=None) -> int:
     from cuda_qr_tpu_torch.ops import smalllinalg
     from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
     from cuda_qr_tpu_torch.ops.geqrt import geqrt_base
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
     from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
     from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms, qr_flops
@@ -3035,6 +3154,8 @@ def main(argv=None) -> int:
             phase_precision(torch, np, ct, dev, smi)
         if "slogdet" in only:
             phase_slogdet(torch, np, ct, ct.DEFAULT_CONFIG, dev)
+        if "newton" in only:
+            phase_newton(torch, np, ct, dev)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3045,6 +3166,7 @@ def main(argv=None) -> int:
     geqrt_b = phase_geqrt_batched(torch, np, dev)
     chol.update(phase_chol_stack(torch, np, ct, dev))
     select = phase_select(torch, np, dev)
+    newton = phase_newton(torch, np, ct, dev)
 
     # ---- main path: 8192^2 float32 qr of a numpy array at DEFAULT_CONFIG (the
     # card is the default device), then geqrt 4096^2
@@ -3059,6 +3181,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     chol_with_inv_kernel.launches = 0
     geqrt_base.launches = 0
+    newton_certified_kernel.launches = 0
     smalllinalg.host_syncs = 0
     t0 = time.perf_counter()
     Q, R = ct.qr(A_np)
@@ -3075,7 +3198,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     t_geqrt = time.perf_counter() - t0
     launches = {"chol_inv": chol_with_inv_kernel.launches,
-                "geqrt": geqrt_base.launches}
+                "geqrt": geqrt_base.launches,
+                "newton_inv": newton_certified_kernel.launches}
     say(f"main path: qr of numpy {N_MAIN}^2 f32 at DEFAULT_CONFIG -> Q, R on {Q.device}; "
         f"{cfg.panel_method} nb={cfg.panel_width} "
         f"lookahead={cfg.factor_lookahead}: {t_main:.3f} s first call (with the copy), "
@@ -3085,6 +3209,8 @@ def main(argv=None) -> int:
     if chol_main < N_MAIN // cfg.panel_width:
         raise AssertionError(f"chol_inv launched {chol_main} times, expected >= "
                              f"{N_MAIN // cfg.panel_width} (one per panel)")
+    require(launches["newton_inv"] == N_MAIN // cfg.panel_width,
+            f"newton_inv launched {launches['newton_inv']} times, expected one a panel")
     say(f"geqrt path: qr_blocked+orgqr {N_GEQRT}^2 f32: {t_geqrt:.3f} s first call, "
         f"geqrt launches {launches['geqrt']}")
     gate(f"geqrt {N_GEQRT}^2 f32", ct.check_qr_device(A4, Q4, R4))
@@ -3234,6 +3360,10 @@ def main(argv=None) -> int:
          "replaces": "cuda_qr_tpu/ops/pallas_select.py:40",
          "launches": launches["select_pivots"], **select,
          **select_bound(*SELECT_TILES[0][:3]), "library_ms": None},
+        {"name": "newton_inv", "route": "cuda",
+         "source": "cuda_qr_tpu_torch/csrc/newton_inv.cu",
+         "replaces": "none: beside cuda_qr_tpu/ops/smalllinalg.py:newton_inverse (jnp)",
+         "launches": launches["newton_inv"], **newton},
     ]
     for entry in kernels:
         entry["launches_by_path"] = {name: c[entry["name"]] for name, c in by_path.items()}

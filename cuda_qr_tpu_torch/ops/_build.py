@@ -32,6 +32,7 @@ build_log: dict[str, str] = {}   # ptxas resource lines (registers, spills, smem
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # Entry points of each source: name -> argtypes.
 _SIGNATURES = {
     "chol_inv.cu": {
@@ -43,6 +44,10 @@ _SIGNATURES = {
         # A, lda, packed, tau, T, batch, m, w, off, kb, resident, nslices, stream
         "cqt_geqrt_batched_f32": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cqt_geqrt_batched_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "newton_inv.cu": {
+        # M, N, err, cert, iters, nb, tol, max_iters, stream
+        "cqt_newton_inv_f32": [_P, _P, _P, _P, _P, _I, _F, _I, _P],
     },
     "select_pivots.cu": {
         # S, norms, ord, l, cand, nb, stream

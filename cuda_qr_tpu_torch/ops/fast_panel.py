@@ -5,7 +5,9 @@ reconstruction (counterpart of ``cuda_qr_tpu/ops/fast_panel.py``).
      nb x nb Cholesky + inverse runs on the chol_inv kernel (B1) where the
      reference's gate allows it;
   2a. basis kernel (Yamamoto et al.): V := Q - E_J S, T := (I - S Q_J)^{-T}
-      by Newton-Schulz, certified a posteriori;
+      by Newton-Schulz, certified a posteriori; on the card a float32
+      "highest" panel runs both in one launch of kernel B4
+      (``ops/newton_kernel.py``);
   2b. Householder reconstruction (Ballard et al., IPDPS 2014): unit-lower V,
       tau, T from an LU of E_J - Q_J S;
   3. Householder fallback (geqr2 + larft) on Cholesky breakdown or a
@@ -29,7 +31,9 @@ import torch
 from ..utils.profiling import span
 from .gemm import gemm
 from .householder import geqr2, larft, unpack_v
-from .smalllinalg import chol_with_inv_auto, host_decision, lu_with_inv, newton_inverse
+from .newton_kernel import newton_certified_kernel
+from .newton_kernel import supported as newton_kernel_supported
+from .smalllinalg import chol_with_inv_auto, host_decision, lu_with_inv, newton_certified
 
 # Above this round-1 Gram error, round 2 cannot restore O(eps)
 # orthogonality (needs eps*cond(X)^2 << 1).  Dimensionless: f32 and f64.
@@ -100,6 +104,15 @@ def _bad(packed: torch.Tensor, T: torch.Tensor, emax: torch.Tensor) -> bool:
     return host_decision(~torch.isfinite(packed.sum() + T.sum()) | (emax > _EMAX_GATE))
 
 
+def _newton_on_kernel(M: torch.Tensor, config) -> bool:
+    """Whether the basis-kernel panel's Newton-Schulz inverse and its
+    certificate run on kernel B4: a float32 M on the card at "highest" (the
+    kernel computes in float32 FFMA), of a side the kernel takes.  float64,
+    the "tf32"/"high" panels, wider panels and the CPU keep the plain chain."""
+    return (config.use_kernels and config.precision == "highest" and M.is_cuda
+            and newton_kernel_supported(M.shape, M.dtype))
+
+
 def panel_factor_cholqr2hr(panel: torch.Tensor, off: int, config):
     """Factor rows >= off of an m x nb panel (m - off >= nb): (packed, tau, T)
     in LAPACK storage, unit-lower V under R."""
@@ -139,11 +152,12 @@ def panel_factor_cholqr2bk(panel: torch.Tensor, off: int, config):
     QJ = Q[:nb]
     s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(dtype)
     M = eye - s[:, None] * QJ
-    N, _ = newton_inverse(M, prec)
+    if _newton_on_kernel(M, config):
+        N, _, cert, _ = newton_certified_kernel(M)
+    else:
+        N, _, cert = newton_certified(M, prec)
     # H deviates from orthogonality by <= 16 ||N||^2 ||I - M N|| to first
     # order, and cond(M) is unbounded for near-square live panels.
-    errN = (eye - gemm(M, N, prec)).abs().max()
-    cert = N.abs().max() ** 2 * errN
     if host_decision(~(cert <= 100 * torch.finfo(dtype).eps)):   # NaN -> HR
         with span("panel.retry_hr"):
             live, tau, T, VJ = _hr_construct(Q, Rpos, prec)

@@ -2,11 +2,13 @@
 
 Counterpart of ``cuda_qr_tpu/ops/smalllinalg.py``: triangular inversion by
 block doubling, Cholesky and unpivoted LU by 2-way recursion (each fused with
-the inverses the recursion needs anyway), and a Newton-Schulz inverse.
+the inverses the recursion needs anyway), and a Newton-Schulz inverse with
+its a-posteriori certificate.
 Every product runs at the ``precision`` its function takes ("highest" by
 default), as the reference's recursions take ``precision=``.
 ``cholesky_with_inv`` is the plain version of the chol_inv kernel
-(``ops/chol_kernel.py``).  Every routine takes leading batch dimensions
+(``ops/chol_kernel.py``), ``newton_certified`` that of the Newton-Schulz
+kernel (``ops/newton_kernel.py``).  Every routine takes leading batch dimensions
 (the reference's ``jax.vmap``); a 2-D input runs the same ops as before.  A non-PD input gives NaN/Inf, no raise: callers
 branch on finiteness.
 
@@ -160,6 +162,12 @@ def newton_inverse(M: torch.Tensor, precision: str = "highest", tol: float | Non
     certifies convergence; err > tol (or NaN) means M was too
     ill-conditioned.  One host sync per iteration decides whether to go on.
     """
+    X, err, _ = _newton_schulz(M, precision, tol, max_iters)
+    return X, err
+
+
+def _newton_schulz(M: torch.Tensor, precision: str, tol: float | None, max_iters: int):
+    """newton_inverse's loop: (X, err, iterations run)."""
     n = M.shape[0]
     if tol is None:
         tol = 2e-4 if M.dtype == torch.float32 else 3e-8
@@ -171,13 +179,32 @@ def newton_inverse(M: torch.Tensor, precision: str = "highest", tol: float | Non
     e2 = torch.sqrt(E.abs().sum(0).max() * E.abs().sum(1).max())
     X = torch.where(e2 < 0.5, eye + E, (M / denom).T)
     err = torch.full((), float("inf"), dtype=M.dtype, device=M.device)
+    iters = 0
     for _ in range(max_iters):
         if not host_decision(err > tol):
             break
         P = gemm(M, X, precision)
         err = (eye - P).abs().max()
         X = gemm(X, 2 * eye - P, precision)
-    return X, err
+        iters += 1
+    return X, err, iters
+
+
+def newton_certificate(M: torch.Tensor, N: torch.Tensor, precision: str = "highest"):
+    """max|N|^2 max|I - M N|, 0-d on M's device: the basis-kernel panel's
+    block reflector deviates from orthogonality by at most 16 times this, to
+    first order in N's error."""
+    errN = (_eye(M.shape[0], M) - gemm(M, N, precision)).abs().max()
+    return N.abs().max() ** 2 * errN
+
+
+def newton_certified(M: torch.Tensor, precision: str = "highest", tol: float | None = None,
+                     max_iters: int = 48):
+    """(N, err, cert): newton_inverse of M, then newton_certificate of N.
+    The plain version of the Newton-Schulz kernel (``ops/newton_kernel.py``):
+    one host sync an iteration, none for the certificate."""
+    N, err = newton_inverse(M, precision, tol, max_iters)
+    return N, err, newton_certificate(M, N, precision)
 
 
 def _lu_base(Y: torch.Tensor):

@@ -14,7 +14,7 @@ syncs, the host's wait at them and the panel and driver layers' own host
 time (from the program's spans, ``utils/profiling.span_totals``), and the
 device time and count of each kernel, largest first.  The
 trace must hold one event for every launch the port's kernel wrappers
-counted in the call (chol_inv, geqrt, select_pivots); a call whose trace
+counted in the call (chol_inv, geqrt, select_pivots, newton_inv); a call whose trace
 lost one fails.  Prints
 one summary line per call and writes the full tables as JSON to
 ``DIR/profile.json`` (default ``chiprun_out``).  Fails without a card.
@@ -39,6 +39,7 @@ import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops import smalllinalg
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
+from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import select_pivots_kernel
 from cuda_qr_tpu_torch.utils import profiling
@@ -49,7 +50,8 @@ from cuda_qr_tpu_torch.utils.timing import card_name
 COUNTED = {"chol_inv": (("chol_inv_kernel",), (chol_with_inv_kernel,)),
            "geqrt": (("geqrt_subpanel_kernel", "geqrt_stream_kernel"),
                      (geqrt_base, geqrt_batched)),
-           "select_pivots": (("select_cluster_kernel",), (select_pivots_kernel,))}
+           "select_pivots": (("select_cluster_kernel",), (select_pivots_kernel,)),
+           "newton_inv": (("newton_cluster_kernel",), (newton_certified_kernel,))}
 
 
 def _busy_us(intervals) -> float:

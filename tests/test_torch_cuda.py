@@ -21,6 +21,7 @@ import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import (geqrt_base, geqrt_base_plain, geqrt_batched,
                                         geqrt_batched_plain)
+from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
                                                  selection_margin)
@@ -409,7 +410,7 @@ def test_library_eigh_at_its_float64_threshold(dev, n):
 
 def _launch_counts():
     return (chol_with_inv_kernel.launches, geqrt_base.launches, geqrt_batched.launches,
-            select_pivots_kernel.launches)
+            select_pivots_kernel.launches, newton_certified_kernel.launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
@@ -430,10 +431,12 @@ def test_complex_qr_on_the_card_launches_no_kernel(dev, dtype):
     assert float((x - eye).abs().max()) < (1e-4 if dtype == torch.complex64 else 1e-10)
 
 
-@pytest.mark.parametrize("name", ["chol_inv", "geqrt", "geqrt_batched", "select_pivots"])
+@pytest.mark.parametrize("name", ["chol_inv", "geqrt", "geqrt_batched", "select_pivots",
+                                  "newton"])
 def test_kernel_wrappers_raise_on_complex(dev, name):
     c64 = torch.complex64
     call = {"chol_inv": lambda: chol_with_inv_kernel(torch.eye(64, dtype=c64, device=dev)),
+            "newton": lambda: newton_certified_kernel(torch.eye(64, dtype=c64, device=dev)),
             "geqrt": lambda: geqrt_base(torch.ones(256, 64, dtype=c64, device=dev), 0),
             "geqrt_batched": lambda: geqrt_batched(torch.ones(4, 256, 64, dtype=c64, device=dev), 0),
             "select_pivots": lambda: select_pivots_kernel(
@@ -611,3 +614,95 @@ def test_slogdet_sign_on_the_card(dev):
         want_sign, want_logabs = torch.linalg.slogdet(A.double())
         assert float(sign) == float(want_sign), seed
         assert abs(float(logabs) - float(want_logabs)) < 1e-4 * abs(float(want_logabs)), seed
+
+
+def basis_kernel_M(dev, m, nb, seed):
+    """M = I - S Q_J of the basis-kernel panel of a Gaussian m x nb panel,
+    Q from CholeskyQR2 on the card (``fast_panel._cholqr2``, B1), as
+    ``panel_factor_cholqr2bk`` forms it."""
+    from cuda_qr_tpu_torch.ops.fast_panel import _cholqr2
+    A = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (m, nb), dtype=np.float32)).to(dev)
+    Q, _, _ = _cholqr2(A, ct.DEFAULT_CONFIG)
+    QJ = Q[:nb]
+    s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(Q.dtype)
+    return torch.eye(nb, device=dev) - s[:, None] * QJ
+
+
+@pytest.mark.parametrize("nb", [32, 64, 128])
+@pytest.mark.parametrize("m", [8192, 2048, 512, 160, 128])
+def test_newton_kernel_matches_plain(dev, m, nb):
+    """B4 against its plain twin on M from live panels from 8192 rows down
+    to a square one: the same certificate decision, iterations within one,
+    and where the certificate passes N within 1e-5 relative (N converged:
+    the two differ by the rounding of other summation orders)."""
+    from cuda_qr_tpu_torch.ops import smalllinalg
+    m = max(m, nb)
+    M = basis_kernel_M(dev, m, nb, seed=m + nb)
+    before = newton_certified_kernel.launches
+    N, err, cert, iters = newton_certified_kernel(M)
+    assert newton_certified_kernel.launches == before + 1
+    syncs = smalllinalg.host_syncs
+    Np, errp, certp = smalllinalg.newton_certified(M)
+    iters_plain = smalllinalg.host_syncs - syncs - 1
+    thr = 100 * torch.finfo(torch.float32).eps
+    passes = bool(cert <= thr)
+    assert passes == bool(certp <= thr), (float(cert), float(certp))
+    assert abs(int(iters) - iters_plain) <= 1, (int(iters), iters_plain)
+    if passes:
+        assert rel(N, Np) < 1e-5 and float(err) <= 2e-4
+
+
+def test_newton_kernel_nan_goes_to_hr(dev):
+    """A NaN in M: one iteration, non-finite N, a NaN certificate, which the
+    panel's decision sends to the HR rebuild."""
+    M = basis_kernel_M(dev, 2048, 128, seed=1)
+    M[7, 100] = float("nan")
+    N, err, cert, iters = newton_certified_kernel(M)
+    assert not torch.isfinite(N).any() and torch.isnan(err) and int(iters) == 1
+    assert bool(~(cert <= 100 * torch.finfo(torch.float32).eps))
+
+
+def test_newton_kernel_rejects(dev):
+    with pytest.raises(TypeError):
+        newton_certified_kernel(torch.eye(64, device=dev, dtype=torch.float64))
+    for n in (24, 144):
+        with pytest.raises(ValueError):
+            newton_certified_kernel(torch.eye(n, device=dev))
+
+
+def test_qr_8192_launches_newton_once_a_panel(dev):
+    """qr of 8192^2 at DEFAULT_CONFIG passes the gates; B4 runs once a panel,
+    B1 once or twice; the factor takes 3 host syncs a panel (CholeskyQR2's
+    round-2 test, the certificate, the fallback test; the retries take
+    none)."""
+    from cuda_qr_tpu_torch.ops import smalllinalg
+    n = 8192
+    panels = n // ct.DEFAULT_CONFIG.panel_width
+    A = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (n, n), dtype=np.float32)).to(dev)
+    newton, chol = newton_certified_kernel.launches, chol_with_inv_kernel.launches
+    syncs = smalllinalg.host_syncs
+    Q, R = ct.qr(A)
+    torch.cuda.synchronize()
+    assert newton_certified_kernel.launches - newton == panels
+    assert panels <= chol_with_inv_kernel.launches - chol <= 2 * panels
+    assert smalllinalg.host_syncs - syncs == 3 * panels
+    assert ct.check_qr_device(A, Q, R).ok
+
+
+@pytest.mark.parametrize("case", ["high", "tf32", "float64"])
+def test_newton_kernel_not_launched_off_highest_float32(dev, case):
+    """"high"/"tf32" panels and float64 input keep the plain Newton-Schulz
+    chain (one host sync an iteration), and the gates hold."""
+    n = 1024
+    dtype = torch.float64 if case == "float64" else torch.float32
+    cfg = (ct.QRConfig(dtype=torch.float64) if case == "float64"
+           else ct.QRConfig(precision=case, trailing_precision="highest",
+                            orgqr_precision="highest"))
+    A = torch.from_numpy(np.random.default_rng(3).standard_normal((n, n))).to(dev, dtype)
+    before = newton_certified_kernel.launches
+    f = ct.qr_blocked(A, cfg)
+    assert newton_certified_kernel.launches == before
+    if case != "tf32":
+        assert ct.check_qr_device(A, ct.orgqr(f, n, n, cfg), ct.extract_r(f, n)).ok

@@ -97,3 +97,90 @@ def test_bf16_panel_upcasts(rng):
     packed, tau, T, VJ = port.panel_factor_cholqr2bk(A.bfloat16(), 0, QRConfig())
     assert packed.dtype == torch.bfloat16 and T.dtype == torch.float32
     assert torch.isfinite(packed.float()).all()
+
+
+def _parent_cholqr2bk(panel, off, config):
+    """The basis-kernel panel as it was before kernel B4: newton_inverse,
+    then the certificate expression inline (float32 and float64 panels)."""
+    from cuda_qr_tpu_torch.ops.gemm import gemm
+    nb = panel.shape[1]
+    prec = config.precision
+    Q, Rpos, emax = port._cholqr2(panel[off:], config)
+    eye = torch.eye(nb, dtype=panel.dtype)
+    QJ = Q[:nb]
+    s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(panel.dtype)
+    M = eye - s[:, None] * QJ
+    N, _ = smalllinalg.newton_inverse(M, prec)
+    errN = (eye - gemm(M, N, prec)).abs().max()
+    cert = N.abs().max() ** 2 * errN
+    if smalllinalg.host_decision(~(cert <= 100 * torch.finfo(panel.dtype).eps)):
+        live, tau, T, VJ = port._hr_construct(Q, Rpos, prec)
+    else:
+        T = N.T
+        tau = torch.diagonal(T).clone()
+        VJ = QJ - torch.diag(s)
+        live = torch.cat([torch.triu(s[:, None] * Rpos), Q[nb:]], 0)
+    if port._bad(live, T, emax):
+        live, tau, T, VJ = port._householder_fallback(panel, off, prec)
+    return torch.cat([panel[:off], live], 0), tau, T, VJ
+
+
+# (m, nb, off, seed, dtype, how the panel ends): a tall panel, near-square
+# live rows, square last panels whose certificate fails (HR rebuild), a
+# float64 panel, and a rank-deficient one (a NaN certificate sends it to HR,
+# then the geqr2 fallback).
+PARENT_CASES = [(1024, 32, 0, 0, np.float32, "bk"), (72, 32, 32, 1, np.float32, "bk"),
+                (64, 32, 32, 4, np.float32, "hr"), (256, 128, 128, 6, np.float32, "hr"),
+                (96, 32, 0, 0, np.float64, "bk"), (64, 16, 0, 0, np.float64, "hr+geqr2")]
+
+
+@pytest.mark.parametrize("m,nb,off,seed,dt,ends", PARENT_CASES)
+def test_cholqr2bk_on_the_cpu_is_the_parents_path(monkeypatch, m, nb, off, seed, dt, ends):
+    """On the CPU the panel takes the plain twin of kernel B4: the same
+    (packed, tau, T, VJ) bits and host syncs as before the kernel."""
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
+    A = np.random.default_rng(seed).standard_normal((m, nb)).astype(dt)
+    if ends == "hr+geqr2":
+        A[:, 1:] = 0.0
+    cfg = QRConfig(dtype=torch.float64) if dt == np.float64 else QRConfig()
+    seen = {"hr": 0, "geqr2": 0}
+
+    def spy(name, fn):
+        def counted(*args):
+            seen[name] += 1
+            return fn(*args)
+        return counted
+
+    monkeypatch.setattr(port, "_hr_construct", spy("hr", port._hr_construct))
+    monkeypatch.setattr(port, "_householder_fallback",
+                        spy("geqr2", port._householder_fallback))
+    launches = newton_certified_kernel.launches
+    before = smalllinalg.host_syncs
+    got = port.panel_factor_cholqr2bk(torch.from_numpy(A), off, cfg)
+    syncs = smalllinalg.host_syncs - before
+    taken = dict(seen)
+    want = _parent_cholqr2bk(torch.from_numpy(A), off, cfg)
+    assert smalllinalg.host_syncs - before == 2 * syncs
+    assert newton_certified_kernel.launches == launches
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert {k: 2 * v for k, v in taken.items()} == seen
+    assert taken == {"hr": int("hr" in ends), "geqr2": int("geqr2" in ends)}
+
+
+@pytest.mark.parametrize("change,on_kernel", [
+    ({}, True), ({"nb": 16}, True), ({"nb": 112}, True),
+    ({"precision": "tf32"}, False), ({"precision": "high"}, False),
+    ({"dtype": torch.float64}, False), ({"nb": 144}, False), ({"nb": 24}, False),
+    ({"use_kernels": False}, False), ({"is_cuda": False}, False)])
+def test_newton_routing(change, on_kernel):
+    """Kernel B4 takes a float32 M on the card at "highest" of a side in
+    [16, 128] that is a multiple of 16; anything else keeps the plain chain.
+    M is a stand-in with the attributes the routing reads."""
+    from types import SimpleNamespace
+    nb = change.get("nb", 128)
+    M = SimpleNamespace(shape=(nb, nb), dtype=change.get("dtype", torch.float32),
+                        is_cuda=change.get("is_cuda", True))
+    cfg = QRConfig(precision=change.get("precision", "highest"),
+                   use_kernels=change.get("use_kernels", True))
+    assert port._newton_on_kernel(M, cfg) is on_kernel

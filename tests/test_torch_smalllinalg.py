@@ -115,3 +115,84 @@ def test_chol_with_inv_auto_takes_a_stack(rng):
     rL, rLi = ref.cholesky_with_inv(jnp.asarray(B[2] @ B[2].T / 64))
     close(L[2], rL, 1e-5)
     close(Li[2], rLi, 1e-5)
+
+
+# M = I - S Q_J of the basis-kernel panel (fast_panel.panel_factor_cholqr2bk)
+# for an orthonormal Q of m x nb: a tall live panel (M near I), a near-square
+# last panel, a square one whose certificate fails, and a square one on which
+# Newton-Schulz runs all 48 iterations without converging.
+NEWTON_CASES = {"tall": (1024, 32, 0), "near_square": (40, 32, 1),
+                "square_fails_certificate": (32, 32, 2), "no_convergence": (128, 128, 5)}
+
+
+def basis_kernel_M(case):
+    if case == "nan":
+        M = basis_kernel_M("tall")
+        M[3, 5] = float("nan")
+        return M
+    m, nb, seed = NEWTON_CASES[case]
+    Q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((m, nb)))
+    QJ = torch.from_numpy(Q[:nb].astype(np.float32))
+    s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0)
+    return torch.eye(nb) - s[:, None] * QJ
+
+
+def same_bits(a, b):
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case", [*NEWTON_CASES, "nan"])
+def test_newton_certified_is_newton_inverse_and_its_certificate(case):
+    """The plain twin of kernel B4 gives the bits and host syncs of
+    newton_inverse followed by the certificate expression the basis-kernel
+    panel computed before the twin existed."""
+    from cuda_qr_tpu_torch.ops.gemm import gemm
+    M = basis_kernel_M(case)
+    before = port.host_syncs
+    N, err, cert = port.newton_certified(M)
+    syncs = port.host_syncs - before
+    X, e = port.newton_inverse(M, "highest")
+    errN = (torch.eye(M.shape[0]) - gemm(M, X, "highest")).abs().max()
+    c = X.abs().max() ** 2 * errN
+    assert port.host_syncs - before == 2 * syncs
+    same_bits(N, X)
+    same_bits(err, e)
+    same_bits(cert, c)
+    passes = bool(cert <= 100 * torch.finfo(torch.float32).eps)
+    assert passes == (case in ("tall", "near_square"))
+    if case == "no_convergence":
+        assert syncs == 48 and float(err) > 2e-4
+    if case == "nan":
+        assert syncs == 2 and not torch.isfinite(N).any() and torch.isnan(cert)
+
+
+@pytest.mark.parametrize("case", ["tall", "near_square", "nan"])
+def test_newton_kernel_takes_the_plain_version_on_the_cpu(case):
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
+    M = basis_kernel_M(case)
+    launches = newton_certified_kernel.launches
+    before = port.host_syncs
+    N, err, cert, iters = newton_certified_kernel(M)
+    syncs = port.host_syncs - before
+    assert newton_certified_kernel.launches == launches
+    assert iters.dtype == torch.int32 and iters.dim() == 0 and int(iters) == syncs - 1
+    for a, b in zip((N, err, cert), port.newton_certified(M)):
+        same_bits(a, b)
+
+
+@pytest.mark.parametrize("shape,dtype,device,exc", [
+    ((32, 32), torch.float64, "cpu", TypeError),
+    ((32, 32), torch.bfloat16, "cpu", TypeError),
+    ((32, 48), torch.float32, "cpu", ValueError),
+    ((24, 24), torch.float32, "cpu", ValueError),
+    ((144, 144), torch.float32, "cpu", ValueError),
+    ((2, 32, 32), torch.float32, "cpu", ValueError),
+    ((32, 32), torch.float32, "meta", ValueError)])
+def test_newton_kernel_rejects(shape, dtype, device, exc):
+    """dtype and shape are checked before the device, as the kernel takes
+    them; a device that is neither the CPU nor a card raises too."""
+    from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
+    launches = newton_certified_kernel.launches
+    with pytest.raises(exc):
+        newton_certified_kernel(torch.zeros(shape, dtype=dtype, device=device))
+    assert newton_certified_kernel.launches == launches
