@@ -1,7 +1,9 @@
 """The control reads ``correct`` false on the card: the program's own path
-one precision below the configuration's (every GEMM in one TF32 pass,
-``QRConfig(precision="tf32")``), at sizes a test run holds.  TF32 exists
-only on the card, so these tests need one:
+one precision below the configuration's, as its ``control`` states (every
+GEMM in one TF32 pass, ``precision="tf32"``; or the trailing update in one
+TF32 pass instead of 3xTF32, ``trailing_precision="tf32"``), in every cell
+of BENCHMARK.json, at sizes a test run holds.  TF32 exists only on the
+card, so these tests need one:
 
     python -m pytest -m cuda qrbench/tests/test_qrbench_control.py
 """
@@ -12,18 +14,16 @@ import pytest
 import torch
 
 from qrbench import run, spec
-from qrbench.tests.tiny_root import make_root
+from qrbench.tests.tiny_root import card_cut, cells, make_root
 
-SIZES = {"qr_square_8192_f32": {"shape": [2048, 2048]},
-         "tsqr_1M_128_f32": {"shape": [262144, 128]}}
-CELLS = ("qr8192.qr", "tsqr1M.qr", "qr8192.apply_qt")
+CELLS = cells()
 
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: TF32 exists only on the card")
-    return make_root(tmp_path_factory.mktemp("root"), SIZES, rhs_cols=128)
+    return make_root(tmp_path_factory.mktemp("root"), card_cut, rhs_cols=128)
 
 
 @pytest.mark.cuda

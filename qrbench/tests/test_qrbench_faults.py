@@ -8,12 +8,14 @@ entry of an answer altered where it is produced.  One card per cell:
 there is no exchange between chips to leave out.
 """
 
+import json
+
 import pytest
 import torch
 
 import cuda_qr_tpu_torch as ct
-from qrbench import run
-from qrbench.tests.tiny_root import make_root
+from qrbench import run, spec
+from qrbench.tests.tiny_root import REPO, cells, make_root
 
 
 @pytest.fixture(scope="module")
@@ -65,8 +67,22 @@ def _apply_faults(orig):
     return {"unchanged": unchanged, "half": half, "altered": altered}
 
 
-THIN = [("qr8192.qr", "qr", f) for f in ("unchanged", "half", "altered")] + \
-       [("tsqr1M.qr", "tsqr", f) for f in ("unchanged", "half_rows", "altered")]
+# The faults a thin entry point can have: half of qr's columns (its panels),
+# half of tsqr's rows (its leaves); both for an entry not named here.
+FAULTS = {"qr": ("unchanged", "half", "altered"), "tsqr": ("unchanged", "half_rows", "altered")}
+
+
+def _thin_cells() -> list:
+    """(workload, entry) of BENCHMARK.json's cells whose traffic calls a thin
+    QR entry point directly (no set-up)."""
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    traffic = {w["name"]: spec.load(w["name"]).traffic for w in bench["workloads"]}
+    return [(w, t["entry"]) for w, t in traffic.items()
+            if t["check"] == "thin_qr" and not t.get("setup")]
+
+
+THIN = [(w, entry, f) for w, entry in _thin_cells()
+        for f in FAULTS.get(entry, ("unchanged", "half", "half_rows", "altered"))]
 
 
 @pytest.mark.parametrize("workload,entry,fault", THIN)
@@ -106,6 +122,6 @@ def test_a_call_that_raises_in_warm_up_ends_the_run(root, monkeypatch):
         run.run_cell("tsqr1M.qr", 1, 0.1, False, root=root, device="cpu")
 
 
-@pytest.mark.parametrize("workload", ["qr8192.qr", "tsqr1M.qr", "qr8192.apply_qt"])
+@pytest.mark.parametrize("workload", cells())
 def test_unbroken_reads_correct(root, workload):
     assert run.run_cell(workload, 2**31 + 5, 0.1, False, root=root, device="cpu")["correct"]

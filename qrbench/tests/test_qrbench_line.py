@@ -9,9 +9,9 @@ import pytest
 import torch
 
 from qrbench import run, spec
-from qrbench.tests.tiny_root import REPO, make_root
+from qrbench.tests.tiny_root import REPO, cells, make_root
 
-CELLS = ("qr8192.qr", "tsqr1M.qr", "qr8192.apply_qt")
+CELLS = cells()
 DEVICE_SOURCES = ("device_trace",)
 
 

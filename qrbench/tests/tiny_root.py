@@ -1,7 +1,12 @@
-"""A checkout-like root with the benchmark's files at sizes a CPU test run
+"""A checkout-like root with the benchmark's files at sizes a test run
 holds: the same cells, configurations cut to small shapes, and a cell of
 Q^T B traffic (``qr8192.apply_qt``), which the generator and the reference
-``apply_qt`` serve but no cell of BENCHMARK.json runs yet."""
+``apply_qt`` serve but no cell of BENCHMARK.json runs yet.
+
+A configuration is cut by its published ``shape``, never by its name, so a
+configuration or a cell added as files and entries is cut, rehearsed and
+tried with no edit here; ``cells`` gives the tests their cells from
+BENCHMARK.json."""
 
 from __future__ import annotations
 
@@ -10,11 +15,35 @@ import shutil
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-TINY = {
-    "qr_square_8192_f32": {"shape": [192, 192], "panel_width": 32},
-    "tsqr_1M_128_f32": {"shape": [4096, 32], "block_rows": 1024},
-}
 APPLY_QT = "qr8192.apply_qt"
+
+
+def tiny_cut(shape) -> dict:
+    """The CPU tests' cut of a configuration of ``shape`` (m, n): its new
+    ``shape`` and the QRConfig fields that keep the algorithm's structure at
+    it.  Square: 192 x 192 in panels of 32 (six panels, the groups of
+    factor_lookahead 4 and a partial group).  Tall: 4,096 x min(n, 32) in
+    leaves of 1,024 rows (a tree of four leaves)."""
+    m, n = shape
+    if m == n:
+        return {"shape": [192, 192], "panel_width": 32}
+    if m > n:
+        return {"shape": [4096, min(n, 32)], "block_rows": 1024}
+    raise ValueError(f"no cut for a wide shape {shape}")
+
+
+def card_cut(shape) -> dict:
+    """The card tests' cut of a configuration of ``shape`` (m, n): square
+    2,048 x 2,048, tall 262,144 x n; the QRConfig as stated."""
+    m, n = shape
+    return {"shape": [2048, 2048]} if m == n else {"shape": [262144, n]}
+
+
+def cells(root: Path = REPO) -> tuple:
+    """The cells of ``root``'s BENCHMARK.json, in its order, and the
+    ``qr8192.apply_qt`` cell that ``make_root`` adds."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    return tuple(w["name"] for w in bench["workloads"]) + (APPLY_QT,)
 
 
 def apply_qt_traffic(rhs_cols: int) -> dict:
@@ -38,20 +67,20 @@ def _add_apply_qt(tmp: Path, bench: dict, rhs_cols: int) -> None:
                                     "workloads": [APPLY_QT]})
 
 
-def make_root(tmp: Path, sizes: dict = TINY, rhs_cols: int = 16) -> Path:
-    """Copy BENCHMARK.json and qrbench/'s data files under ``tmp``, with
-    every configuration cut to its shape in ``sizes``, and add the cell
-    ``qr8192.apply_qt`` with B of ``rhs_cols`` columns."""
-    shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
-    shutil.copytree(REPO / "qrbench", tmp / "qrbench",
+def make_root(tmp: Path, cut=tiny_cut, rhs_cols: int = 16, source: Path = REPO) -> Path:
+    """Copy ``source``'s BENCHMARK.json and qrbench/'s data files under
+    ``tmp``, with every configuration cut to ``cut(its shape)``, and add the
+    cell ``qr8192.apply_qt`` with B of ``rhs_cols`` columns."""
+    shutil.copy(source / "BENCHMARK.json", tmp / "BENCHMARK.json")
+    shutil.copytree(source / "qrbench", tmp / "qrbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((tmp / "BENCHMARK.json").read_text())
     for c in bench["configs"]:
         path = tmp / c["file"]
         conf = json.loads(path.read_text())
-        cut = dict(sizes[c["name"]])
-        conf["shape"] = cut.pop("shape")
-        conf["qr_config"].update(cut)
+        fields = cut(conf["shape"])
+        conf["shape"] = fields.pop("shape")
+        conf["qr_config"].update(fields)
         path.write_text(json.dumps(conf))
     _add_apply_qt(tmp, bench, rhs_cols)
     (tmp / "BENCHMARK.json").write_text(json.dumps(bench))
