@@ -2,12 +2,14 @@
 a profiler, and under one, nested by layer (entry > driver > panel, the
 host syncs innermost) with totals that add up: one ``driver.host_sync`` per
 counted host sync, one ``panel.factor`` per panel, self time between 0 and
-the total, and a TSQR tree's leaves and levels."""
+the total, a TSQR tree's leaves and levels, and the direct CholeskyQR2
+attempt of ``tsqr`` and ``tsqr_r`` with its two syncs inside it."""
 
 import math
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -116,6 +118,72 @@ def test_tsqr_spans_count_the_tree(m):
     assert change["driver.tsqr_level"][0] == math.ceil(math.log2(leaves))
     assert change["driver.tsqr_q"][0] == 1
     assert change["entry.tsqr"][2] <= change["entry.tsqr"][1]
+
+
+DIRECT = CFG.replace(block_rows=256, tsqr_leaf="cholqr2")
+
+
+def _ill_conditioned():
+    """cond(A) ~ 3e7 in float32: the direct path's certificate fails."""
+    rng = np.random.default_rng(4)
+    U, _ = np.linalg.qr(rng.standard_normal((2048, 16)))
+    return torch.from_numpy((U * np.logspace(0, -7.5, 16)).astype(np.float32))
+
+
+def _inside(inner, outer):
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+@pytest.mark.parametrize("entry", ["tsqr", "tsqr_r"])
+def test_direct_attempt_is_one_span_around_its_two_syncs(entry):
+    A = _matrix(4096, 16)
+    before, syncs = _snapshot(), smalllinalg.host_syncs
+    with torch.profiler.profile(activities=CPU) as prof:
+        getattr(ct, entry)(A, DIRECT)
+    change = _change(before)
+    assert change["driver.tsqr_direct"][0] == 1
+    assert change["driver.host_sync"][0] == smalllinalg.host_syncs - syncs == 2
+    assert "driver.tsqr_leaves" not in change and "driver.tsqr_level" not in change
+    (direct,) = _program_events(prof, "driver.tsqr_direct")
+    assert all(_inside(s, direct) for s in _program_events(prof, "driver.host_sync"))
+    if entry == "tsqr":
+        (call,) = _program_events(prof, "entry.tsqr")
+        assert _inside(direct, call)
+        assert change["entry.tsqr"][2] == pytest.approx(change["driver.tsqr_direct"][1],
+                                                        rel=1e-9)
+    assert change["driver.tsqr_direct"][2] == pytest.approx(change["driver.host_sync"][1],
+                                                            rel=1e-9)
+
+
+def test_a_fallback_records_the_direct_attempt_then_the_tree():
+    before = _snapshot()
+    with torch.profiler.profile(activities=CPU) as prof:
+        ct.tsqr(_ill_conditioned(), DIRECT)
+    change = _change(before)
+    assert change["driver.tsqr_direct"][0] == 1 and change["driver.tsqr_leaves"][0] == 1
+    assert change["driver.tsqr_level"][0] == math.ceil(math.log2(2048 / 256))
+    (call,) = _program_events(prof, "entry.tsqr")
+    (direct,) = _program_events(prof, "driver.tsqr_direct")
+    (leaves,) = _program_events(prof, "driver.tsqr_leaves")
+    levels = _program_events(prof, "driver.tsqr_level")
+    assert all(_inside(s, call) for s in [direct, leaves] + levels)
+    assert direct[1] <= leaves[0] and all(leaves[1] <= lv[0] for lv in levels)
+    assert not any(_inside(lv, direct) for lv in levels)
+
+
+def test_direct_spans_off_without_a_profiler(monkeypatch):
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args, **kwargs):
+        entered.append(name)
+        return real(name, *args, **kwargs)
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    before = _snapshot()
+    ct.tsqr(_matrix(4096, 16), DIRECT)
+    ct.tsqr_r(_matrix(4096, 16), DIRECT)
+    ct.tsqr(_ill_conditioned(), DIRECT)
+    assert entered == [] and _snapshot() == before
 
 
 def test_totals_keep_every_thread_span():
