@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--only rotation_bias,eigh,orgqr_groups,update,factor,mixed,bench,
-                                  stages,precision,slogdet,newton]
+                                  stages,precision,slogdet,newton,geqrt_pair]
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
-kernel's batch grid and the chol_inv kernel's stack included), drives the
+kernel's batch grid with its triangle-pair body for TSQR tree nodes, and
+the chol_inv kernel's stack included), drives the
 port's paths (8192^2 float32 ``qr`` at the default configuration, the geqrt
 panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, the
 rank-revealing solvers and ``lstsq`` at 8192 x 2048, ``slogdet``'s sign at
@@ -72,7 +73,8 @@ is {"ok": true, "device": {...}}.  Imports neither JAX nor the JAX package.
 ``--only`` runs just the named phases (of ``STANDALONE``: the rotation's
 bias, the eigh phase, the panel groups of orgqr, the QR updates, the main
 factor alone, MIXED_CONFIG's phase, the headline record, the grouping
-ladder, the precision phase, slogdet, B4 on its own) and ends with
+ladder, the precision phase, slogdet, B4 on its own, B2's batch grid with
+its triangle-pair body) and ends with
 the same last line, "only" added.  Run from another checkout's root, a
 copy of this script with ``--only factor`` times that checkout's factor.
 """
@@ -111,6 +113,11 @@ HBM_PEAK = 3.35e12  # bytes/s, H100 SXM HBM3
 GEQRT_BATCHED = ((1024, 1024, 128, 0, False, False), (64, 256, 128, 0, False, False),
                  (8, 2048, 77, 3, True, False), (16, 512, 64, 0, False, True),
                  (64, 1024, 72, 0, False, False), (32, 144, 72, 0, False, False))
+# B2's triangle-pair body (a TSQR tree node [R_i; R_j]): (L, w, float64?)
+# against the plain version, the 1M x 128 tree's first level first; then
+# one node and that level timed beside the dense body and torch.geqrf
+GEQRT_PAIR = ((512, 128, False), (512, 128, True), (3, 77, False), (64, 72, False),
+              (3, 32, True), (5, 1, False))
 CHOL_STACK = (4096, 64)
 # B4 against its plain twin: M of live panels of these rows at these widths
 NEWTON_ROWS = (8192, 2048, 512, 160, 128)
@@ -288,6 +295,27 @@ def geqrt_bound(b: int, m: int, w: int) -> dict:
     """geqr2 (2mw^2 - 2w^3/3) plus larft (w^2 (m - w/3)); read the panel,
     write the packed panel, tau and T."""
     return bound(b * (3 * m * w * w - w ** 3), b * (2 * m * w + w + w * w) * 4)
+
+
+def pair_bound(b: int, w: int) -> dict:
+    """geqr2 + larft of b triangle pairs [R_i; R_j] counted over the live
+    triangles: step j updates w - 1 - j columns over top row j and bottom
+    rows 0..j (4j + 8 each), the Gram's column j takes j(j + 1), T's
+    column j the same; read the triangles, write the packed pair, tau
+    and T."""
+    flops = sum((w - 1 - j) * (4 * j + 8) + 2 * j * (j + 1) for j in range(w))
+    return bound(b * flops, b * (w * (w + 1) + 2 * w * w + w + w * w) * 4)
+
+
+def triangle_pairs(torch, np, L: int, w: int, seed: int, dtype, dev):
+    """L stacked pairs [R_i; R_j] (L x 2w x w) of upper triangles shaped as
+    a TSQR level's: N(0, 1) above the diagonal, exact zeros below, and on it
+    +-sqrt(4w - i), the size of a Gaussian block's R."""
+    rng = np.random.default_rng(seed)
+    R = np.triu(rng.standard_normal((L, 2, w, w)))
+    i = np.arange(w)
+    R[..., i, i] = np.sqrt(4.0 * w - i) * rng.choice([-1.0, 1.0], size=(L, 2, w))
+    return torch.from_numpy(R.reshape(L, 2 * w, w)).to(dev, dtype)
 
 
 def select_bound(l: int, cand: int, nb: int) -> dict:
@@ -772,6 +800,73 @@ def phase_geqrt_batched(torch, np, dev):
     return out
 
 
+def phase_geqrt_pair(torch, np, dev):
+    """B2's triangle-pair body against the plain version on stacked upper
+    triangles (a zero bottom block, the odd level's phantom sibling, and a
+    zero column among them), with exact zeros where the pair structure puts
+    them; its occupancy; then one 256 x 128 node and the 512-node level
+    timed beside the dense resident body on the same input and
+    torch.geqrf, and the live triangles' bound."""
+    from cuda_qr_tpu_torch.ops.geqrt import geqrt_batched, geqrt_batched_plain, pair_occupancy
+    from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
+    out = {}
+    for L, w, f64 in GEQRT_PAIR:
+        dtype, tol = (torch.float64, TOL64) if f64 else (torch.float32, TOL32)
+        P = triangle_pairs(torch, np, L, w, L + w, dtype, dev)
+        if L > 2:
+            P[1, w:] = 0.0                   # the phantom sibling
+            P[2, :, min(5, w - 1)] = 0.0     # a zero column in both halves
+        before = (geqrt_batched.launches, geqrt_batched.pair_launches)
+        pk, tau, T = geqrt_batched(P, 0, pair=True)
+        pp, taup, Tp = geqrt_batched_plain(P, 0)
+        torch.cuda.synchronize()
+        errs = (rel_err(pk, pp), rel_err(tau, taup), rel_err(T, Tp))
+        lower = torch.ones(w, w, dtype=torch.bool, device=dev).tril(-1)
+        zeros = bool((pk[:, :w][:, lower] == 0).all() and (pk[:, w:][:, lower] == 0).all()
+                     and (T[:, lower] == 0).all())
+        finite = bool(torch.isfinite(pk).all() and torch.isfinite(T).all())
+        say(f"geqrt_batched pair {str(dtype)[6:]} {L} x {2 * w}x{w}: rel err packed "
+            f"{errs[0]:.2e}, tau {errs[1]:.2e}, T {errs[2]:.2e} (tol {tol:g}); structural "
+            f"zeros exact {zeros}; launches +{geqrt_batched.launches - before[0]}, pair "
+            f"+{geqrt_batched.pair_launches - before[1]}")
+        require(finite and max(errs) < tol and zeros,
+                f"geqrt_batched pair body disagrees with its plain version at {(L, w, dtype)}")
+        require((geqrt_batched.launches - before[0], geqrt_batched.pair_launches - before[1])
+                == (1, 1), "geqrt_batched pair=True must launch once, counted as a pair launch")
+        if L > 2:
+            require(float(tau[2, min(5, w - 1)]) == 0.0, "a zero column must give tau = 0")
+        if (L, w, f64) == GEQRT_PAIR[0]:
+            out["pair_max_abs_err"] = max(abs_err(pk, pp), abs_err(tau, taup), abs_err(T, Tp))
+        del pk, pp, T, Tp
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype)[6:]
+        out[f"pair_ctas_per_sm_{name}"] = pair_occupancy(128, dtype)
+        say(f"geqrt pair body at w = 128 {name}: {out[f'pair_ctas_per_sm_{name}']} CTAs an SM "
+            f"by the runtime's occupancy")
+    require(out["pair_ctas_per_sm_float32"] >= 2, "the pair body must fit 2 CTAs an SM at "
+            "256 x 128 float32")
+    L, w = GEQRT_PAIR[0][:2]
+    P = triangle_pairs(torch, np, L, w, 7, torch.float32, dev)
+    P1 = P[:1].contiguous()
+    out["pair_node_ms"] = cuda_time_ms(lambda: geqrt_batched(P1, 0, pair=True), reps=50)
+    out["pair_node_dense_ms"] = cuda_time_ms(lambda: geqrt_batched(P1, 0), reps=20)
+    out["pair_node_library_ms"] = cuda_time_ms(lambda: torch.geqrf(P1[0]), reps=20)
+    out["pair_node_bound_ms"] = pair_bound(1, w)["bound_ms"]
+    out["pair_level_ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0, pair=True), reps=20)
+    out["pair_level_dense_ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0), reps=5)
+    out["pair_level_library_ms"] = cuda_time_ms(lambda: torch.geqrf(P), reps=3)
+    out["pair_level_bound_ms"] = pair_bound(L, w)["bound_ms"]
+    say(f"geqrt pair body, one {2 * w}x{w} f32 node: {out['pair_node_ms']:.4f} ms; the dense "
+        f"resident body {out['pair_node_dense_ms']:.4f} ms, torch.geqrf "
+        f"{out['pair_node_library_ms']:.4f} ms (no T); live-triangle bound "
+        f"{out['pair_node_bound_ms']:.6f} ms ({pair_bound(1, w)['bound_by']})")
+    say(f"geqrt pair body, a level of {L} nodes: {out['pair_level_ms']:.4f} ms; the dense "
+        f"resident body {out['pair_level_dense_ms']:.4f} ms, torch.geqrf "
+        f"{out['pair_level_library_ms']:.4f} ms (no T); live-triangle bound "
+        f"{out['pair_level_bound_ms']:.6f} ms ({pair_bound(L, w)['bound_by']})")
+    return out
+
+
 def phase_chol_stack(torch, np, ct, dev):
     """A stack of Gram matrices through chol_with_inv_auto: one launch of
     the chol_inv kernel's batch grid, against the batched plain recursion."""
@@ -818,19 +913,22 @@ def reset_counts(torch) -> None:
     sl.host_syncs = 0
     for fn in fns:
         fn.launches = 0
+    geqrt_batched = fns[2]
+    geqrt_batched.pair_launches = 0
 
 
 def read_counts() -> dict:
     sl, (chol, base, batched, select, newton) = counters()
     return {"chol_inv": chol.launches, "geqrt": base.launches,
-            "geqrt_batched": batched.launches, "select_pivots": select.launches,
-            "newton_inv": newton.launches, "host_syncs": sl.host_syncs}
+            "geqrt_batched": batched.launches, "geqrt_pair": batched.pair_launches,
+            "select_pivots": select.launches, "newton_inv": newton.launches,
+            "host_syncs": sl.host_syncs}
 
 
 def counts_str(c: dict) -> str:
     return (f"launches chol_inv {c['chol_inv']}, geqrt {c['geqrt']}, geqrt_batched "
-            f"{c['geqrt_batched']}, select_pivots {c['select_pivots']}, newton_inv "
-            f"{c['newton_inv']}; host syncs {c['host_syncs']}")
+            f"{c['geqrt_batched']} (pair body {c['geqrt_pair']}), select_pivots "
+            f"{c['select_pivots']}, newton_inv {c['newton_inv']}; host syncs {c['host_syncs']}")
 
 
 def run_counted(torch, fn):
@@ -890,26 +988,32 @@ def phase_tsqr(torch, np, ct, dev, smi):
         say(f"tsqr {m}x{n} f32 {leaf}: residual {chk.residual:.3e} (< {n * eps:.3e}), "
             f"orthogonality {chk.orthogonality:.3e} (< {orth_gate:.3e}), tril(R) "
             f"{chk.r_triangular:g}; {t_first:.3f} s first call, launches geqrt_batched "
-            f"{counts['geqrt_batched']}, chol_inv {counts['chol_inv']}, host syncs "
-            f"{counts['host_syncs']}")
+            f"{counts['geqrt_batched']} (pair body {counts['geqrt_pair']}), chol_inv "
+            f"{counts['chol_inv']}, host syncs {counts['host_syncs']}")
         if not (chk.residual < n * eps and chk.orthogonality < orth_gate
                 and chk.r_triangular == 0.0):
             raise AssertionError(f"tsqr {leaf} fails its gates")
         kernel = "geqrt_batched" if leaf == "householder" else "chol_inv"
         if counts[kernel] == 0:
             raise AssertionError(f"tsqr {leaf} launched no {kernel} kernel")
-        if leaf == "householder" and counts[kernel] != 11:    # leaves + 10 tree levels
-            raise AssertionError(f"tsqr householder launched geqrt_batched "
-                                 f"{counts[kernel]} times, expected 11")
+        # the leaves, then each of the 10 tree levels on the pair body
+        tree = (counts[kernel], counts["geqrt_pair"])
+        require(leaf != "householder" or tree == (11, 10),
+                f"tsqr householder launched geqrt_batched {tree[0]} times, {tree[1]} of them "
+                f"the pair body; expected 11 and 10")
         reset_counts(torch)
         Rr = ct.tsqr_r(A, cfg)
         counts_r = read_counts()
         e_r = rel_err(Rr, R)
         say(f"tsqr_r {leaf}: rel diff to tsqr's R {e_r:.2e} (< {TOL32:g}); launches "
-            f"geqrt_batched {counts_r['geqrt_batched']}, chol_inv {counts_r['chol_inv']}, "
-            f"host syncs {counts_r['host_syncs']}")
+            f"geqrt_batched {counts_r['geqrt_batched']} (pair body {counts_r['geqrt_pair']}), "
+            f"chol_inv {counts_r['chol_inv']}, host syncs {counts_r['host_syncs']}")
         if not e_r < TOL32:
             raise AssertionError(f"tsqr_r {leaf} disagrees with tsqr's R")
+        tree_r = (counts_r["geqrt_batched"], counts_r["geqrt_pair"])
+        require(leaf != "householder" or tree_r == (11, 10),
+                f"tsqr_r householder launched geqrt_batched {tree_r[0]} times, {tree_r[1]} of "
+                f"them the pair body; expected 11 and 10")
         del Q, R, Rr
         result[leaf] = (counts, cuda_time_ms(lambda: ct.tsqr(A, cfg), reps=5, warmup=1),
                         cuda_time_ms(lambda: ct.tsqr_r(A, cfg), reps=5, warmup=1))
@@ -928,8 +1032,8 @@ def phase_tsqr(torch, np, ct, dev, smi):
     chk = ct.check_qr_device(Ai, Q, R)
     say(f"tsqr {mi}x{ni} f32 cholqr2, cond 1e{cexp}: residual {chk.residual:.3e}, orthogonality "
         f"{chk.orthogonality:.3e} (< {4 * ni * eps:.3e}); fell back to the Householder tree: "
-        f"geqrt_batched launches {counts['geqrt_batched']}, chol_inv {counts['chol_inv']}, "
-        f"host syncs {counts['host_syncs']}")
+        f"geqrt_batched launches {counts['geqrt_batched']} (pair body {counts['geqrt_pair']}), "
+        f"chol_inv {counts['chol_inv']}, host syncs {counts['host_syncs']}")
     if not (chk.ok and counts["geqrt_batched"] > 0):
         raise AssertionError("ill-conditioned tsqr did not take the Householder fallback "
                              "or fails its gates")
@@ -938,7 +1042,7 @@ def phase_tsqr(torch, np, ct, dev, smi):
         say(f"  tsqr {m}x{n} f32 {leaf}: {t_q:.2f} ms (tsqr_r {t_r:.2f} ms), "
             f"{counts['host_syncs']} host syncs")
     say(f"  torch.linalg.qr reduced: {t_torch:.2f} ms; mode='r': {t_torch_r:.2f} ms")
-    return result["householder"][0]["geqrt_batched"]
+    return {k: result["householder"][0][k] for k in ("geqrt_batched", "geqrt_pair")}
 
 
 def phase_qr_batched(torch, np, ct, dev):
@@ -3084,8 +3188,8 @@ def phase_precision(torch, np, ct, dev, smi):
             f"tril(R) {chk.r_triangular:g}; {sec:.3f} s first call; {counts_str(c)}")
         require(chk.residual < n * eps and chk.orthogonality < orth_gate
                 and chk.r_triangular == 0.0, f"A7 'high' tsqr {leaf} fails its gates")
-        require(c["geqrt_batched"] == 11 if leaf == "householder" else c["chol_inv"] > 0,
-                f"A7 'high' tsqr {leaf}: {counts_str(c)}")
+        require((c["geqrt_batched"], c["geqrt_pair"]) == (11, 10) if leaf == "householder"
+                else c["chol_inv"] > 0, f"A7 'high' tsqr {leaf}: {counts_str(c)}")
         add_counts(total, {k: v for k, v in c.items() if k != "host_syncs"})
     say(f"  precision phase: {time.perf_counter() - t0:.1f} s")
     return total
@@ -3093,7 +3197,7 @@ def phase_precision(torch, np, ct, dev, smi):
 
 # phases that ``--only`` can run alone
 STANDALONE = ("rotation_bias", "eigh", "orgqr_groups", "update", "factor", "mixed",
-              "bench", "stages", "precision", "slogdet", "newton")
+              "bench", "stages", "precision", "slogdet", "newton", "geqrt_pair")
 
 
 def main(argv=None) -> int:
@@ -3156,6 +3260,10 @@ def main(argv=None) -> int:
             phase_slogdet(torch, np, ct, ct.DEFAULT_CONFIG, dev)
         if "newton" in only:
             phase_newton(torch, np, ct, dev)
+        if "geqrt_pair" in only:
+            phase_build()
+            phase_geqrt_batched(torch, np, dev)
+            phase_geqrt_pair(torch, np, dev)
         say(json.dumps({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3164,6 +3272,7 @@ def main(argv=None) -> int:
     chol = phase_chol(torch, np, dev)
     geqrt = phase_geqrt(torch, np, dev)
     geqrt_b = phase_geqrt_batched(torch, np, dev)
+    geqrt_pair = phase_geqrt_pair(torch, np, dev)
     chol.update(phase_chol_stack(torch, np, ct, dev))
     select = phase_select(torch, np, dev)
     newton = phase_newton(torch, np, ct, dev)
@@ -3257,7 +3366,7 @@ def main(argv=None) -> int:
     slogdet_counts = phase_rank(torch, np, ct, cfg, dev)
 
     # ---- this slice's paths: TSQR (BASELINE config 3), qr_batched, decomp, update
-    launches["geqrt_batched"] = phase_tsqr(torch, np, ct, dev, smi)
+    launches.update(phase_tsqr(torch, np, ct, dev, smi))
     phase_qr_batched(torch, np, ct, dev)
     phase_decomp(torch, np, ct, dev)
     phase_update(torch, np, ct, dev, smi)
@@ -3355,6 +3464,10 @@ def main(argv=None) -> int:
          "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
          "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
          "launches": launches["geqrt_batched"], **geqrt_b},
+        {"name": "geqrt_pair", "route": "cuda",
+         "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
+         "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
+         "launches": launches["geqrt_pair"], **geqrt_pair},
         {"name": "select_pivots", "route": "cuda",
          "source": "cuda_qr_tpu_torch/csrc/select_pivots.cu",
          "replaces": "cuda_qr_tpu/ops/pallas_select.py:40",

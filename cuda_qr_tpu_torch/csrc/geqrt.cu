@@ -49,6 +49,44 @@
 // Panels too tall for a 4-column sub-panel (float: m - off > ~11k rows)
 // take the first design's streaming body (kb = 0), reading the row-major
 // panel in L2.
+//
+// What bounds a TSQR tree node, and the triangle-pair body.  A node
+// stacks two upper triangles, [R_i; R_j] (2w x w, off = 0).  On the
+// resident body above a 256 x 128 float node takes ~225 KB, one CTA per
+// SM, and its 128 column steps run one after another at ~4.5 us each over
+// a panel three quarters zeros: 0.58 ms a node, while the work is ~3 MFLOP.
+// The 1M x 128 tree's 10 levels (512, 256, ..., 1 nodes) then take 14 waves
+// of 132 SMs, ~8 ms.  A node is latency-bound, so the pair body cuts the
+// latency of a step and the footprint of a node, not its operations:
+//   * at column j the reflector is 1 at top row j and lives on bottom rows
+//     0..j; the update touches top row j and bottom rows 0..j of the later
+//     columns.  Every other entry stays an exact zero (as in the dense
+//     body: 0 / u = 0, x - f 0 = x), so only the two triangles are held:
+//     the bottom one in registers (warp g owns columns g + 16k, lane l rows
+//     l + 32q; only the 20 (k, q) that reach the triangle exist, so 64
+//     registers hold it without spills), the top one packed in shared
+//     memory, read row j at step j and overwritten by R's row j; 101 KB at
+//     256 x 128 float, 2 CTAs per SM (the tree's 14 waves become 11);
+//   * one block barrier a step: each warp takes its 8 columns' dots with
+//     v_j over 4 rows a lane, sums them across the lanes in 9 shuffles (a
+//     reduce-scatter: lanes 4s..4s+3 end with column slot s) and broadcasts
+//     the 8 coefficients back; the warp that owns column j + 1 updates it,
+//     then at once takes its reflector (look-ahead: the scale and the sum of
+//     squares in one pass, a second, scaled pass only outside [2^-50, 2^50])
+//     and publishes v_{j+1} and tau_{j+1} before the barrier.  The same dots
+//     with the finished columns are the Gram V^T v_j that T needs;
+//   * T by the sub-panel body's rules: each 32-column diagonal block by one
+//     warp in registers, then T[:c, J] = -T[:c, :c] (Y[:c, J] T_JJ) for the
+//     later blocks J.  R, V and T keep the dense body's conventions, with
+//     exact zeros below R's and V's diagonals and T's.
+// What bounds it now (H100 80GB HBM3, 700 W): ~2,200 cycles a step, 0.16 ms
+// a node.  A step is the owner warp's chain (dots, the reduce-scatter, the
+// coefficients, the reflector), with every warp's 17 shuffles queued on the
+// pipe that also serves shared loads.  Layouts where a lane holds a run of
+// one column's rows need 2 shuffles, but read all of v_j from shared memory
+// once per column, and were 2-4x slower.
+// Only the caller that stacks the pair can ask for it (geqrt_batched's
+// pair=True): a shape cannot tell a stacked pair from a dense panel.
 
 #include <cuda_runtime.h>
 
@@ -232,6 +270,323 @@ __device__ void column_steps(T* V, int ldp, int rows, int kbs, T* tau_s, T* Ys,
     }
   }
 }
+
+// ------------------------------------------------------------------------
+// Triangle-pair body: a TSQR tree node [R_i; R_j] (see the note at the top)
+// ------------------------------------------------------------------------
+
+constexpr int kSlots = kMaxW / kWarps;   // columns a warp owns: warp + 16 k
+constexpr int kLaneRows = kMaxW / 32;    // bottom rows a lane owns: lane + 32 q
+
+// Whether slot k's columns reach row slot q at all (r <= c): the registers
+// hold only the triangle, 20 of the 32 (k, q).
+__host__ __device__ constexpr bool held(int k, int q) {
+  return 32 * q <= kWarps * k + kWarps - 1;
+}
+
+// Shared memory of the pair body, in elements of T: v twice, tau, beta, the
+// bottom block's square (w x (w | 1): the bottom triangle in, then the Gram
+// Y below the diagonal and T above it) and the top block's packed triangle
+// (R_i in, R out; then V_2 out; then T's products).
+__host__ __device__ constexpr int pair_words(int w) {
+  return 4 * kMaxW + w * (w | 1) + w * (w + 1) / 2;
+}
+
+// Packed upper triangle of a w x w block: row r holds columns r .. w - 1.
+__device__ __forceinline__ int tri_at(int r, int c, int w) {
+  return r * w - r * (r - 1) / 2 + c - r;
+}
+
+// max over the warp of a >= 0 (an |x|) or NaN: non-negative floats order as
+// their bits, and a NaN from fabs lies above them all
+__device__ __forceinline__ float warp_max_abs(float a) {
+  return __uint_as_float(__reduce_max_sync(0xffffffffu, __float_as_uint(a)));
+}
+__device__ __forceinline__ double warp_max_abs(double a) { return warp_max(a); }
+
+// Within [1 / big, big] the squares of a column's entries neither overflow
+// nor lose what the norm needs: the unscaled sum of squares is taken there.
+template <typename T> __device__ __forceinline__ T big();
+template <> __device__ __forceinline__ float big<float>() { return 1.1258999e15f; }   // 2^50
+template <> __device__ __forceinline__ double big<double>() {
+  return 2.5822498780869086e120;                          // 2^400
+}
+
+// Column j, held by one warp: x0 on top row j, col[q] on bottom row
+// lane + 32 q (live up to row j, zeros below).  Its reflector as Refl has
+// it: the scale is the largest |x| (NaN-propagating), taken beside the sum
+// of squares; a scale outside [1 / big, big] (or zero, or NaN) takes the
+// sum again scaled.  col becomes v (bottom rows), also written to vb; tau_j
+// and beta_j go to tau_s / beta_s.
+template <typename T>
+__device__ __forceinline__ void pair_reflector(T (&col)[kLaneRows], T x0, int j, T* vb,
+                                               T* tau_s, T* beta_s) {
+  const int lane = threadIdx.x & 31;
+  T mx = lane == 0 ? T(fabs(x0)) : T(0);
+  T ssq = lane == 0 ? x0 * x0 : T(0);
+#pragma unroll
+  for (int q = 0; q < kLaneRows; ++q) {
+    mx = nan_max(mx, T(fabs(col[q])));
+    ssq += col[q] * col[q];
+  }
+  mx = warp_max_abs(mx);
+  ssq = warp_sum(ssq);
+  T sc = T(1);
+  if (!(mx >= T(1) / big<T>() && mx <= big<T>())) {     // the same in every lane
+    const bool fast = mx >= min_normal<T>();              // 1 / mx is finite
+    const T rmx = fast ? T(1) / mx : T(0);
+    auto sq = [&](T x) {
+      const T xs = fast ? x * rmx : (mx > T(0) ? x / mx : x * T(0));   // x * 0: NaN stays NaN
+      return xs * xs;
+    };
+    ssq = lane == 0 ? sq(x0) : T(0);
+#pragma unroll
+    for (int q = 0; q < kLaneRows; ++q) ssq += sq(col[q]);
+    ssq = warp_sum(ssq);
+    if (!(mx == mx)) ssq = mx;                            // NaN spreads
+    sc = mx > T(0) ? mx : T(1);
+  }
+  const Refl<T> h(x0, sc, ssq);
+  if (h.degen || sc >= min_normal<T>()) {                 // 1 / safe_u is finite
+    const T ru = h.degen ? T(0) : T(1) / h.safe_u;
+#pragma unroll
+    for (int q = 0; q < kLaneRows; ++q) col[q] = lane + 32 * q > j ? T(0) : col[q] * ru;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kLaneRows; ++q) col[q] = lane + 32 * q > j ? T(0) : col[q] / h.safe_u;
+  }
+#pragma unroll
+  for (int q = 0; q < kLaneRows; ++q) vb[lane + 32 * q] = col[q];
+  if (lane == 0) {
+    tau_s[j] = h.tau;
+    beta_s[j] = h.beta;
+  }
+}
+
+// Sum each of a lane's kSlots partial dots over the warp: a reduce-scatter
+// (xor 16, 8, 4 halve the slots) then xor 2, 1; lanes 4s .. 4s + 3 end with
+// slot s's sum.
+template <typename T>
+__device__ __forceinline__ T slot_sums(const T (&a)[kSlots], int lane) {
+  static_assert(kSlots == 8, "three halvings");
+  T b[4], c[2];
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    b[i] = (h4 ? a[i + 4] : a[i]) + __shfl_xor_sync(0xffffffffu, h4 ? a[i] : a[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    c[i] = (h3 ? b[i + 2] : b[i]) + __shfl_xor_sync(0xffffffffu, h3 ? b[i] : b[i + 2], 8);
+  T d = (h2 ? c[1] : c[0]) + __shfl_xor_sync(0xffffffffu, h2 ? c[0] : c[1], 4);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  return d + __shfl_xor_sync(0xffffffffu, d, 1);
+}
+
+template <typename T>
+__device__ void pair_body(const T* __restrict__ A, int lda, T* P, T* __restrict__ tau,
+                          T* __restrict__ Tm, int w, T* sm) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ld = w | 1;                                 // odd: lanes' rows in distinct banks
+  const int nn = w * w;
+  T* vbuf = sm;                                         // v_j at vbuf + (j & 1) * kMaxW
+  T* tau_s = vbuf + 2 * kMaxW;
+  T* beta_s = tau_s + kMaxW;
+  T* S = beta_s + kMaxW;                                // w x ld
+  T* top = S + w * ld;
+
+  // the two triangles in, rstep rows at a time (thread (r0, c0): column c0)
+  const int rstep = kThreads / w, r0 = tid / w, c0 = tid - r0 * w;
+  if (r0 < rstep) {
+#pragma unroll 8
+    for (int r = r0; r < w; r += rstep) {
+      if (r <= c0) {
+        top[tri_at(r, c0, w)] = A[static_cast<size_t>(r) * lda + c0];
+        S[r * ld + c0] = A[static_cast<size_t>(w + r) * lda + c0];
+      }
+    }
+  }
+  __syncthreads();
+  T x[kSlots][kLaneRows];
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int c = warp + kWarps * k;
+#pragma unroll
+    for (int q = 0; q < kLaneRows; ++q) {
+      const int r = lane + 32 * q;
+      x[k][q] = held(k, q) && c < w && r <= c ? S[r * ld + c] : T(0);
+    }
+  }
+
+  // column steps, one barrier each (j = -1: column 0's reflector only)
+  const int slot = lane >> 2;                           // the slot this lane sums
+  const int cs = warp + kWarps * slot;
+  for (int j = -1; j < w; ++j) {
+    __syncthreads();                                    // v_j, tau_j; the last step's writes
+    if (j >= 0) {
+      const T* vj = vbuf + (j & 1) * kMaxW;
+      T v[kLaneRows];
+#pragma unroll
+      for (int q = 0; q < kLaneRows; ++q) v[q] = 32 * q <= j ? vj[lane + 32 * q] : T(0);
+      const bool live = cs > j && cs < w;
+      const T t = live ? top[tri_at(j, cs, w)] : T(0);
+      const T tj = tau_s[j];
+      // every owned column's dot with v_j: the update's for c > j, the
+      // Gram's Y[c][j] for c < j
+      T a[kSlots];
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        a[k] = T(0);
+#pragma unroll
+        for (int q = 0; q < kLaneRows; ++q)
+          if (held(k, q) && 32 * q <= j) a[k] += v[q] * x[k][q];
+      }
+      const T d = slot_sums(a, lane);
+      const T f = live ? tj * (t + d) : T(0);
+      if ((lane & 3) == 0) {
+        if (live) top[tri_at(j, cs, w)] = t - f;         // R[j][cs]
+        else if (cs < j) S[j * ld + cs] = d;             // Y[cs][j], below the diagonal
+      }
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) {
+        const T fk = __shfl_sync(0xffffffffu, f, 4 * k);
+#pragma unroll
+        for (int q = 0; q < kLaneRows; ++q)
+          if (held(k, q) && 32 * q <= j) x[k][q] -= fk * v[q];
+      }
+    }
+    // look-ahead: the owner of column j + 1 takes its reflector now, on the
+    // column picked out of its slots by selects (one copy of the code)
+    const int jn = j + 1;
+    if (jn < w && warp == jn % kWarps) {
+      const int kn = jn / kWarps;
+      T col[kLaneRows];
+#pragma unroll
+      for (int q = 0; q < kLaneRows; ++q) {
+        col[q] = T(0);
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k)
+          if (held(k, q)) col[q] = k == kn ? x[k][q] : col[q];
+      }
+      pair_reflector(col, top[tri_at(jn, jn, w)], jn, vbuf + (jn & 1) * kMaxW, tau_s, beta_s);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+#pragma unroll
+        for (int q = 0; q < kLaneRows; ++q)
+          if (held(k, q)) x[k][q] = k == kn ? col[q] : x[k][q];
+    }
+  }
+  __syncthreads();
+
+  // the top block (R above the diagonal, beta on it, zeros below) and tau
+  if (r0 < rstep) {
+#pragma unroll 4
+    for (int r = r0; r < w; r += rstep)
+      P[r * w + c0] = c0 > r ? top[tri_at(r, c0, w)] : (c0 == r ? beta_s[r] : T(0));
+  }
+  if (tid < w) tau[tid] = tau_s[tid];
+  __syncthreads();
+  // V_2, the bottom block, through the packed triangle (zeros below)
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) {
+    const int c = warp + kWarps * k;
+#pragma unroll
+    for (int q = 0; q < kLaneRows; ++q) {
+      const int r = lane + 32 * q;
+      if (held(k, q) && c < w && r <= c) top[tri_at(r, c, w)] = x[k][q];
+    }
+  }
+  __syncthreads();
+  if (r0 < rstep) {
+#pragma unroll 4
+    for (int r = r0; r < w; r += rstep)
+      P[nn + r * w + c0] = c0 >= r ? top[tri_at(r, c0, w)] : T(0);
+  }
+
+  // T's diagonal blocks, warp b the block of columns 32b .., lane i its row
+  // (as the sub-panel body's T_s): T[i][j] = -tau_j sum_k T[i][k] Y[k][j],
+  // Y[k][j] at S[j * ld + k]; T goes above S's diagonal
+  const int nblk = (w + kKb - 1) / kKb;
+  if (warp < nblk) {
+    const int b0 = warp * kKb;
+    const int kbs = w - b0 < kKb ? w - b0 : kKb;
+    T trow[kKb];
+#pragma unroll
+    for (int k = 0; k < kKb; ++k) trow[k] = k == lane && k < kbs ? tau_s[b0 + k] : T(0);
+#pragma unroll
+    for (int jj = 1; jj < kKb; ++jj) {
+      if (jj >= kbs) break;
+      T s = T(0);
+#pragma unroll
+      for (int k = 0; k < jj; ++k) s += trow[k] * S[(b0 + jj) * ld + b0 + k];
+      if (jj > lane) trow[jj] = -tau_s[b0 + jj] * s;
+    }
+#pragma unroll
+    for (int k = 0; k < kKb; ++k)
+      if (lane < kbs && k >= lane && k < kbs) S[(b0 + lane) * ld + b0 + k] = trow[k];
+  }
+  __syncthreads();
+  // the later blocks: T[:b0, J] = -T[:b0, :b0] Wk with Wk = Y[:b0, J] T_JJ
+  // (Wk in top), each thread a 2 x 4 tile of the product
+  T* Wk = top;
+  for (int blk = 1; blk < nblk; ++blk) {
+    const int b0 = blk * kKb;
+    const int kbs = w - b0 < kKb ? w - b0 : kKb;
+    const int tj = (kbs + 3) / 4;
+    const int tiles = b0 / 2 * tj;                      // 2 x 4 tiles
+    const int p0 = tid / tj * 2, j0 = tid % tj * 4;
+    if (tid < tiles) {
+      T a[2][4] = {};
+      const int qe = j0 + 3 < kbs - 1 ? j0 + 3 : kbs - 1;
+#pragma unroll 4
+      for (int q = 0; q <= qe; ++q) {
+        const T* col = S + (b0 + q) * ld;                 // Y[:, b0 + q] and T_JJ's row q
+        T y[2], tq[4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) y[r] = col[p0 + r];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) tq[u] = q <= j0 + u && j0 + u < kbs ? col[b0 + j0 + u] : T(0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) a[r][u] += y[r] * tq[u];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j0 + u < kbs) Wk[(p0 + r) * kbs + j0 + u] = a[r][u];
+    }
+    __syncthreads();
+    if (tid < tiles) {
+      T a[2][4] = {};
+#pragma unroll 4
+      for (int q = p0; q < b0; ++q) {
+        T tp[2], wq[4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) tp[r] = q >= p0 + r ? S[(p0 + r) * ld + q] : T(0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) wq[u] = j0 + u < kbs ? Wk[q * kbs + j0 + u] : T(0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) a[r][u] += tp[r] * wq[u];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (j0 + u < kbs) S[(p0 + r) * ld + b0 + j0 + u] = -a[r][u];
+    }
+    __syncthreads();
+  }
+  if (r0 < rstep) {
+#pragma unroll 4
+    for (int r = r0; r < w; r += rstep) Tm[r * w + c0] = c0 >= r ? S[r * ld + c0] : T(0);
+  }
+}
+
 
 // resident: the whole panel (rows >= off, all w columns) stays in shared
 // memory, row stride w + 1, and the sub-panel is a window of it; otherwise
@@ -458,6 +813,19 @@ geqrt_subpanel_kernel(const T* __restrict__ A, int lda, T* P, T* __restrict__ ta
   }
 }
 
+// The triangle-pair body's kernel (m = 2w, off = 0): a kernel of its own,
+// with launch bounds for 2 CTAs an SM in float32; its name holds the dense
+// kernel's, so a trace finds B2's device time by the one name.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
+geqrt_subpanel_kernel_pair(const T* __restrict__ A, int lda, T* P, T* __restrict__ tau,
+                           T* __restrict__ Tm, int w) {
+  extern __shared__ unsigned char smem_raw[];
+  const size_t b = blockIdx.x, m = 2 * w;
+  pair_body(A + b * m * lda, lda, P + b * m * w, tau + b * w, Tm + b * w * w, w,
+            reinterpret_cast<T*>(smem_raw));
+}
+
 // ------------------------------------------------------------------------
 // Streaming body (kb = 0): the panel stays in L2, column steps read it there
 // ------------------------------------------------------------------------
@@ -573,6 +941,24 @@ geqrt_stream_kernel(const T* __restrict__ A, int lda, T* __restrict__ P,
   }
 }
 
+// The pair body's dynamic shared memory, opted in: its bytes, or 0 where
+// they pass the card's limit.
+template <typename T>
+size_t pair_setup(int w) {
+  const size_t bytes = sizeof(T) * pair_words(w);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > static_cast<size_t>(optin)) return 0;
+  cudaFuncSetAttribute(geqrt_subpanel_kernel_pair<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  // the most shared memory an SM has: two float CTAs need 2 x 101 KB
+  cudaFuncSetAttribute(geqrt_subpanel_kernel_pair<T>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  return bytes;
+}
+
 template <typename T>
 int launch(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int m, int w,
            int off, int kb, int resident, int nslices, void* stream) {
@@ -601,6 +987,19 @@ int launch(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// L triangle pairs of 2w x w (row stride lda, panel stride 2w lda).
+template <typename T>
+int launch_pair(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int w,
+                void* stream) {
+  if (batch < 1 || w < 1 || w > kMaxW || lda < w) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = pair_setup<T>(w);
+  if (bytes == 0) return static_cast<int>(cudaErrorInvalidValue);
+  geqrt_subpanel_kernel_pair<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), lda, static_cast<T*>(P), static_cast<T*>(tau),
+      static_cast<T*>(Tm), w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int cqt_geqrt_batched_f32(const void* A, int lda, void* P, void* tau, void* Tm,
@@ -615,3 +1014,27 @@ extern "C" int cqt_geqrt_batched_f64(const void* A, int lda, void* P, void* tau,
   return launch<double>(A, lda, P, tau, Tm, batch, m, w, off, kb, resident, nslices, stream);
 }
 
+extern "C" int cqt_geqrt_pair_f32(const void* A, int lda, void* P, void* tau, void* Tm,
+                                  int batch, int w, void* stream) {
+  return launch_pair<float>(A, lda, P, tau, Tm, batch, w, stream);
+}
+
+extern "C" int cqt_geqrt_pair_f64(const void* A, int lda, void* P, void* tau, void* Tm,
+                                  int batch, int w, void* stream) {
+  return launch_pair<double>(A, lda, P, tau, Tm, batch, w, stream);
+}
+
+// CTAs of the pair body one SM holds at once at width w (the runtime's
+// occupancy: threads, registers and shared memory); -1 on an error.
+extern "C" int cqt_geqrt_pair_ctas_per_sm(int w, int f64) {
+  if (w < 1 || w > kMaxW) return -1;
+  int n = 0;
+  const size_t bytes = f64 ? pair_setup<double>(w) : pair_setup<float>(w);
+  const cudaError_t rc =
+      bytes == 0 ? cudaErrorInvalidValue
+      : f64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, geqrt_subpanel_kernel_pair<double>, kThreads, bytes)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &n, geqrt_subpanel_kernel_pair<float>, kThreads, bytes);
+  return rc == cudaSuccess ? n : -1;
+}

@@ -53,20 +53,24 @@ from .qr import ThinQRFunction
 direct_fallbacks = 0
 
 
-def _geqrt(A: torch.Tensor, config: QRConfig, off: int = 0):
+def _geqrt(A: torch.Tensor, config: QRConfig, off: int = 0, pair: bool = False):
     """geqr2 + larft of rows >= off of one (b, n) block (a column slice is
     read in place), or of every block of a stack (L, b, n) at once: on the
-    geqrt kernel (its batch grid for a stack) when eligible, else the plain
-    version at ``config.precision``."""
+    geqrt kernel (its batch grid for a stack; ``pair``: its triangle-pair
+    body for a tree level) when eligible, else the plain version at
+    ``config.precision``."""
     if config.use_kernels and supported(A.shape, A.dtype):
-        return (geqrt_base if A.dim() == 2 else geqrt_batched)(A, off)
+        if A.dim() == 2:
+            return geqrt_base(A, off)
+        return geqrt_batched(A, off, pair=pair)
     return geqrt_batched_plain(A, off, config.precision)
 
 
-def _batched_qr(blocks: torch.Tensor, config: QRConfig):
-    """Householder QR of a batch of (b, n) blocks -> (packed, T, R)."""
+def _batched_qr(blocks: torch.Tensor, config: QRConfig, pair: bool = False):
+    """Householder QR of a batch of (b, n) blocks -> (packed, T, R).
+    ``pair``: each block is a tree node [R_i; R_j] of two upper triangles."""
     n = blocks.shape[-1]
-    packed, _, T = _geqrt(blocks, config)
+    packed, _, T = _geqrt(blocks, config, pair=pair)
     return packed, T, unpack_r(packed)[..., :n, :]
 
 
@@ -102,18 +106,20 @@ def _batched_cholqr2(blocks: torch.Tensor, config: QRConfig):
     return Q, gemm(R2, R1, prec), emax
 
 
-def _leaf_qr(blocks: torch.Tensor, config: QRConfig, with_q: bool = True):
+def _leaf_qr(blocks: torch.Tensor, config: QRConfig, with_q: bool = True,
+             pair: bool = False):
     """Leaf (or tree-node) factorization -> (Q (L,b,n), R (L,n,n)) by
     config.tsqr_leaf, falling back to Householder for the whole batch when
     CholeskyQR2 broke down (non-finite output) or silently lost
     orthogonality (round-2 Gram defect above 0.05): one host decision.
-    ``with_q=False`` skips the Householder leaves' explicit Q (Q is None)."""
+    ``with_q=False`` skips the Householder leaves' explicit Q (Q is None).
+    ``pair``: the blocks are a tree level's [R_i; R_j] (``_tree_level``)."""
     if config.tsqr_leaf == "cholqr2":
         Q, R, emax = _batched_cholqr2(blocks, config)
         bad = ~torch.isfinite(Q.sum() + R.sum()) | (emax > 0.05)
         if not host_decision(bad):
             return Q, R
-    packed, T, R = _batched_qr(blocks, config)
+    packed, T, R = _batched_qr(blocks, config, pair)
     return (_batched_orgqr(packed, T, config.precision) if with_q else None), R
 
 
@@ -246,7 +252,8 @@ def _blocks(A: torch.Tensor, config: QRConfig) -> torch.Tensor:
 
 def _tree_level(R: torch.Tensor) -> torch.Tensor:
     """Sibling R's stacked as (nodes, 2n, n); an odd count is padded with a
-    zero R block (QR of zeros is zeros)."""
+    zero R block (QR of zeros is zeros).  Every R is upper triangular with
+    exact zeros below (``unpack_r``), so each node is a triangle pair."""
     if R.shape[0] % 2:
         R = torch.cat([R, torch.zeros_like(R[:1])])
     n = R.shape[-1]
@@ -262,7 +269,7 @@ def _tsqr_tree(A: torch.Tensor, config: QRConfig):
     levels = []
     while R.shape[0] > 1:
         with span("driver.tsqr_level"):
-            Qk, R = _leaf_qr(_tree_level(R), config)
+            Qk, R = _leaf_qr(_tree_level(R), config, pair=True)
         levels.append(Qk)                              # (nodes, 2n, n)
     # Q build-down: root -> leaves.  A padded (phantom) sibling has no
     # parent slice: take only the real nodes' n x n pieces.
@@ -295,5 +302,5 @@ def _tsqr_r_impl(A: torch.Tensor, config: QRConfig) -> torch.Tensor:
         config = config.replace(tsqr_leaf="householder")
     _, R = _leaf_qr(_blocks(A, config), config, with_q=False)
     while R.shape[0] > 1:
-        _, R = _leaf_qr(_tree_level(R), config, with_q=False)
+        _, R = _leaf_qr(_tree_level(R), config, with_q=False, pair=True)
     return R[0]

@@ -44,6 +44,11 @@ _SIGNATURES = {
         # A, lda, packed, tau, T, batch, m, w, off, kb, resident, nslices, stream
         "cqt_geqrt_batched_f32": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cqt_geqrt_batched_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # A, lda, packed, tau, T, batch, w, stream
+        "cqt_geqrt_pair_f32": [_P, _I, _P, _P, _P, _I, _I, _P],
+        "cqt_geqrt_pair_f64": [_P, _I, _P, _P, _P, _I, _I, _P],
+        # w, f64
+        "cqt_geqrt_pair_ctas_per_sm": [_I, _I],
     },
     "newton_inv.cu": {
         # M, N, err, cert, iters, nb, tol, max_iters, stream

@@ -16,7 +16,11 @@ float32 at any precision, as the reference's does at HIGHEST.
 ``geqrt_batched`` factors a stack of equal panels in one launch of the
 kernel's batch grid: the TSQR leaves and tree nodes (``models/tsqr.py``),
 which the reference runs as a vmapped geqr2 + larft.  Its plain version,
-``geqrt_batched_plain``, is the same batch-aware geqr2 + larft.
+``geqrt_batched_plain``, is the same batch-aware geqr2 + larft.  A tree
+node stacks two upper triangles, [R_i; R_j]; its caller, which knows that,
+passes ``pair=True`` and the kernel runs its triangle-pair body, which
+reads only the triangles (LAPACK's tpqrt with l = n) and returns what the
+dense body returns.
 
 The kernel reads each panel as it lies (row-major) and writes contiguous
 outputs.  ``plan`` decides from the shape alone, before the launch, how it
@@ -120,9 +124,19 @@ def body(m: int, w: int, off: int, dtype) -> str:
     return "resident" if p.resident else ("subpanel" if p.kb else "stream")
 
 
-def _launch(name: str, A: torch.Tensor, lda: int, off: int):
+def pair_occupancy(w: int, dtype) -> int:
+    """CTAs of the triangle-pair body one SM holds, by the CUDA runtime's
+    occupancy calculator (needs a card)."""
+    n = _build.load().cqt_geqrt_pair_ctas_per_sm(w, int(dtype == torch.float64))
+    if n < 0:
+        raise RuntimeError(f"cqt_geqrt_pair_ctas_per_sm failed at w={w}, {dtype}")
+    return n
+
+
+def _launch(name: str, A: torch.Tensor, lda: int, off: int, pair: bool = False):
     """One launch over a stack A (L panels of m x w, row stride lda, panel
-    stride m * lda): (packed (L, m, w) contiguous, tau (L, w), T (L, w, w))."""
+    stride m * lda): (packed (L, m, w) contiguous, tau (L, w), T (L, w, w)).
+    ``pair``: the triangle-pair body's own entry (m = 2w, off = 0)."""
     L, m, w = A.shape
     packed = torch.empty((L, m, w), dtype=A.dtype, device=A.device)
     tau = torch.empty((L, w), dtype=A.dtype, device=A.device)
@@ -130,12 +144,18 @@ def _launch(name: str, A: torch.Tensor, lda: int, off: int):
     if L == 0:
         return packed, tau, T
     lib = _build.load()
-    fn = lib.cqt_geqrt_batched_f32 if A.dtype == torch.float32 else lib.cqt_geqrt_batched_f64
-    p = plan(m, w, off, A.dtype)
+    f32 = A.dtype == torch.float32
+    if pair:
+        fn = lib.cqt_geqrt_pair_f32 if f32 else lib.cqt_geqrt_pair_f64
+        shape = (L, w)
+    else:
+        fn = lib.cqt_geqrt_batched_f32 if f32 else lib.cqt_geqrt_batched_f64
+        p = plan(m, w, off, A.dtype)
+        shape = (L, m, w, off, p.kb, int(p.resident), p.slices)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(fn(A.data_ptr(), lda, packed.data_ptr(), tau.data_ptr(), T.data_ptr(),
-                        L, m, w, off, p.kb, int(p.resident), p.slices, stream), name)
+                        *shape, stream), name)
     return packed, tau, T
 
 
@@ -161,20 +181,34 @@ def geqrt_base(panel: torch.Tensor, off: int):
 geqrt_base.launches = 0
 
 
-def geqrt_batched(panels: torch.Tensor, off: int):
+def geqrt_batched(panels: torch.Tensor, off: int, pair: bool = False):
     """Factor rows >= off of each of L panels (L x m x w, w <= 128) in one
-    launch: (packed (L x m x w), tau (L x w), T (L x w x w)), all contiguous."""
+    launch: (packed (L x m x w), tau (L x w), T (L x w x w)), all contiguous.
+
+    ``pair=True`` says that each panel is a triangle pair [R_i; R_j] (m = 2w,
+    off = 0, both halves upper triangular; entries below their diagonals
+    are not read) and takes the kernel's pair body; it raises on any other
+    shape.  The result is the dense body's to rounding, with exact zeros
+    below the diagonals of both halves and of T.  A CPU tensor takes the
+    plain version either way.  ``launches`` counts every launch,
+    ``pair_launches`` those of the pair body.
+    """
     L, m, w = panels.shape
     _check_shape("geqrt_batched", m, w, off)
+    if pair and (m != 2 * w or off != 0):
+        raise ValueError(f"geqrt_batched: pair=True needs m = 2w and off = 0, "
+                         f"got m={m}, w={w}, off={off}")
     if panels.device.type == "cpu":
         return geqrt_batched_plain(panels, off)
     _check_device("geqrt_batched", panels)
-    out = _launch("geqrt_batched", panels.contiguous(), w, off)
+    out = _launch("geqrt_batched", panels.contiguous(), w, off, pair)
     geqrt_batched.launches += 1
+    geqrt_batched.pair_launches += int(pair)
     return out
 
 
 geqrt_batched.launches = 0
+geqrt_batched.pair_launches = 0
 
 
 def _geqrt_recursive(panel: torch.Tensor, off: int, config):

@@ -20,7 +20,8 @@ import torch
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import (geqrt_base, geqrt_base_plain, geqrt_batched,
-                                        geqrt_batched_plain)
+                                        geqrt_batched_plain, pair_occupancy)
+from cuda_qr_tpu_torch.ops.householder import unpack_v
 from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
@@ -263,6 +264,86 @@ def test_geqrt_batched_kernel_matches_plain(dev, L, m, w, off, dtype):
     assert float(got[1][1].abs().max()) == 0.0 and float(got[1][2, 5]) == 0.0
 
 
+def triangle_pairs(L, w, seed, dtype, dev):
+    """L stacked pairs [R_i; R_j] (L x 2w x w) of upper triangles shaped as a
+    TSQR level's: N(0, 1) above the diagonal, +-sqrt(4w - i) on it."""
+    rng = np.random.default_rng(seed)
+    R = np.triu(rng.standard_normal((L, 2, w, w)))
+    i = np.arange(w)
+    R[..., i, i] = np.sqrt(4.0 * w - i) * rng.choice([-1.0, 1.0], size=(L, 2, w))
+    return torch.from_numpy(R.reshape(L, 2 * w, w)).to(dev, dtype)
+
+
+def pair_launch(P):
+    """geqrt_batched(P, 0, pair=True), checked to launch once as a pair."""
+    before = (geqrt_batched.launches, geqrt_batched.pair_launches)
+    out = geqrt_batched(P, 0, pair=True)
+    assert (geqrt_batched.launches - before[0], geqrt_batched.pair_launches - before[1]) == (1, 1)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("w", [128, 77, 72, 32, 1])
+@pytest.mark.parametrize("L", [512, 3, 1])
+def test_geqrt_pair_kernel_matches_plain(dev, L, w, dtype):
+    """B2's triangle-pair body on stacked upper triangles against the plain
+    version: a zero bottom block (the odd level's phantom sibling), a zero
+    column and, at L = 512, a rank-deficient pair (column 7 = 3 x column 0:
+    its later reflectors are rounding noise in any implementation, so that
+    node is held by its residual and orthogonality); exact zeros below the
+    diagonals of R, V_2 and T; one launch, counted as a pair launch."""
+    P = triangle_pairs(L, w, 1000 * L + w, dtype, dev)
+    if L >= 3:
+        P[1, w:] = 0.0
+        P[2, :, min(5, w - 1)] = 0.0
+    deficient = L == 512 and w >= 8
+    if deficient:
+        P[3, :, 7] = 3.0 * P[3, :, 0]
+    pk, tau, T = got = pair_launch(P)
+    want = geqrt_batched_plain(P, 0)
+    keep = [b for b in range(L) if not (deficient and b == 3)]
+    for a, b in zip(got, want):
+        assert a.is_contiguous() and torch.isfinite(a).all()
+        assert rel(a[keep], b[keep]) < TOLS[dtype]
+    lower = torch.ones(w, w, dtype=torch.bool, device=dev).tril(-1)
+    assert (pk[:, :w][:, lower] == 0).all() and (pk[:, w:][:, lower] == 0).all()
+    assert (T[:, lower] == 0).all()
+    if L >= 3:
+        assert float(tau[2, min(5, w - 1)]) == 0.0
+    if deficient:
+        A, V, Tb = P[3].double(), unpack_v(pk[3]).double(), T[3].double()
+        Q = torch.eye(2 * w, dtype=torch.float64, device=dev) - V @ Tb @ V.T
+        R = pk[3, :w].double().triu()
+        eps = torch.finfo(dtype).eps
+        assert float((A - Q[:, :w] @ R).norm() / A.norm()) < 2 * w * eps
+        assert float((Q.T @ Q - torch.eye(2 * w, dtype=torch.float64, device=dev)).norm()) \
+            < 8 * w * eps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("where", ["R_i", "R_i diagonal", "R_j"])
+def test_geqrt_pair_kernel_nan_stays_in_its_node(dev, where, dtype):
+    """A NaN in one R leaves that node's R, tau and T non-finite, and the
+    other nodes as the plain version has them."""
+    w = 128
+    P = triangle_pairs(4, w, 9, dtype, dev)
+    P[1, {"R_i": (3, 40), "R_i diagonal": (20, 20), "R_j": (w + 100, 110)}[where]] = float("nan")
+    pk, tau, T = got = pair_launch(P)
+    for x in (pk[1, :w].triu(), tau[1], T[1]):
+        assert not torch.isfinite(x).all()
+    keep = [0, 2, 3]
+    for a, b in zip(got, geqrt_batched_plain(P[keep], 0)):
+        assert torch.isfinite(a[keep]).all() and rel(a[keep], b) < TOLS[dtype]
+
+
+def test_geqrt_pair_body_fits_two_ctas_an_sm(dev):
+    """The runtime's occupancy: registers, threads and shared memory leave
+    2 CTAs of the pair body an SM in float32 at every width, 1 in float64."""
+    for w in range(1, 129):
+        assert pair_occupancy(w, torch.float32) >= 2
+        assert pair_occupancy(w, torch.float64) >= 1
+
+
 def test_chol_stack_through_auto_launches_once(dev):
     B = torch.from_numpy(np.random.default_rng(3).standard_normal((256, 64, 128))).to(dev)
     G = (B @ B.mT / 128).float()
@@ -278,13 +359,16 @@ def test_tsqr_on_the_card(dev, leaf):
     A = torch.from_numpy(np.random.default_rng(14).standard_normal(
         (65536, 128), dtype=np.float32)).to(dev)
     cfg = ct.QRConfig(device="cuda", tsqr_leaf=leaf)
-    before = (geqrt_batched.launches, chol_with_inv_kernel.launches)
+    before = (geqrt_batched.launches, chol_with_inv_kernel.launches,
+              geqrt_batched.pair_launches)
     Q, R = ct.tsqr(A, cfg)
-    launched = (geqrt_batched.launches - before[0], chol_with_inv_kernel.launches - before[1])
+    launched = (geqrt_batched.launches - before[0], chol_with_inv_kernel.launches - before[1],
+                geqrt_batched.pair_launches - before[2])
     chk = ct.check_qr_device(A, Q, R)
     assert chk.residual_ok
     if leaf == "householder":
         assert launched[0] == 7 and chk.orthogonality_ok      # 64 leaves, 6 levels
+        assert launched[2] == 6                               # each level a pair launch
     else:
         # the direct path's own gate, 4 sqrt(m) eps: the Gram's rounding floor
         assert launched[1] >= 1 and chk.orthogonality < 4 * 65536 ** 0.5 * chk.eps

@@ -7,6 +7,9 @@ float32 tolerances are the reference's own for the same comparison
 (tests/test_geqrt.py: 2e-5 base, 5e-5 recursive).
 """
 
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -210,6 +213,74 @@ def test_plan_is_the_widest_that_fits(dtype, size):
                     assert not p.resident or p.kb == top
                 else:
                     assert not any(fits)
+
+
+def triangle_pairs(rng, L, w, dtype=np.float64):
+    """L stacked pairs [R_i; R_j] of upper triangles (L x 2w x w)."""
+    R = np.triu(rng.standard_normal((L, 2, w, w)))
+    R[..., np.arange(w), np.arange(w)] += 2.0 * np.sqrt(w)
+    return torch.from_numpy(R.reshape(L, 2 * w, w).astype(dtype))
+
+
+@pytest.mark.parametrize("shape,off", [((2, 64, 16), 0), ((2, 32, 16), 1),
+                                       ((2, 33, 16), 0), ((2, 32, 17), 0)])
+def test_batched_pair_takes_only_a_pair(shape, off):
+    """pair=True needs m = 2w and off = 0, on any device."""
+    with pytest.raises(ValueError, match="pair=True"):
+        port.geqrt_batched(torch.zeros(shape), off, pair=True)
+    with pytest.raises(ValueError, match="pair=True"):
+        port.geqrt_batched(torch.zeros(shape, device="meta"), off, pair=True)
+
+
+def test_batched_pair_on_the_cpu_is_the_plain_version(rng):
+    P = triangle_pairs(rng, 3, 16)
+    P[1, 16:] = 0.0                                  # the odd level's phantom sibling
+    before = (port.geqrt_batched.launches, port.geqrt_batched.pair_launches)
+    got = port.geqrt_batched(P, 0, pair=True)
+    assert (port.geqrt_batched.launches, port.geqrt_batched.pair_launches) == before
+    for a, b in zip(got, port.geqrt_batched_plain(P, 0)):
+        assert torch.equal(a, b)
+
+
+def test_batched_counts_pair_launches(monkeypatch):
+    """A launch of the pair body counts in ``launches`` and in
+    ``pair_launches``; a dense launch only in ``launches`` (the launch itself
+    stubbed: no card here)."""
+    calls = []
+    monkeypatch.setattr(port, "_check_device", lambda name, t: None)
+    monkeypatch.setattr(port, "_launch", lambda name, A, lda, off, pair=False:
+                        calls.append((tuple(A.shape), lda, off, pair)))
+    P = torch.empty((4, 32, 16), device="meta")
+    before = (port.geqrt_batched.launches, port.geqrt_batched.pair_launches)
+    port.geqrt_batched(P, 0, pair=True)
+    port.geqrt_batched(P, 0)
+    assert calls == [((4, 32, 16), 16, 0, True), ((4, 32, 16), 16, 0, False)]
+    assert (port.geqrt_batched.launches - before[0],
+            port.geqrt_batched.pair_launches - before[1]) == (2, 1)
+
+
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32"), (torch.float64, "f64")])
+def test_launch_takes_the_pair_bodys_own_entry(monkeypatch, dtype, suffix, pair):
+    """pair=True calls the pair body's C entry with (batch, w) and no plan;
+    the dense body's entry gets the shape and ``plan``'s choice (the library
+    and the stream stubbed: no card here)."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args[1], args[5:-1])) or 0
+
+    monkeypatch.setattr(port._build, "load", Lib)
+    monkeypatch.setattr(port.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(port.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    port._launch("geqrt_batched", torch.empty((3, 32, 16), dtype=dtype, device="meta"), 16, 0,
+                 pair)
+    p = port.plan(32, 16, 0, dtype)
+    assert calls == ([(f"cqt_geqrt_pair_{suffix}", 16, (3, 16))] if pair else
+                     [(f"cqt_geqrt_batched_{suffix}", 16,
+                       (3, 32, 16, 0, p.kb, int(p.resident), p.slices))])
 
 
 def test_batched_returns_contiguous_stack(rng):

@@ -256,6 +256,27 @@ def test_cpu_takes_the_plain_versions(rng):
     assert (geqrt_batched.launches, geqrt_base.launches) == before
 
 
+@pytest.mark.parametrize("entry", ["tsqr", "tsqr_r"])
+def test_tree_levels_ask_for_the_pair_body(rng, monkeypatch, entry):
+    """The tree's levels, whose nodes stack two upper triangles, call the
+    batched kernel with ``pair=True``; the leaves do not; an odd level's
+    phantom sibling is a zero triangle."""
+    _, cfg = configs(np.float64, block_rows=64)
+    seen = []
+
+    def spy(A, off, pair=False):
+        seen.append((tuple(A.shape), pair, bool((A[:, 16:].tril(-1) == 0).all())
+                     if pair else None))
+        return geqrt_batched(A, off, pair=pair)
+
+    monkeypatch.setattr(port, "geqrt_batched", spy)
+    A = torch.from_numpy(rng.standard_normal((640, 16)))
+    getattr(ct, entry)(A, cfg)
+    assert seen == [((10, 64, 16), False, None), ((5, 32, 16), True, True),
+                    ((3, 32, 16), True, True), ((2, 32, 16), True, True),
+                    ((1, 32, 16), True, True)]
+
+
 def test_wide_block_above_kernel_width(rng):
     """n > 128 is outside the geqrt kernel's width: the plain version."""
     rcfg, cfg = configs(np.float64, block_rows=64)
