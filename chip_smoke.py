@@ -425,7 +425,7 @@ def phase_newton(torch, np, ct, dev):
     launch a panel, DEFAULT_SYNCS host syncs), each timed by CUDA events:
     the kernel, the plain chain (host syncs included) and
     torch.linalg.inv, beside the bound of its iterations."""
-    from cuda_qr_tpu_torch.ops import _build, fast_panel, smalllinalg
+    from cuda_qr_tpu_torch.ops import _build, newton_kernel, smalllinalg
     from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     _build.load()
@@ -437,9 +437,8 @@ def phase_newton(torch, np, ct, dev):
             m = max(m, nb)
             M = panel_M(torch, np, ct, dev, m, nb, seed=m + nb)
             N, err, cert, iters = newton_certified_kernel(M)
-            syncs = smalllinalg.host_syncs
-            Np, errp, certp = smalllinalg.newton_certified(M)
-            iters_p = smalllinalg.host_syncs - syncs - 1
+            Np, errp, certp, iters_p = smalllinalg.newton_certified(M)
+            iters_p = int(iters_p)
             ok, ok_p = bool(cert <= thr), bool(certp <= thr)
             e = rel_err(N, Np)
             say(f"newton_inv nb={nb}, {m} live rows: iterations {int(iters)} (plain {iters_p}), "
@@ -461,17 +460,17 @@ def phase_newton(torch, np, ct, dev):
     A = torch.from_numpy(np.random.default_rng(12).standard_normal(
         (N_MAIN, N_MAIN), dtype=np.float32)).to(dev)
     recorded = []
-    launch = fast_panel.newton_certified_kernel
+    launch = newton_kernel.newton_certified_kernel
 
     def record(M, *args, **kwargs):
         recorded.append(M.clone())
         return launch(M, *args, **kwargs)
 
-    fast_panel.newton_certified_kernel = record
+    newton_kernel.newton_certified_kernel = record
     try:
         _, c, _ = run_counted(torch, lambda: ct.qr_blocked(A, ct.DEFAULT_CONFIG))
     finally:
-        fast_panel.newton_certified_kernel = launch
+        newton_kernel.newton_certified_kernel = launch
     panels = N_MAIN // ct.DEFAULT_CONFIG.panel_width
     say(f"newton_inv: factor {N_MAIN}^2 f32 DEFAULT_CONFIG: {counts_str(c)} (newton_inv == "
         f"{panels}, host syncs == {DEFAULT_SYNCS})")
@@ -870,8 +869,8 @@ def phase_geqrt_pair(torch, np, dev):
 def phase_chol_stack(torch, np, ct, dev):
     """A stack of Gram matrices through chol_with_inv_auto: one launch of
     the chol_inv kernel's batch grid, against the batched plain recursion."""
-    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
-    from cuda_qr_tpu_torch.ops.smalllinalg import chol_with_inv_auto, cholesky_with_inv
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_auto, chol_with_inv_kernel
+    from cuda_qr_tpu_torch.ops.smalllinalg import cholesky_with_inv
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     b, n = CHOL_STACK
     B = torch.from_numpy(np.random.default_rng(7).standard_normal((b, n, 2 * n))).to(dev)

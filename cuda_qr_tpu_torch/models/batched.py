@@ -21,7 +21,8 @@ import torch
 
 from ..ops.blocked import as_tensor
 from ..ops.gemm import gemm
-from ..ops.smalllinalg import chol_with_inv_auto, host_decision
+from ..ops.chol_kernel import chol_with_inv_auto
+from ..ops.smalllinalg import host_decision
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from .qr import ThinQRFunction

@@ -61,7 +61,7 @@ import torch.nn.functional as F
 
 from ..ops.blocked import as_tensor, complex_config
 from ..ops.gemm import gemm
-from ..ops.smalllinalg import _eye, host_decision, host_values
+from ..ops.smalllinalg import eye_like, host_decision, host_values
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from .polar import _qdwh_dyn_core, _real_dtype
@@ -166,7 +166,7 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
     # each GEMM sweep injects O(sqrt(n) eps ||A||) into off(A); below that
     # further sweeps are no-ops, so it is the honest stopping floor
     tol2 = (4.0 * n ** 0.5 * eps * normF) ** 2
-    offmask = 1.0 - _eye(n, A.real)
+    offmask = 1.0 - eye_like(n, A.real)
 
     def off2(A):
         # sum |offdiag|^2 directly: ||A||^2 - ||diag||^2 cancels in float32
@@ -194,7 +194,7 @@ def _jacobi_eigh(A: torch.Tensor, schedule: torch.Tensor, max_sweeps: int = 30,
         # rotation (its _H, cuda_qr_tpu/models/eigh.py:172-174)
         return gemm(J.mH, gemm(A, J, "highest"), "highest"), gemm(V, J, "highest")
 
-    V = _eye(n, A).expand_as(A).contiguous()
+    V = eye_like(n, A).expand_as(A).contiguous()
     sweeps = 0
     for _ in range(max_sweeps):
         active = off2(A) > tol2
@@ -296,7 +296,7 @@ def _split_node(H: torch.Tensor, config: QRConfig):
     width = (hi - lo).clamp_min(eps)
     cands = torch.stack([med, lo + 0.5 * width, lo + 0.25 * width, lo + 0.75 * width])
     cands = torch.clamp(cands, lo + 1e-3 * width, hi - 1e-3 * width)
-    eye = _eye(b, H)
+    eye = eye_like(b, H)
     l0 = eps / 10.0 / float(b) ** 0.5
     for i in range(4):
         Hs = H - cands[i] * eye
@@ -328,7 +328,7 @@ def _eigh_dc(A: torch.Tensor, config: QRConfig, term: int, max_sweeps: int):
     cutoff = min(N + (N % 2), term)
     dev = str(A.device)
     w = torch.zeros(N, dtype=A.real.dtype, device=A.device)
-    vecs = _eye(N, A)
+    vecs = eye_like(N, A)
     leaves = []                                   # (offset, block)
     stack = [(0, A)]
     while stack:

@@ -39,17 +39,17 @@ import numpy as np
 import torch
 
 from ..ops.blocked import as_matrix, complex_config
-from ..ops.chol_kernel import supported
+from ..ops.chol_kernel import chol_with_inv_auto, on_kernel
 from ..ops.gemm import gemm
-from ..ops.smalllinalg import _eye, chol_with_inv_auto, cholesky_with_inv, library_eigh
+from ..ops.smalllinalg import cholesky_with_inv, eye_like, library_eigh
 from ..parallel.collectives import pmax, psum
 from ..parallel.mesh import as_row_sharded, shard_rows
-from ..parallel.tsqr_dist import _check as _check_tsqr, _small_qr_q, _tsqr_dist_local
+from ..parallel.tsqr_dist import _check as _check_tsqr, _tsqr_dist_local
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
 from .qr import qr
-from .tsqr import tsqr
+from .tsqr import _householder_small, tsqr
 
 _CHOL_C_MAX = 100.0  # Nakatsukasa-Higham switch: Chol step is stable below
 EIGH_IMPLS = ("torch", "qdwh")
@@ -104,10 +104,9 @@ def _chol_inv_padded(Z: torch.Tensor, config: QRConfig):
     chol_with_inv_auto unchanged, the reference's routing."""
     n = Z.shape[0]
     npad = round_up(n, 16)
-    if (npad == n or not (config.use_kernels and config.use_chol_kernel)
-            or not supported((npad, npad), Z.dtype)):
+    if npad == n or not on_kernel((npad, npad), Z.dtype, config):
         return chol_with_inv_auto(Z, config)
-    Zp = _eye(npad, Z)
+    Zp = eye_like(npad, Z)
     Zp[:n, :n] = Z
     L, Li = chol_with_inv_auto(Zp, config)
     return L[:n, :n], Li[:n, :n]
@@ -121,7 +120,7 @@ def _qdwh_core(X: torch.Tensor, schedule, config: QRConfig) -> torch.Tensor:
     dt = X.dtype
     cplx = X.is_complex()
     prec = config.precision
-    eye = _eye(n, X)
+    eye = eye_like(n, X)
     for a, b, c, use_qr in schedule:
         a, b, c = float(a), float(b), float(c)
         bc = b / c
@@ -327,14 +326,14 @@ def _qdwh_dist(X: torch.Tensor, schedule, mesh, config: QRConfig, strategy: str)
     n = X.shape[1]
     cplx = X.is_complex()
     prec = config.precision
-    eye = _eye(n, X)
+    eye = eye_like(n, X)
     for a, b, c, use_qr in schedule:
         a, b, c = float(a), float(b), float(c)
         bc = b / c
         if use_qr or cplx:
             sc = math.sqrt(c)
             Qd, Rd = _tsqr_dist_local(X, mesh, config, strategy)
-            Qs, _ = _small_qr_q(torch.cat([sc * Rd, eye], 0), config)
+            Qs, _ = _householder_small(torch.cat([sc * Rd, eye], 0), config)
             X = bc * X + ((a - bc) / sc) * gemm(Qd, gemm(Qs[:n], Qs[n:].mH, prec), prec)
         else:
             Z = eye + c * psum(gemm(X.T, X, prec), mesh)

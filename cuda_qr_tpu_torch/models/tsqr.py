@@ -41,9 +41,10 @@ import torch.nn.functional as F
 
 from ..ops.blocked import as_tensor, complex_config, is_complex
 from ..ops.gemm import gemm
-from ..ops.geqrt import geqrt_base, geqrt_batched, geqrt_batched_plain, supported
+from ..ops.chol_kernel import chol_with_inv_auto
+from ..ops.geqrt import geqrt_auto
 from ..ops.householder import larfb, unpack_r, unpack_v
-from ..ops.smalllinalg import _eye, chol_with_inv_auto, host_decision
+from ..ops.smalllinalg import eye_like, host_decision
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import ceildiv
@@ -53,24 +54,12 @@ from .qr import ThinQRFunction
 direct_fallbacks = 0
 
 
-def _geqrt(A: torch.Tensor, config: QRConfig, off: int = 0, pair: bool = False):
-    """geqr2 + larft of rows >= off of one (b, n) block (a column slice is
-    read in place), or of every block of a stack (L, b, n) at once: on the
-    geqrt kernel (its batch grid for a stack; ``pair``: its triangle-pair
-    body for a tree level) when eligible, else the plain version at
-    ``config.precision``."""
-    if config.use_kernels and supported(A.shape, A.dtype):
-        if A.dim() == 2:
-            return geqrt_base(A, off)
-        return geqrt_batched(A, off, pair=pair)
-    return geqrt_batched_plain(A, off, config.precision)
-
-
 def _batched_qr(blocks: torch.Tensor, config: QRConfig, pair: bool = False):
-    """Householder QR of a batch of (b, n) blocks -> (packed, T, R).
-    ``pair``: each block is a tree node [R_i; R_j] of two upper triangles."""
+    """Householder QR of a batch of (b, n) blocks -> (packed, T, R), tau
+    freed before the caller's Q (``pair``: each block is a tree node
+    [R_i; R_j] of two upper triangles)."""
     n = blocks.shape[-1]
-    packed, _, T = _geqrt(blocks, config, pair=pair)
+    packed, _, T = geqrt_auto(blocks, config, pair=pair)
     return packed, T, unpack_r(packed)[..., :n, :]
 
 
@@ -81,7 +70,7 @@ def _batched_orgqr(packed: torch.Tensor, T: torch.Tensor,
     n = packed.shape[-1]
     V = unpack_v(packed)
     Q = -gemm(V, gemm(T, V[..., :n, :].mH, precision), precision)
-    Q[..., :n, :] += _eye(n, Q)
+    Q[..., :n, :] += eye_like(n, Q)
     return Q
 
 
@@ -102,7 +91,7 @@ def _batched_cholqr2(blocks: torch.Tensor, config: QRConfig):
 
     Q1, R1, _ = one_round(blocks)
     Q, R2, G2 = one_round(Q1)
-    emax = (G2 - _eye(blocks.shape[-1], G2)).abs().max()
+    emax = (G2 - eye_like(blocks.shape[-1], G2)).abs().max()
     return Q, gemm(R2, R1, prec), emax
 
 
@@ -138,7 +127,7 @@ def _cholqr2_direct(A: torch.Tensor, config: QRConfig, with_q: bool = True):
     """
     n = A.shape[1]
     gprec, prec = config.resolved_trailing_precision(), config.precision
-    eye = _eye(n, A)
+    eye = eye_like(n, A)
     G = gemm(A.T, A, gprec)                                  # pass 1
     L1, L1i = chol_with_inv_auto(G, config)
     G2 = gemm(gemm(L1i, G, prec), L1i.T, prec)
@@ -205,13 +194,15 @@ def tsqr(A, config: QRConfig = DEFAULT_CONFIG):
 
 
 def _householder_small(A: torch.Tensor, config: QRConfig, with_q: bool = True):
-    """geqr2 + larft (+ explicit Q) of a matrix within one block."""
+    """(explicit Q or None, R) of a small matrix (one TSQR block, or the
+    stacked R factors of ``parallel/tsqr_dist.py`` and ``polar_dist``):
+    geqr2 + larft (``geqrt_auto``), then larfb of I at ``config.precision``."""
     m, n = A.shape
-    packed, _, T = _geqrt(A, config)
+    packed, _, T = geqrt_auto(A, config)
     R = unpack_r(packed)[:n]
     if not with_q:
         return None, R
-    return larfb(_eye(m, A)[:, :n], unpack_v(packed), T, transpose=False,
+    return larfb(eye_like(m, A)[:, :n], unpack_v(packed), T, transpose=False,
                  precision=config.precision), R
 
 

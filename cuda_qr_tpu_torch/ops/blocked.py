@@ -42,7 +42,9 @@ from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
 from ..utils.profiling import span
 from .gemm import gemm
-from .householder import geqr2, larfb, merge_wy, panel_larft, panel_v, unit_vj, unpack_v
+from .fast_panel import panel_factor_cholqr2bk, panel_factor_cholqr2hr
+from .geqrt import geqrt_base_plain, geqrt_panel
+from .householder import larfb, merge_wy, panel_v, unit_vj
 
 
 class PackedQR(NamedTuple):
@@ -150,27 +152,36 @@ def _groups(k: int, width: int, stages: int, schedule=None):
     return groups
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a storage dtype computes in: float32 for bfloat16, else
+    itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def _panel_factor(panel: torch.Tensor, off: int, config: QRConfig):
     """Factor rows >= off of a (m x nb) panel: (packed, tau, T, VJ), its
-    GEMMs at ``config.precision``."""
+    GEMMs at ``config.precision``.  The panel contract: the panel and the
+    packed panel are each rounded once through the storage dtype
+    ``config.dtype`` and handed over in the compute dtype; rows above
+    ``off`` come back as they went in; VJ of a LAPACK-stored panel is formed
+    here (the basis kernel's dense block is its own).  ``use_kernels=False``
+    takes geqr2."""
     with span("panel.factor"):
-        nb = panel.shape[1]
+        sdt = config.dtype
+        cdt = compute_dtype(sdt)
+        panel = panel.to(sdt).to(cdt)
         method = config.panel_method if config.use_kernels else "geqr2"
+        VJ = None
         if method == "cholqr2_bk":
-            from .fast_panel import panel_factor_cholqr2bk
-            return panel_factor_cholqr2bk(panel, off, config)
-        if method == "cholqr2_hr":
-            from .fast_panel import panel_factor_cholqr2hr
+            packed, tau, T, VJ = panel_factor_cholqr2bk(panel, off, config)
+        elif method == "cholqr2_hr":
             packed, tau, T = panel_factor_cholqr2hr(panel, off, config)
         elif method == "geqrt":
-            from .geqrt import geqrt_panel
             packed, tau, T = geqrt_panel(panel, off, config)
         else:
-            cdt = torch.float32 if panel.dtype == torch.bfloat16 else panel.dtype
-            lo, tau = geqr2(panel[off:].to(cdt), precision=config.precision)
-            T = panel_larft(unpack_v(lo), tau, config.precision)
-            packed = torch.cat([panel[:off], lo.to(panel.dtype)], 0)
-        return packed, tau, T, unit_vj(packed, off, nb)
+            packed, tau, T = geqrt_base_plain(panel, off, config.precision)
+        packed = packed.to(sdt).to(cdt)
+        return packed, tau, T, unit_vj(packed, off, panel.shape[1]) if VJ is None else VJ
 
 
 def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
@@ -195,7 +206,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
     groups = _groups(k, config.factor_lookahead, config.scan_stages, config.stage_schedule)
     with span("driver.factor"):
         sdt = config.dtype
-        cdt = torch.float32 if sdt == torch.bfloat16 else sdt
+        cdt = compute_dtype(sdt)
         Ap = torch.zeros((m_pad, n_pad), dtype=cdt, device=A.device)
         Ap[:m, :n] = A.to(sdt)
         taus = torch.zeros((k, nb), dtype=cdt, device=A.device)
@@ -213,8 +224,7 @@ def qr_blocked(A, config: QRConfig = DEFAULT_CONFIG) -> PackedQR:
                     block = Ap[r0:, c:c + nb]
                     for V, T in zip(Vs, Tg):
                         block = larfb(block, V, T, transpose=True, precision=prec)
-                    packed, tau, T, VJ = _panel_factor(block.to(sdt), off, config)
-                    packed = packed.to(cdt)
+                    packed, tau, T, VJ = _panel_factor(block, off, config)
                     Ap[r0:, c:c + nb] = packed
                     taus[i], Ts[i], VJs[i] = tau, T, VJ
                     Vs.append(panel_v(packed, off, VJ))
@@ -255,7 +265,7 @@ def orgqr(factors: PackedQR, m: int, n: int,
     m_pad, n_pad = packed.shape
     nb = config.panel_width
     k = n_pad // nb
-    cdt = torch.float32 if packed.dtype == torch.bfloat16 else packed.dtype
+    cdt = compute_dtype(packed.dtype)
     with span("driver.orgqr"):
         Q = torch.eye(m_pad, n, dtype=cdt, device=packed.device)
         prec = config.resolved_orgqr_precision()
@@ -279,7 +289,7 @@ def ormqr(factors: PackedQR, B, transpose: bool = True,
     m_pad, n_pad = packed.shape
     nb = config.panel_width
     k = n_pad // nb
-    cdt = torch.float32 if packed.dtype == torch.bfloat16 else packed.dtype
+    cdt = compute_dtype(packed.dtype)
     mB = B.shape[0]
     with span("driver.ormqr"):
         Bp = torch.zeros((m_pad, B.shape[1]), dtype=cdt, device=packed.device)

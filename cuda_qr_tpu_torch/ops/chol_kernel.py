@@ -7,8 +7,11 @@ The CUDA source is ``csrc/chol_inv.cu``; its note says what bounds it on an
 H100 and what the design does about that.  The plain PyTorch version is
 ``smalllinalg.cholesky_with_inv``.
 
-``chol_with_inv_kernel`` takes the plain version only for a CPU tensor; a
-CUDA tensor launches the kernel or raises.
+``chol_with_inv_auto`` is the route every caller takes: the kernel where
+the config allows it and ``supported`` admits the matrix (``on_kernel``),
+else the plain version at ``config.precision``.  ``chol_with_inv_kernel``
+itself takes the plain version only for a CPU tensor; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,24 @@ def supported(shape, dtype) -> bool:
     nb = shape[-1]
     return (dtype == torch.float32 and len(shape) in (2, 3) and shape[-2] == nb
             and nb % _BB == 0 and 16 <= nb <= MAX_NB)
+
+
+def on_kernel(shape, dtype, config) -> bool:
+    """Whether ``chol_with_inv_auto`` sends a matrix of this shape and dtype
+    to the kernel under ``config``: the kernels on, the chol_inv kernel on,
+    and ``supported``."""
+    return config.use_kernels and config.use_chol_kernel and supported(shape, dtype)
+
+
+def chol_with_inv_auto(G: torch.Tensor, config):
+    """cholesky_with_inv of G (n x n) or a stack (b x n x n), on the chol_inv
+    kernel's batch grid where ``on_kernel`` (the reference's routing,
+    ``smalllinalg.py:148-162``), else the recursion at ``config.precision``.
+    The kernel computes in float32 at any precision, as the reference's
+    kernel does at HIGHEST (``ops/pallas_chol.py:63,76``)."""
+    if on_kernel(G.shape, G.dtype, config):
+        return chol_with_inv_kernel(G)
+    return cholesky_with_inv(G, config.precision)
 
 
 def chol_with_inv_kernel(G: torch.Tensor):

@@ -1,27 +1,24 @@
 """Fast panel factorization: CholeskyQR2 + basis-kernel or Householder
-reconstruction (counterpart of ``cuda_qr_tpu/ops/fast_panel.py``).
+reconstruction (counterpart of ``cuda_qr_tpu/ops/fast_panel.py``).  One
+skeleton, ``_cholqr2_panel``, runs both methods:
 
-  1. CholeskyQR2: Q R = X by two rounds of Gram + Cholesky + inverse; the
-     nb x nb Cholesky + inverse runs on the chol_inv kernel (B1) where the
-     reference's gate allows it;
-  2a. basis kernel (Yamamoto et al.): V := Q - E_J S, T := (I - S Q_J)^{-T}
-      by Newton-Schulz, certified a posteriori; on the card a float32
-      "highest" panel runs both in one launch of kernel B4
-      (``ops/newton_kernel.py``);
-  2b. Householder reconstruction (Ballard et al., IPDPS 2014): unit-lower V,
-      tau, T from an LU of E_J - Q_J S;
-  3. Householder fallback (geqr2 + larft) on Cholesky breakdown or a
+  1. CholeskyQR2: Q R = X by two rounds of Gram + Cholesky + inverse
+     (``chol_kernel.chol_with_inv_auto``: kernel B1 where eligible);
+  2. an assembler: the basis kernel (Yamamoto et al.), V := Q - E_J S,
+     T := (I - S Q_J)^{-T} by Newton-Schulz, certified a posteriori
+     (``newton_kernel.newton_certified_auto``: kernel B4 where eligible) and
+     rebuilt by Householder reconstruction when the certificate fails; or
+     Householder reconstruction (Ballard et al., IPDPS 2014) itself:
+     unit-lower V, tau, T from an LU of E_J - Q_J S;
+  3. a Householder retry (geqr2 + larft) on Cholesky breakdown or a
      round-1 Gram error above ``_EMAX_GATE``.
 
-Every product runs at ``config.precision`` (the reference's ``prec``), the
-Householder fallback's included; the chol_inv kernel computes in float32
-at any precision.
-
-The panel's live rows are rows >= off; the functions slice them instead of
-masking a full-height panel, and return full-height packed panels whose
-rows above ``off`` are the input's.  The reference's device-side branches
-are host decisions here (``smalllinalg.host_decision``), with the same
-thresholds.
+Every product runs at ``config.precision``; the kernels compute in float32
+at any precision.  The panel arrives in its compute dtype
+(``blocked._panel_factor`` owns the storage dtype).  Its live rows are rows
+>= off, sliced rather than masked; the packed panel is full-height with the
+input's rows above ``off``.  The reference's device-side branches are host
+decisions here (``smalllinalg.host_decision``), with the same thresholds.
 """
 
 from __future__ import annotations
@@ -29,22 +26,18 @@ from __future__ import annotations
 import torch
 
 from ..utils.profiling import span
+from .chol_kernel import chol_with_inv_auto
 from .gemm import gemm
-from .householder import geqr2, larft, unpack_v
-from .newton_kernel import newton_certified_kernel
-from .newton_kernel import supported as newton_kernel_supported
-from .smalllinalg import chol_with_inv_auto, host_decision, lu_with_inv, newton_certified
+from .householder import geqr2, larft, unit_vj, unpack_v
+from .newton_kernel import newton_certified_auto
+from .smalllinalg import eye_like, host_decision, lu_with_inv
 
 # Above this round-1 Gram error, round 2 cannot restore O(eps)
 # orthogonality (needs eps*cond(X)^2 << 1).  Dimensionless: f32 and f64.
 _EMAX_GATE = 0.05
 
 
-def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.eye(n, dtype=like.dtype, device=like.device)
-
-
-def _cholqr2(X: torch.Tensor, config=None):
+def _cholqr2(X: torch.Tensor, config):
     """CholeskyQR2 of the live panel X: (Q, Rpos, emax).
 
     emax = max|Q1^T Q1 - I| after round 1 ~= eps cond(X)^2.  Round 2's
@@ -53,7 +46,7 @@ def _cholqr2(X: torch.Tensor, config=None):
     nb = X.shape[1]
     dtype = X.dtype
     prec = config.precision
-    eye = _eye(nb, X)
+    eye = eye_like(nb, X)
     L1, L1i = chol_with_inv_auto(gemm(X.T, X, prec), config)
     Q1 = gemm(X, L1i.T, prec)
     E = gemm(Q1.T, Q1, prec) - eye
@@ -69,11 +62,12 @@ def _cholqr2(X: torch.Tensor, config=None):
     return Q, Rpos, emax
 
 
-def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor, precision: str):
+def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor, config):
     """Householder reconstruction from CholeskyQR2's live Q (m' x nb) and
     positive-diagonal R: (packed_live, tau, T, VJ) with unit-lower VJ."""
     nb = Q.shape[1]
-    eye = _eye(nb, Q)
+    precision = config.precision
+    eye = eye_like(nb, Q)
     QJ = Q[:nb]
     s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(Q.dtype)
     YJ = eye - QJ * s[None, :]
@@ -84,50 +78,57 @@ def _hr_construct(Q: torch.Tensor, Rpos: torch.Tensor, precision: str):
     V[:nb] = Wi - Z[:nb]
     T = gemm(W, VJi.T, precision)
     tau = torch.diagonal(T).clone()
-    R_house = s[:, None] * Rpos
-    packed = V
-    packed[:nb] = torch.triu(R_house) + torch.tril(V[:nb], -1)
-    VJ = torch.tril(VJl, -1) + eye
-    return packed, tau, T, VJ
+    V[:nb] = torch.triu(s[:, None] * Rpos) + torch.tril(V[:nb], -1)   # R_house over VJ
+    return V, tau, T, torch.tril(VJl, -1) + eye
 
 
-def _householder_fallback(panel: torch.Tensor, off: int, precision: str):
-    """geqr2 + larft on the live rows (packed_live, tau, T, VJ)."""
-    nb = panel.shape[1]
-    lo, tau = geqr2(panel[off:], precision=precision)
-    T = larft(unpack_v(lo), tau, precision)
-    VJ = torch.tril(lo[:nb], -1) + _eye(nb, lo)
-    return lo, tau, T, VJ
+def _basis_kernel(Q: torch.Tensor, Rpos: torch.Tensor, config):
+    """Yamamoto's basis-kernel panel from CholeskyQR2's live Q and Rpos:
+    (packed_live, tau, T, VJ) with the dense VJ = Q_J - S, or
+    ``_hr_construct``'s when the certificate fails (NaN included)."""
+    nb = Q.shape[1]
+    QJ = Q[:nb]
+    s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(Q.dtype)
+    M = eye_like(nb, Q) - s[:, None] * QJ
+    N, _, cert, _ = newton_certified_auto(M, config)
+    # H deviates from orthogonality by <= 16 ||N||^2 ||I - M N|| to first
+    # order, and cond(M) is unbounded for near-square live panels.
+    if host_decision(~(cert <= 100 * torch.finfo(Q.dtype).eps)):   # NaN -> HR
+        with span("panel.retry_hr"):
+            return _hr_construct(Q, Rpos, config)
+    T = N.T
+    live = torch.cat([torch.triu(s[:, None] * Rpos), Q[nb:]], 0)
+    return live, torch.diagonal(T).clone(), T, QJ - torch.diag(s)
+
+
+def _householder_fallback(X: torch.Tensor, precision: str):
+    """geqr2 + larft of the live rows X: (packed_live, tau, T, VJ).  T is
+    ``larft``'s, the reference's float32 Gram (not ``panel_larft``'s)."""
+    lo, tau = geqr2(X, precision=precision)
+    return lo, tau, larft(unpack_v(lo), tau, precision), unit_vj(lo, 0, X.shape[1])
 
 
 def _bad(packed: torch.Tensor, T: torch.Tensor, emax: torch.Tensor) -> bool:
     return host_decision(~torch.isfinite(packed.sum() + T.sum()) | (emax > _EMAX_GATE))
 
 
-def _newton_on_kernel(M: torch.Tensor, config) -> bool:
-    """Whether the basis-kernel panel's Newton-Schulz inverse and its
-    certificate run on kernel B4: a float32 M on the card at "highest" (the
-    kernel computes in float32 FFMA), of a side the kernel takes.  float64,
-    the "tf32"/"high" panels, wider panels and the CPU keep the plain chain."""
-    return (config.use_kernels and config.precision == "highest" and M.is_cuda
-            and newton_kernel_supported(M.shape, M.dtype))
+def _cholqr2_panel(panel: torch.Tensor, off: int, config, assemble):
+    """The skeleton: ``_cholqr2`` of rows >= off, ``assemble(Q, Rpos,
+    config)``, one guard and one geqr2 retry.  Returns (packed, tau, T, VJ),
+    packed full-height with the input's rows above ``off``."""
+    X = panel[off:]
+    Q, Rpos, emax = _cholqr2(X, config)
+    live, tau, T, VJ = assemble(Q, Rpos, config)
+    if _bad(live, T, emax):
+        with span("panel.retry_geqr2"):
+            live, tau, T, VJ = _householder_fallback(X, config.precision)
+    return torch.cat([panel[:off], live], 0), tau, T, VJ
 
 
 def panel_factor_cholqr2hr(panel: torch.Tensor, off: int, config):
     """Factor rows >= off of an m x nb panel (m - off >= nb): (packed, tau, T)
     in LAPACK storage, unit-lower V under R."""
-    cast_back = panel.dtype if panel.dtype == torch.bfloat16 else None
-    if cast_back is not None:
-        panel = panel.float()
-    Q, Rpos, emax = _cholqr2(panel[off:], config)
-    live, tau, T, _ = _hr_construct(Q, Rpos, config.precision)
-    if _bad(live, T, emax):
-        with span("panel.retry_geqr2"):
-            live, tau, T, _ = _householder_fallback(panel, off, config.precision)
-    packed = torch.cat([panel[:off], live], 0)
-    if cast_back is not None:
-        packed = packed.to(cast_back)
-    return packed, tau, T
+    return _cholqr2_panel(panel, off, config, _hr_construct)[:3]
 
 
 def panel_factor_cholqr2bk(panel: torch.Tensor, off: int, config):
@@ -141,35 +142,4 @@ def panel_factor_cholqr2bk(panel: torch.Tensor, off: int, config):
     by Householder reconstruction from the same Q/Rpos; on Cholesky
     breakdown it falls back to geqr2.
     """
-    nb = panel.shape[1]
-    cast_back = panel.dtype if panel.dtype == torch.bfloat16 else None
-    if cast_back is not None:
-        panel = panel.float()
-    dtype = panel.dtype
-    prec = config.precision
-    Q, Rpos, emax = _cholqr2(panel[off:], config)
-    eye = _eye(nb, Q)
-    QJ = Q[:nb]
-    s = torch.where(torch.diagonal(QJ) >= 0, -1.0, 1.0).to(dtype)
-    M = eye - s[:, None] * QJ
-    if _newton_on_kernel(M, config):
-        N, _, cert, _ = newton_certified_kernel(M)
-    else:
-        N, _, cert = newton_certified(M, prec)
-    # H deviates from orthogonality by <= 16 ||N||^2 ||I - M N|| to first
-    # order, and cond(M) is unbounded for near-square live panels.
-    if host_decision(~(cert <= 100 * torch.finfo(dtype).eps)):   # NaN -> HR
-        with span("panel.retry_hr"):
-            live, tau, T, VJ = _hr_construct(Q, Rpos, prec)
-    else:
-        T = N.T
-        tau = torch.diagonal(T).clone()
-        VJ = QJ - torch.diag(s)
-        live = torch.cat([torch.triu(s[:, None] * Rpos), Q[nb:]], 0)
-    if _bad(live, T, emax):
-        with span("panel.retry_geqr2"):
-            live, tau, T, VJ = _householder_fallback(panel, off, prec)
-    packed = torch.cat([panel[:off], live], 0)
-    if cast_back is not None:
-        packed = packed.to(cast_back)
-    return packed, tau, T, VJ
+    return _cholqr2_panel(panel, off, config, _basis_kernel)

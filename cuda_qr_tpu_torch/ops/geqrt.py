@@ -7,11 +7,14 @@ Replaces cuda_qr_tpu/ops/geqrt.py (``_geqrt_kernel`` through
 design does about that.  The plain PyTorch version is ``geqr2`` + ``larft``
 (``geqrt_base_plain``).
 
-``geqrt_base`` takes the plain version only for a CPU tensor; a CUDA tensor
-launches the kernel or raises.  Around it, ``_geqrt_recursive`` halves the
-panel down to ``config.panel_base`` columns and joins the halves with GEMMs
-at ``config.precision``, as the reference does; the kernel computes in
-float32 at any precision, as the reference's does at HIGHEST.
+``geqrt_auto`` routes TSQR's and CAQR's blocks: the kernel where the config
+allows it and ``supported`` admits the shape, else the plain version at
+``config.precision``.  ``geqrt_base`` and ``geqrt_batched`` take the plain
+version only for a CPU tensor; a CUDA tensor launches the kernel or raises.
+The panel method ``geqrt_panel`` halves the panel down to
+``config.panel_base`` columns and joins the halves with GEMMs at
+``config.precision``, as the reference does; the kernel computes in float32
+at any precision, as the reference's does at HIGHEST.
 
 ``geqrt_batched`` factors a stack of equal panels in one launch of the
 kernel's batch grid: the TSQR leaves and tree nodes (``models/tsqr.py``),
@@ -211,36 +214,36 @@ geqrt_batched.launches = 0
 geqrt_batched.pair_launches = 0
 
 
-def _geqrt_recursive(panel: torch.Tensor, off: int, config):
-    """Recursive panel factorization (Elmroth/Gustavson): factor the left
+def geqrt_auto(A: torch.Tensor, config, off: int = 0, pair: bool = False):
+    """geqr2 + larft of rows >= off of one (b, n) block (a column slice is
+    read in place), or of every block of a stack (L, b, n) at once: on the
+    kernel (its batch grid for a stack; ``pair``: its triangle-pair body
+    for a tree level) when ``config.use_kernels`` and ``supported``, else the
+    plain version at ``config.precision``."""
+    if config.use_kernels and supported(A.shape, A.dtype):
+        if A.dim() == 2:
+            return geqrt_base(A, off)
+        return geqrt_batched(A, off, pair=pair)
+    return geqrt_batched_plain(A, off, config.precision)
+
+
+def geqrt_panel(panel: torch.Tensor, off: int, config):
+    """Factor rows >= off of a full-height (m x nb) float32 or float64 panel:
+    (packed, tau, T), the panel method "geqrt" (the reference's
+    ``_geqrt_recursive``).  Recursive (Elmroth/Gustavson): factor the left
     half, apply its block reflector to the right half, factor the right
     half, and join T = [[T_l, -T_l (V_l^T V_r) T_r], [0, T_r]]."""
     nb = panel.shape[1]
     if nb <= config.panel_base:
         return geqrt_base(panel, off)
     h = nb // 2
-    lp, tau_l, T_l = _geqrt_recursive(panel[:, :h], off, config)
+    lp, tau_l, T_l = geqrt_panel(panel[:, :h], off, config)
     prec = config.precision
     V_l = unpack_v(lp, off)
     right = larfb(panel[:, h:], V_l, T_l, transpose=True, precision=prec)
-    rp, tau_r, T_r = _geqrt_recursive(right, off + h, config)
+    rp, tau_r, T_r = geqrt_panel(right, off + h, config)
     V_r = unpack_v(rp, off + h)
     T12 = -gemm(gemm(T_l, gemm(V_l.T, V_r, prec), prec), T_r, prec)
     z = torch.zeros((nb - h, h), dtype=T_l.dtype, device=T_l.device)
     T = torch.cat([torch.cat([T_l, T12], 1), torch.cat([z, T_r], 1)], 0)
     return torch.cat([lp, rp], 1), torch.cat([tau_l, tau_r]), T
-
-
-def geqrt_panel(panel: torch.Tensor, off: int, config):
-    """Factor rows >= off of a full-height (m x nb) panel: (packed, tau, T).
-
-    float32 and float64 run the kernel at the base; bfloat16 is factored in
-    float32 and the packed panel cast back.
-    """
-    cast_back = panel.dtype if panel.dtype == torch.bfloat16 else None
-    if cast_back is not None:
-        panel = panel.float()
-    packed, tau, T = _geqrt_recursive(panel, off, config)
-    if cast_back is not None:
-        packed = packed.to(cast_back)
-    return packed, tau, T

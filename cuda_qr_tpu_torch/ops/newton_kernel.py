@@ -13,8 +13,11 @@ a thread block cluster of 8 CTAs; its note says what bounds it on an H100
 and what the design does about that.  The plain PyTorch version is
 ``smalllinalg.newton_certified``.
 
-``newton_certified_kernel`` checks dtype and shape first, then takes the
-plain version for a CPU tensor; a CUDA tensor launches the kernel or raises.
+``newton_certified_auto`` is the route the panel takes: the kernel where
+``on_kernel`` says so, else the plain version at ``config.precision``.
+``newton_certified_kernel`` itself checks dtype and shape first, then takes
+the plain version for a CPU tensor; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .smalllinalg import _newton_schulz, newton_certificate
+from .smalllinalg import newton_certified
 
 NB_STEP, MAX_NB = 16, 128
 TOL, MAX_ITERS = 2e-4, 48   # newton_inverse's float32 defaults
@@ -33,6 +36,23 @@ def supported(shape, dtype) -> bool:
     in [16, 128] (eight CTAs of side/8 rows, two rows a thread)."""
     return (dtype == torch.float32 and len(shape) == 2 and shape[0] == shape[1]
             and shape[0] % NB_STEP == 0 and NB_STEP <= shape[0] <= MAX_NB)
+
+
+def on_kernel(M: torch.Tensor, config) -> bool:
+    """Whether the basis-kernel panel's Newton-Schulz inverse and its
+    certificate run on the kernel: a float32 M on the card at "highest" (the
+    kernel computes in float32 FFMA), of a side the kernel takes.  float64,
+    the "tf32"/"high" panels, wider panels and the CPU keep the plain chain."""
+    return (config.use_kernels and config.precision == "highest" and M.is_cuda
+            and supported(M.shape, M.dtype))
+
+
+def newton_certified_auto(M: torch.Tensor, config):
+    """(N, err, cert, iters) of M (nb x nb): the kernel where ``on_kernel``,
+    else ``smalllinalg.newton_certified`` at ``config.precision``."""
+    if on_kernel(M, config):
+        return newton_certified_kernel(M)
+    return newton_certified(M, config.precision)
 
 
 def newton_certified_kernel(M: torch.Tensor, tol: float = TOL, max_iters: int = MAX_ITERS):
@@ -47,8 +67,7 @@ def newton_certified_kernel(M: torch.Tensor, tol: float = TOL, max_iters: int = 
         raise ValueError(f"newton_certified_kernel: need a square side a multiple of {NB_STEP} "
                          f"in [{NB_STEP}, {MAX_NB}], got {tuple(M.shape)}")
     if M.device.type == "cpu":
-        N, err, iters = _newton_schulz(M, "highest", tol, max_iters)
-        return N, err, newton_certificate(M, N), torch.tensor(iters, dtype=torch.int32)
+        return newton_certified(M, "highest", tol, max_iters)
     if M.device.type != "cuda":
         raise ValueError(f"newton_certified_kernel: unsupported device {M.device}")
     M = M.contiguous()

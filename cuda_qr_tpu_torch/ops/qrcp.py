@@ -35,10 +35,10 @@ import torch
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import round_up
-from .blocked import PackedQR, _panel_factor, as_tensor, complex_config
+from .blocked import PackedQR, _panel_factor, as_tensor, complex_config, compute_dtype
 from .gemm import gemm
 from .householder import panel_v
-from .select_kernel import select_pivots_kernel, select_pivots_plain, supported
+from .select_kernel import select_pivots_auto
 
 SKETCH_SEED = 12   # the reference's fixed key(12), after qr.cu:765's srand(12)
 
@@ -59,11 +59,10 @@ def _select_pivots(B: torch.Tensor, j0: int, nb: int, cand: int,
     """ordsel (n_pad,) int32: selection step 0..nb-1 of the nb columns chosen
     from the sketch B (l, n_pad) among columns >= j0, -1 elsewhere.
 
-    config=None takes the plain selection at "highest"; a config with
-    use_kernels and use_select_kernel takes kernel B3 where ``supported``
-    admits the tile, else the plain selection at ``config.precision``.
+    The selection itself is ``select_kernel.select_pivots_auto``'s (kernel
+    B3 or the plain loop), at "highest" for config=None.
     """
-    l, n_pad = B.shape
+    n_pad = B.shape[1]
     col = torch.arange(n_pad, device=B.device)
     norms = torch.where(col >= j0, (B * B.conj()).real.sum(0), -1.0)   # real
     # Actives (>= 0) outrank inactives (-1) and number >= nb, so the
@@ -71,12 +70,7 @@ def _select_pivots(B: torch.Tensor, j0: int, nb: int, cand: int,
     cand_idx = _candidates(norms, cand)
     Sc = B.index_select(1, cand_idx)
     norms_c = norms.index_select(0, cand_idx)
-    if (config is not None and config.use_kernels and config.use_select_kernel
-            and supported(l, cand, nb, B.dtype)):
-        ord_c = select_pivots_kernel(Sc, norms_c, nb)
-    else:
-        ord_c = select_pivots_plain(Sc, norms_c, nb,
-                                    "highest" if config is None else config.precision)
+    ord_c = select_pivots_auto(Sc, norms_c, nb, config)
     ordsel = torch.full((n_pad,), -1, dtype=torch.int32, device=B.device)
     return ordsel.index_copy_(0, cand_idx, ord_c)
 
@@ -141,7 +135,7 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
     k = n_pad // nb
     kp = k if num_panels is None else min(num_panels, k)
     sdt = config.dtype
-    cdt = torch.float32 if sdt == torch.bfloat16 else sdt   # sketch, T, GEMMs
+    cdt = compute_dtype(sdt)   # sketch, T, GEMMs
     dev = A.device
     Ap = torch.zeros((m_pad, n_pad), dtype=cdt, device=dev)
     Ap[:m, :n] = A.to(sdt)
@@ -166,8 +160,7 @@ def qrcp_blocked(A, config: QRConfig = DEFAULT_CONFIG,
         B[:, j0:] = B.index_select(1, src)
         jpvt[j0:] = jpvt.index_select(0, src)
 
-        packed, tau, T, VJ = _panel_factor(Ap[j0:, j0:j1].to(sdt), 0, config)
-        packed = packed.to(cdt)
+        packed, tau, T, VJ = _panel_factor(Ap[j0:, j0:j1], 0, config)
         Ap[j0:, j0:j1] = packed
         taus[j], Ts[j], VJs[j] = tau, T, VJ
         rest = Ap[j0:, j1:]

@@ -9,9 +9,11 @@ the design does about that.  The plain PyTorch version,
 ``select_pivots_plain``, is the reference's jnp loop
 (``cuda_qr_tpu/ops/qrcp.py:86-104``).
 
-``select_pivots_kernel`` takes the plain version only for a CPU tensor; a
-CUDA tensor launches the kernel or raises, and a cluster the card cannot
-place raises too.
+``select_pivots_auto`` is the route QRCP takes: the kernel where the
+config allows it and ``supported`` admits the tile, else the plain version.
+``select_pivots_kernel`` itself takes the plain version only for a CPU
+tensor; a CUDA tensor launches the kernel or raises, and a cluster the card
+cannot place raises too.
 """
 
 from __future__ import annotations
@@ -94,6 +96,20 @@ def selection_margin(S: torch.Tensor, norms: torch.Tensor, nb: int) -> float:
         norms = torch.where((iota == p) | (norms < 0), -1.0,
                             torch.clamp_min(norms - proj * proj, 0))
     return worst
+
+
+def select_pivots_auto(S: torch.Tensor, norms: torch.Tensor, nb: int,
+                       config=None) -> torch.Tensor:
+    """ord of the greedy selection of nb columns of the tile S (l, cand).
+    config=None takes the plain selection at "highest"; a config with
+    use_kernels and use_select_kernel takes the kernel where ``supported``
+    admits the tile, else the plain selection at ``config.precision``."""
+    if config is None:
+        return select_pivots_plain(S, norms, nb)
+    l, cand = S.shape
+    if config.use_kernels and config.use_select_kernel and supported(l, cand, nb, S.dtype):
+        return select_pivots_kernel(S, norms, nb)
+    return select_pivots_plain(S, norms, nb, config.precision)
 
 
 def select_pivots_kernel(S: torch.Tensor, norms: torch.Tensor, nb: int) -> torch.Tensor:

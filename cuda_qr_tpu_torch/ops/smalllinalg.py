@@ -53,7 +53,8 @@ def host_values(values: torch.Tensor):
         return values.tolist()
 
 
-def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
+def eye_like(n: int, like: torch.Tensor) -> torch.Tensor:
+    """The n x n identity in ``like``'s dtype, on its device."""
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
@@ -74,7 +75,7 @@ def _inv_upper_base(U: torch.Tensor) -> torch.Tensor:
     (``cuda_qr_tpu/ops/smalllinalg.py:33``): "highest" here."""
     n = U.shape[-1]
     X = torch.zeros_like(U)
-    eye = _eye(n, U)
+    eye = eye_like(n, U)
     for j in range(n - 1, -1, -1):
         X[..., j, :] = ((eye[j] - vecmat(U[..., j, j + 1:], X[..., j + 1:, :], "highest"))
                         / U[..., j, j, None])
@@ -162,16 +163,22 @@ def newton_inverse(M: torch.Tensor, precision: str = "highest", tol: float | Non
     certifies convergence; err > tol (or NaN) means M was too
     ill-conditioned.  One host sync per iteration decides whether to go on.
     """
-    X, err, _ = _newton_schulz(M, precision, tol, max_iters)
+    X, err, _, _ = newton_certified(M, precision, tol, max_iters)
     return X, err
 
 
-def _newton_schulz(M: torch.Tensor, precision: str, tol: float | None, max_iters: int):
-    """newton_inverse's loop: (X, err, iterations run)."""
+def newton_certified(M: torch.Tensor, precision: str = "highest", tol: float | None = None,
+                     max_iters: int = 48):
+    """(N, err, cert, iters): ``newton_inverse``'s iteration on M, then the
+    certificate cert = max|N|^2 max|I - M N| (the basis-kernel panel's block
+    reflector deviates from orthogonality by at most 16 cert, to first order
+    in N's error); iters is the iterations run, a 0-d int32 tensor.  The
+    plain version of the Newton-Schulz kernel (``ops/newton_kernel.py``):
+    one host sync an iteration, none for the certificate."""
     n = M.shape[0]
     if tol is None:
         tol = 2e-4 if M.dtype == torch.float32 else 3e-8
-    eye = _eye(n, M)
+    eye = eye_like(n, M)
     a = M.abs().sum(0).max()
     b = M.abs().sum(1).max()
     denom = torch.clamp(a * b, min=torch.finfo(M.dtype).tiny)
@@ -187,24 +194,8 @@ def _newton_schulz(M: torch.Tensor, precision: str, tol: float | None, max_iters
         err = (eye - P).abs().max()
         X = gemm(X, 2 * eye - P, precision)
         iters += 1
-    return X, err, iters
-
-
-def newton_certificate(M: torch.Tensor, N: torch.Tensor, precision: str = "highest"):
-    """max|N|^2 max|I - M N|, 0-d on M's device: the basis-kernel panel's
-    block reflector deviates from orthogonality by at most 16 times this, to
-    first order in N's error."""
-    errN = (_eye(M.shape[0], M) - gemm(M, N, precision)).abs().max()
-    return N.abs().max() ** 2 * errN
-
-
-def newton_certified(M: torch.Tensor, precision: str = "highest", tol: float | None = None,
-                     max_iters: int = 48):
-    """(N, err, cert): newton_inverse of M, then newton_certificate of N.
-    The plain version of the Newton-Schulz kernel (``ops/newton_kernel.py``):
-    one host sync an iteration, none for the certificate."""
-    N, err = newton_inverse(M, precision, tol, max_iters)
-    return N, err, newton_certificate(M, N, precision)
+    cert = X.abs().max() ** 2 * (eye - gemm(M, X, precision)).abs().max()
+    return X, err, cert, torch.tensor(iters, dtype=torch.int32)
 
 
 def _lu_base(Y: torch.Tensor):
@@ -214,7 +205,7 @@ def _lu_base(Y: torch.Tensor):
     for j in range(n - 1):
         Y[j + 1:, j] /= Y[j, j]
         Y[j + 1:, j + 1:] -= torch.outer(Y[j + 1:, j], Y[j, j + 1:])
-    L = torch.tril(Y, -1) + _eye(n, Y)
+    L = torch.tril(Y, -1) + eye_like(n, Y)
     U = torch.triu(Y)
     return L, U
 
@@ -231,14 +222,11 @@ def lu_with_inv(Y: torch.Tensor, precision: str = "highest"):
     L21 = gemm(Y[h:, :h], U11i, precision)
     S = Y[h:, h:] - gemm(L21, U12, precision)
     L22, U22, L22i, U22i = lu_with_inv(S, precision)
-    zl = torch.zeros((h, n - h), dtype=Y.dtype, device=Y.device)
-    zu = torch.zeros((n - h, h), dtype=Y.dtype, device=Y.device)
+    zl, zu = _zeros(Y, h, n - h), _zeros(Y, n - h, h)
     Lbot = -gemm(gemm(L22i, L21, precision), L11i, precision)
     Utop = -gemm(gemm(U11i, U12, precision), U22i, precision)
-    return (torch.cat([torch.cat([L11, zl], 1), torch.cat([L21, L22], 1)], 0),
-            torch.cat([torch.cat([U11, U12], 1), torch.cat([zu, U22], 1)], 0),
-            torch.cat([torch.cat([L11i, zl], 1), torch.cat([Lbot, L22i], 1)], 0),
-            torch.cat([torch.cat([U11i, Utop], 1), torch.cat([zu, U22i], 1)], 0))
+    return (_block(L11, zl, L21, L22), _block(U11, U12, zu, U22),
+            _block(L11i, zl, Lbot, L22i), _block(U11i, Utop, zu, U22i))
 
 
 # Largest float32 side that library_eigh solves in float64 on a card.  The
@@ -262,18 +250,3 @@ def library_eigh(H: torch.Tensor):
         w, V = torch.linalg.eigh(H.double())
         return w.float(), V.float()
     return torch.linalg.eigh(H)
-
-
-def chol_with_inv_auto(G: torch.Tensor, config=None):
-    """cholesky_with_inv of G (n x n) or a stack (b x n x n), on the chol_inv
-    kernel's batch grid when the config allows it and G is eligible (the
-    reference's routing, ``smalllinalg.py:148-162``), else the recursion at
-    ``config.precision`` ("highest" without a config).  The kernel computes
-    in float32 at any precision, as the reference's kernel does at HIGHEST
-    (``ops/pallas_chol.py:63,76``)."""
-    from .chol_kernel import chol_with_inv_kernel, supported
-    if config is None:
-        return cholesky_with_inv(G)
-    if config.use_kernels and config.use_chol_kernel and supported(G.shape, G.dtype):
-        return chol_with_inv_kernel(G)
-    return cholesky_with_inv(G, config.precision)

@@ -41,11 +41,11 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.tsqr import _geqrt
 from ..ops.blocked import is_complex
 from ..ops.gemm import gemm
+from ..ops.geqrt import geqrt_auto
 from ..ops.householder import larfb, unpack_v
-from ..ops.smalllinalg import _eye, lu_with_inv
+from ..ops.smalllinalg import eye_like, lu_with_inv
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from ..utils.errors import QRShapeError
 from ..utils.geometry import ceildiv
@@ -175,7 +175,7 @@ def _leaf(a: torch.Tensor, kk: int, c: _Ctx):
     if off >= c.mloc:                                   # dead: H = I
         z = torch.zeros((nb, nb), dtype=a.dtype, device=a.device)
         return off, None, z[0], z, z
-    packed, tau, T = _geqrt(a[:, pcol:pcol + nb], c.config, off)
+    packed, tau, T = geqrt_auto(a[:, pcol:pcol + nb], c.config, off)
     a[:, pcol:pcol + nb] = packed
     return off, unpack_v(packed[off:]), tau, T, torch.triu(packed[off:off + nb])
 
@@ -200,7 +200,7 @@ def _bk_combine(Rl: torch.Tensor, owner: int, c: _Ctx):
     """
     nb, dt = Rl.shape[0], Rl.dtype
     prec = c.config.precision
-    eye = _eye(nb, Rl)
+    eye = eye_like(nb, Rl)
     M_i, Rfin, bad = _cholesky_combine(Rl, c.mesh, prec)
     if agree(bad, c.mesh):
         M_i, Rfin = _gathered_combine(Rl, c.mesh, c.config)
@@ -253,7 +253,7 @@ def _panel_step(a: torch.Tensor, kk: int, c: _Ctx):
     if w and V is not None:
         a[off:, pcol + nb:] = larfb(a[off:, pcol + nb:], V, T, transpose=True, precision=prec)
     stacked = _roll_to_owner(all_gather(Rl, c.mesh), owner)     # (P*nb, nb)
-    tp, _, T2 = _geqrt(stacked, c.config)
+    tp, _, T2 = geqrt_auto(stacked, c.config)
     if w:
         strip = _strip(a[:, pcol + nb:], off, c)
         stackW = _roll_to_owner(all_gather(strip, c.mesh), owner)

@@ -24,27 +24,15 @@ from __future__ import annotations
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.tsqr import _complex_config, _geqrt, tsqr as tsqr_local
+from ..models.tsqr import _complex_config, _householder_small, tsqr as tsqr_local
 from ..ops.blocked import is_complex
 from ..ops.gemm import gemm
-from ..ops.householder import larfb, unpack_r, unpack_v
-from ..ops.smalllinalg import _eye, cholesky_with_inv
+from ..ops.smalllinalg import cholesky_with_inv, eye_like
 from ..utils.config import DEFAULT_CONFIG, QRConfig
 from .collectives import agree, all_gather, coord, ppermute, psum
 from .mesh import as_row_sharded, shard_rows
 
 STRATEGIES = ("allgather", "butterfly", "cholesky")
-
-
-def _small_qr_q(stacked: torch.Tensor, config: QRConfig):
-    """Explicit (rows x n) Q and (n x n) R of a small stacked matrix: one
-    geqrt (the geqrt kernel where it is eligible) and a larfb of I at
-    ``config.precision``."""
-    rows, n = stacked.shape
-    packed, _, T = _geqrt(stacked, config)
-    Q = larfb(_eye(rows, stacked)[:, :n], unpack_v(packed), T, transpose=False,
-              precision=config.precision)
-    return Q, unpack_r(packed)[:n]
 
 
 def _cholesky_combine(R_l: torch.Tensor, mesh: DeviceMesh, precision: str):
@@ -53,7 +41,7 @@ def _cholesky_combine(R_l: torch.Tensor, mesh: DeviceMesh, precision: str):
     rank's n x n map ``mine`` satisfies R_l = mine @ R with the stacked
     ``mine`` orthonormal.  ``bad`` is a 0-d bool tensor of this rank's view."""
     n = R_l.shape[1]
-    eye = _eye(n, R_l)
+    eye = eye_like(n, R_l)
     G = psum(gemm(R_l.T, R_l, precision), mesh)
     L1, L1i = cholesky_with_inv(G, precision)
     M0 = gemm(R_l, L1i.T, precision)
@@ -76,7 +64,7 @@ def _gathered_combine(R_l: torch.Tensor, mesh: DeviceMesh, config: QRConfig):
     """(mine, R) of the "allgather" strategy."""
     n, P = R_l.shape[1], mesh.size(0)
     Rs = all_gather(R_l, mesh)                          # (P, n, n)
-    Qhat, R = _small_qr_q(Rs.reshape(P * n, n), config)
+    Qhat, R = _householder_small(Rs.reshape(P * n, n), config)
     i = coord(mesh)
     return Qhat[i * n:(i + 1) * n], R
 
@@ -84,13 +72,13 @@ def _gathered_combine(R_l: torch.Tensor, mesh: DeviceMesh, config: QRConfig):
 def _butterfly_combine(R_l: torch.Tensor, mesh: DeviceMesh, config: QRConfig):
     """(mine, R) of the "butterfly" strategy."""
     n, P, i = R_l.shape[1], mesh.size(0), coord(mesh)
-    mine, R = _eye(n, R_l), R_l
+    mine, R = eye_like(n, R_l), R_l
     step = 1
     while step < P:
         other = ppermute(R, mesh, [(s, s ^ step) for s in range(P)])
         first = (i & step) == 0          # do I supply the top block?
         top, bot = (R, other) if first else (other, R)
-        Qp, R = _small_qr_q(torch.cat([top, bot]), config)
+        Qp, R = _householder_small(torch.cat([top, bot]), config)
         mine = gemm(mine, Qp[:n] if first else Qp[n:], config.precision)
         step *= 2
     return mine, R

@@ -367,12 +367,12 @@ def _old_jacobi(A, schedule):
     input), for the bit-for-bit pin; c formed as ``eigh._rotation`` forms it
     since the rotation's bias was repaired (C4)."""
     from cuda_qr_tpu_torch.models.eigh import _real_dtype
-    from cuda_qr_tpu_torch.ops.smalllinalg import _eye
+    from cuda_qr_tpu_torch.ops.smalllinalg import eye_like
     n = A.shape[-1]
     eps = torch.finfo(_real_dtype(A.dtype)).eps
     tol2 = (4.0 * n ** 0.5 * eps * torch.linalg.norm(A, dim=(-2, -1))) ** 2
-    offmask = 1.0 - _eye(n, A)
-    V = _eye(n, A).expand_as(A).contiguous()
+    offmask = 1.0 - eye_like(n, A)
+    V = eye_like(n, A).expand_as(A).contiguous()
     for _ in range(30):
         active = ((A * offmask) ** 2).sum((-2, -1)) > tol2
         if not bool(active.any()):
@@ -406,9 +406,9 @@ def _old_qdwh(X, schedule, config):
     """The parent's ``_qdwh_core`` (real transposes)."""
     import math
     from cuda_qr_tpu_torch.models.polar import _chol_inv_padded, _thin_q2
-    from cuda_qr_tpu_torch.ops.smalllinalg import _eye
+    from cuda_qr_tpu_torch.ops.smalllinalg import eye_like
     m, n = X.shape
-    eye = _eye(n, X)
+    eye = eye_like(n, X)
     for a, b, c, use_qr in schedule:
         bc = b / c
         if use_qr:

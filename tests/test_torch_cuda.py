@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import cuda_qr_tpu_torch as ct
-from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_auto, chol_with_inv_kernel
 from cuda_qr_tpu_torch.ops.geqrt import (geqrt_base, geqrt_base_plain, geqrt_batched,
                                         geqrt_batched_plain, pair_occupancy)
 from cuda_qr_tpu_torch.ops.householder import unpack_v
@@ -26,7 +26,7 @@ from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
 from cuda_qr_tpu_torch.ops.select_kernel import (select_pivots_kernel, select_pivots_plain,
                                                  selection_margin)
-from cuda_qr_tpu_torch.ops.smalllinalg import chol_with_inv_auto, cholesky_with_inv
+from cuda_qr_tpu_torch.ops.smalllinalg import cholesky_with_inv
 
 from torch_caller_states import CALLER_STATES, caller_state, fp32_reads
 
@@ -726,9 +726,8 @@ def test_newton_kernel_matches_plain(dev, m, nb):
     before = newton_certified_kernel.launches
     N, err, cert, iters = newton_certified_kernel(M)
     assert newton_certified_kernel.launches == before + 1
-    syncs = smalllinalg.host_syncs
-    Np, errp, certp = smalllinalg.newton_certified(M)
-    iters_plain = smalllinalg.host_syncs - syncs - 1
+    Np, errp, certp, iters_plain = smalllinalg.newton_certified(M)
+    iters_plain = int(iters_plain)
     thr = 100 * torch.finfo(torch.float32).eps
     passes = bool(cert <= thr)
     assert passes == bool(certp <= thr), (float(cert), float(certp))

@@ -93,10 +93,21 @@ def test_illconditioned_panel_takes_householder(rng, method):
 
 
 def test_bf16_panel_upcasts(rng):
+    """bfloat16 storage through the panel contract (``blocked._panel_factor``):
+    the basis-kernel panel is factored in float32 from the panel rounded to
+    bfloat16, and the packed panel comes back in float32 holding bfloat16
+    values; T and VJ stay float32."""
+    from cuda_qr_tpu_torch.ops.blocked import _panel_factor
     A = torch.from_numpy(rng.standard_normal((128, 32)).astype(np.float32))
-    packed, tau, T, VJ = port.panel_factor_cholqr2bk(A.bfloat16(), 0, QRConfig())
-    assert packed.dtype == torch.bfloat16 and T.dtype == torch.float32
-    assert torch.isfinite(packed.float()).all()
+    cfg = QRConfig(dtype=torch.bfloat16)
+    packed, tau, T, VJ = _panel_factor(A, 0, cfg)
+    assert packed.dtype == T.dtype == VJ.dtype == torch.float32
+    assert torch.equal(packed, packed.bfloat16().float())
+    assert torch.isfinite(packed).all()
+    want = port.panel_factor_cholqr2bk(A.bfloat16().float(), 0, cfg)
+    assert torch.equal(packed, want[0].bfloat16().float())
+    for a, b in zip((tau, T, VJ), want[1:]):
+        assert torch.equal(a, b)
 
 
 def _parent_cholqr2bk(panel, off, config):
@@ -114,14 +125,14 @@ def _parent_cholqr2bk(panel, off, config):
     errN = (eye - gemm(M, N, prec)).abs().max()
     cert = N.abs().max() ** 2 * errN
     if smalllinalg.host_decision(~(cert <= 100 * torch.finfo(panel.dtype).eps)):
-        live, tau, T, VJ = port._hr_construct(Q, Rpos, prec)
+        live, tau, T, VJ = port._hr_construct(Q, Rpos, config)
     else:
         T = N.T
         tau = torch.diagonal(T).clone()
         VJ = QJ - torch.diag(s)
         live = torch.cat([torch.triu(s[:, None] * Rpos), Q[nb:]], 0)
     if port._bad(live, T, emax):
-        live, tau, T, VJ = port._householder_fallback(panel, off, prec)
+        live, tau, T, VJ = port._householder_fallback(panel[off:], prec)
     return torch.cat([panel[:off], live], 0), tau, T, VJ
 
 
@@ -178,9 +189,11 @@ def test_newton_routing(change, on_kernel):
     [16, 128] that is a multiple of 16; anything else keeps the plain chain.
     M is a stand-in with the attributes the routing reads."""
     from types import SimpleNamespace
+
+    from cuda_qr_tpu_torch.ops import newton_kernel
     nb = change.get("nb", 128)
     M = SimpleNamespace(shape=(nb, nb), dtype=change.get("dtype", torch.float32),
                         is_cuda=change.get("is_cuda", True))
     cfg = QRConfig(precision=change.get("precision", "highest"),
                    use_kernels=change.get("use_kernels", True))
-    assert port._newton_on_kernel(M, cfg) is on_kernel
+    assert newton_kernel.on_kernel(M, cfg) is on_kernel

@@ -86,18 +86,27 @@ def test_recursive_matches_reference(rng, base):
     A = rng.standard_normal((m, nb)).astype(np.float32)
     rcfg = REF.replace(panel_base=base)
     rp, rtau, rT = jax.jit(lambda a, o: _geqrt_recursive(a, o, rcfg))(jnp.asarray(A), off)
-    packed, tau, T = port._geqrt_recursive(torch.from_numpy(A), off,
-                                           QRConfig(panel_base=base))
+    packed, tau, T = port.geqrt_panel(torch.from_numpy(A), off, QRConfig(panel_base=base))
     close(packed, rp, 5e-5)
     close(tau, rtau, 5e-5)
     close(T, rT, 5e-5)
 
 
 def test_geqrt_panel_bf16(rng):
-    A = rng.standard_normal((64, 16)).astype(np.float32)
-    packed, tau, T = port.geqrt_panel(torch.from_numpy(A).bfloat16(), 0, QRConfig())
-    assert packed.dtype == torch.bfloat16 and tau.dtype == torch.float32
-    assert torch.isfinite(packed.float()).all()
+    """bfloat16 storage through the panel contract (``blocked._panel_factor``):
+    the geqrt panel is factored in float32 from the panel rounded to
+    bfloat16, and the packed panel comes back in float32 holding bfloat16
+    values."""
+    from cuda_qr_tpu_torch.ops.blocked import _panel_factor
+    A = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    cfg = QRConfig(dtype=torch.bfloat16, panel_method="geqrt")
+    packed, tau, T, VJ = _panel_factor(A, 0, cfg)
+    assert packed.dtype == tau.dtype == T.dtype == torch.float32
+    assert torch.equal(packed, packed.bfloat16().float())
+    assert torch.isfinite(packed).all()
+    want = port.geqrt_panel(A.bfloat16().float(), 0, cfg)
+    assert torch.equal(packed, want[0].bfloat16().float())
+    assert torch.equal(tau, want[1]) and torch.equal(T, want[2])
 
 
 @pytest.mark.parametrize("m,w,off", [(64, 16, 60), (300, 129, 0), (64, 16, -1)])

@@ -147,9 +147,8 @@ def test_polar_cholesky_steps_go_through_chol_with_inv_auto(rng, monkeypatch):
     """One call per Cholesky step of the schedule, each on an n x n float32
     matrix with n a multiple of 16: the shapes the chol_inv kernel takes on
     the card."""
-    from cuda_qr_tpu_torch.ops.chol_kernel import supported
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_auto as real, supported
     seen = []
-    real = smalllinalg.chol_with_inv_auto
 
     def spy(G, config=None):
         seen.append((tuple(G.shape), G.dtype, config))
@@ -171,9 +170,8 @@ def test_qdwh_cholesky_step_pads_to_the_kernel_gate(rng, monkeypatch, n):
     """A side that is no multiple of 16 reaches chol_with_inv_auto grown to
     the next one with an identity block, and comes back cut to size with the
     factors of the plain route; with the kernels off nothing is padded."""
-    from cuda_qr_tpu_torch.ops.chol_kernel import supported
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_auto as real, supported
     seen = []
-    real = smalllinalg.chol_with_inv_auto
 
     def spy(G, config=None):
         seen.append(tuple(G.shape))

@@ -206,7 +206,8 @@ def test_complex_takes_the_plain_selection(rng, monkeypatch):
     """Complex input never reaches the select kernel's wrapper, also where
     the tile is eligible for a real input (160 x 128 at nb = 32), and gives
     the reference's pivots and factors with its complex sketch."""
-    monkeypatch.setattr(pq, "select_pivots_kernel", lambda *a: pytest.fail("kernel B3"))
+    from cuda_qr_tpu_torch.ops import select_kernel
+    monkeypatch.setattr(select_kernel, "select_pivots_kernel", lambda *a: pytest.fail("kernel B3"))
     m, n, nb = 160, 128, 32
     A = (rng.standard_normal((m, n)) + 1j * rng.standard_normal((m, n))).astype(np.complex64)
     l = pq.sketch_rows(m, nb)

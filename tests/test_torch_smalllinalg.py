@@ -71,12 +71,12 @@ def test_newton_inverse(rng, near_identity):
 
 
 def test_chol_with_inv_auto_routes_cpu_to_plain(rng):
-    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel
+    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_auto, chol_with_inv_kernel
     from cuda_qr_tpu_torch.utils.config import QRConfig
     B = rng.standard_normal((32, 64)).astype(np.float32)
     G = T(B @ B.T / 64)
     before = chol_with_inv_kernel.launches
-    L, Li = port.chol_with_inv_auto(G, QRConfig())
+    L, Li = chol_with_inv_auto(G, QRConfig())
     rL, rLi = port.cholesky_with_inv(G)
     assert torch.equal(L, rL) and torch.equal(Li, rLi)
     assert chol_with_inv_kernel.launches == before   # CPU: no kernel launch
@@ -103,14 +103,15 @@ def test_batched_cholesky_with_inv_matches_2d(rng, n, dtype):
 
 
 def test_chol_with_inv_auto_takes_a_stack(rng):
-    from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_kernel, supported
+    from cuda_qr_tpu_torch.ops.chol_kernel import (chol_with_inv_auto, chol_with_inv_kernel,
+                                                   supported)
     from cuda_qr_tpu_torch.utils.config import QRConfig
     B = rng.standard_normal((5, 32, 64)).astype(np.float32)
     G = T(B @ np.swapaxes(B, -1, -2) / 64)
     assert supported(G.shape, G.dtype) and supported(G.shape[1:], G.dtype)
     assert not supported((5, 32, 16), G.dtype)
     before = chol_with_inv_kernel.launches
-    L, Li = port.chol_with_inv_auto(G, QRConfig())
+    L, Li = chol_with_inv_auto(G, QRConfig())
     assert chol_with_inv_kernel.launches == before
     rL, rLi = ref.cholesky_with_inv(jnp.asarray(B[2] @ B[2].T / 64))
     close(L[2], rL, 1e-5)
@@ -149,7 +150,7 @@ def test_newton_certified_is_newton_inverse_and_its_certificate(case):
     from cuda_qr_tpu_torch.ops.gemm import gemm
     M = basis_kernel_M(case)
     before = port.host_syncs
-    N, err, cert = port.newton_certified(M)
+    N, err, cert, iters = port.newton_certified(M)
     syncs = port.host_syncs - before
     X, e = port.newton_inverse(M, "highest")
     errN = (torch.eye(M.shape[0]) - gemm(M, X, "highest")).abs().max()
@@ -158,6 +159,8 @@ def test_newton_certified_is_newton_inverse_and_its_certificate(case):
     same_bits(N, X)
     same_bits(err, e)
     same_bits(cert, c)
+    assert iters.dtype == torch.int32 and iters.dim() == 0
+    assert int(iters) == (syncs if case == "no_convergence" else syncs - 1)
     passes = bool(cert <= 100 * torch.finfo(torch.float32).eps)
     assert passes == (case in ("tall", "near_square"))
     if case == "no_convergence":
@@ -176,7 +179,7 @@ def test_newton_kernel_takes_the_plain_version_on_the_cpu(case):
     syncs = port.host_syncs - before
     assert newton_certified_kernel.launches == launches
     assert iters.dtype == torch.int32 and iters.dim() == 0 and int(iters) == syncs - 1
-    for a, b in zip((N, err, cert), port.newton_certified(M)):
+    for a, b in zip((N, err, cert, iters), port.newton_certified(M)):
         same_bits(a, b)
 
 

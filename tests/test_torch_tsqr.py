@@ -19,7 +19,7 @@ import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu.models import tsqr as ref
 from cuda_qr_tpu.utils.config import QRConfig as RefConfig
 from cuda_qr_tpu_torch.models import tsqr as port
-from cuda_qr_tpu_torch.ops import smalllinalg
+from cuda_qr_tpu_torch.ops import geqrt as geqrt_module, smalllinalg
 from cuda_qr_tpu_torch.ops.geqrt import geqrt_base, geqrt_batched
 from cuda_qr_tpu_torch.utils.interop import config_from_reference
 from qrbench.reference import thin_qr
@@ -269,7 +269,7 @@ def test_tree_levels_ask_for_the_pair_body(rng, monkeypatch, entry):
                      if pair else None))
         return geqrt_batched(A, off, pair=pair)
 
-    monkeypatch.setattr(port, "geqrt_batched", spy)
+    monkeypatch.setattr(geqrt_module, "geqrt_batched", spy)
     A = torch.from_numpy(rng.standard_normal((640, 16)))
     getattr(ct, entry)(A, cfg)
     assert seen == [((10, 64, 16), False, None), ((5, 32, 16), True, True),
