@@ -6,7 +6,8 @@
 
 Builds the CUDA kernels of cuda_qr_tpu_torch/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (the geqrt
-kernel's batch grid with its triangle-pair body for TSQR tree nodes, and
+kernel's batch grid with its blocked body for TSQR leaves and its
+triangle-pair body for TSQR tree nodes, and
 the chol_inv kernel's stack included), drives the
 port's paths (8192^2 float32 ``qr`` at the default configuration, the geqrt
 panel path at 4096^2, the column-pivoted ``qr_pivoted`` at 8192^2, the
@@ -746,10 +747,27 @@ def phase_slogdet(torch, np, ct, cfg, dev):
     return total
 
 
+def dense_body(torch, P):
+    """A call of the dense sub-panel body on a float32 stack that ``plan``
+    sends to the blocked body (its C entry with the dense plan): the
+    yardstick the blocked body replaces.  Returns (packed, tau, T)."""
+    from cuda_qr_tpu_torch.ops import _build
+    from cuda_qr_tpu_torch.ops.geqrt import plan
+    L, m, w = P.shape
+    p = plan(m, w, 0, P.dtype)
+    packed, tau, T = torch.empty_like(P), P.new_empty((L, w)), P.new_empty((L, w, w))
+    fn = _build.load().cqt_geqrt_batched_f32
+    _build.check(fn(P.data_ptr(), w, packed.data_ptr(), tau.data_ptr(), T.data_ptr(), L, m, w,
+                    0, p.kb, int(p.resident), p.slices,
+                    torch.cuda.current_stream().cuda_stream), "dense body")
+    return packed, tau, T
+
+
 def phase_geqrt_batched(torch, np, dev):
     """The geqrt kernel's batch grid against its plain version; at the TSQR
-    leaf stack, the node stack and one node it is timed beside torch.geqrf
-    (which computes less: no T)."""
+    leaf stack (the blocked body), the node stack and one node it is timed
+    beside torch.geqrf (which computes less: no T), the leaf stack also
+    beside the dense sub-panel body it replaces."""
     from cuda_qr_tpu_torch.ops.geqrt import body, geqrt_batched, geqrt_batched_plain, plan
     from cuda_qr_tpu_torch.utils.timing import cuda_time_ms
     rng = np.random.default_rng(6)
@@ -777,7 +795,13 @@ def phase_geqrt_batched(torch, np, dev):
             raise AssertionError("geqrt_batched: a zero panel gave a nonzero tau")
         if (L, m, w, off) == GEQRT_BATCHED[0][:4]:          # the TSQR leaves
             out["max_abs_err"] = max(abs_err(pk, pp), abs_err(tau, taup), abs_err(T, Tp))
+            out["body"] = body(m, w, off, dtype)
+            dense = dense_body(torch, P)
+            out["dense_rel_err"] = max(rel_err(a, b) for a, b in zip(dense, (pp, taup, Tp)))
+            require(out["dense_rel_err"] < tol, "the dense body disagrees with the plain version")
+            del dense
             out["ms"] = cuda_time_ms(lambda: geqrt_batched(P, 0), reps=5, warmup=1)
+            out["dense_ms"] = cuda_time_ms(lambda: dense_body(torch, P), reps=5, warmup=1)
             out["plain_ms"] = cuda_time_ms(lambda: geqrt_batched_plain(P, 0), reps=2, warmup=1)
             out["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P), reps=2, warmup=1)
             out.update(geqrt_bound(L, m, w))
@@ -790,7 +814,8 @@ def phase_geqrt_batched(torch, np, dev):
             out["node_bound_ms"] = geqrt_bound(1, m, w)["bound_ms"]
         del P, pk, pp, T, Tp
     (L, m, w), (Ln, mn, wn) = GEQRT_BATCHED[0][:3], GEQRT_BATCHED[1][:3]
-    say(f"geqrt_batched: {L} x {m}x{w} f32 kernel {out['ms']:.4f} ms vs plain "
+    say(f"geqrt_batched: {L} x {m}x{w} f32 kernel ({out['body']} body) {out['ms']:.4f} ms vs "
+        f"the dense body {out['dense_ms']:.4f} ms (rel err {out['dense_rel_err']:.2e}), plain "
         f"{out['plain_ms']:.4f} ms, torch.geqrf {out['library_ms']:.4f} ms (no T), bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
     say(f"geqrt_batched: {Ln} x {mn}x{wn} f32 kernel {out['node_stack_ms']:.4f} ms, torch.geqrf "
@@ -912,21 +937,24 @@ def reset_counts(torch) -> None:
     sl.host_syncs = 0
     for fn in fns:
         fn.launches = 0
-    geqrt_batched = fns[2]
+    geqrt_base, geqrt_batched = fns[1], fns[2]
     geqrt_batched.pair_launches = 0
+    geqrt_batched.leaf_launches = geqrt_base.leaf_launches = 0
 
 
 def read_counts() -> dict:
     sl, (chol, base, batched, select, newton) = counters()
     return {"chol_inv": chol.launches, "geqrt": base.launches,
             "geqrt_batched": batched.launches, "geqrt_pair": batched.pair_launches,
+            "geqrt_leaf": batched.leaf_launches + base.leaf_launches,
             "select_pivots": select.launches, "newton_inv": newton.launches,
             "host_syncs": sl.host_syncs}
 
 
 def counts_str(c: dict) -> str:
     return (f"launches chol_inv {c['chol_inv']}, geqrt {c['geqrt']}, geqrt_batched "
-            f"{c['geqrt_batched']} (pair body {c['geqrt_pair']}), select_pivots "
+            f"{c['geqrt_batched']} (pair body {c['geqrt_pair']}), blocked leaf body "
+            f"{c['geqrt_leaf']}, select_pivots "
             f"{c['select_pivots']}, newton_inv {c['newton_inv']}; host syncs {c['host_syncs']}")
 
 
@@ -987,7 +1015,8 @@ def phase_tsqr(torch, np, ct, dev, smi):
         say(f"tsqr {m}x{n} f32 {leaf}: residual {chk.residual:.3e} (< {n * eps:.3e}), "
             f"orthogonality {chk.orthogonality:.3e} (< {orth_gate:.3e}), tril(R) "
             f"{chk.r_triangular:g}; {t_first:.3f} s first call, launches geqrt_batched "
-            f"{counts['geqrt_batched']} (pair body {counts['geqrt_pair']}), chol_inv "
+            f"{counts['geqrt_batched']} (pair body {counts['geqrt_pair']}, blocked leaf body "
+            f"{counts['geqrt_leaf']}), chol_inv "
             f"{counts['chol_inv']}, host syncs {counts['host_syncs']}")
         if not (chk.residual < n * eps and chk.orthogonality < orth_gate
                 and chk.r_triangular == 0.0):
@@ -995,24 +1024,27 @@ def phase_tsqr(torch, np, ct, dev, smi):
         kernel = "geqrt_batched" if leaf == "householder" else "chol_inv"
         if counts[kernel] == 0:
             raise AssertionError(f"tsqr {leaf} launched no {kernel} kernel")
-        # the leaves, then each of the 10 tree levels on the pair body
-        tree = (counts[kernel], counts["geqrt_pair"])
-        require(leaf != "householder" or tree == (11, 10),
+        # the leaves on the blocked body, then each of the 10 tree levels on
+        # the pair body
+        tree = (counts[kernel], counts["geqrt_pair"], counts["geqrt_leaf"])
+        require(leaf != "householder" or tree == (11, 10, 1),
                 f"tsqr householder launched geqrt_batched {tree[0]} times, {tree[1]} of them "
-                f"the pair body; expected 11 and 10")
+                f"the pair body and {tree[2]} the blocked leaf body; expected 11, 10 and 1")
         reset_counts(torch)
         Rr = ct.tsqr_r(A, cfg)
         counts_r = read_counts()
         e_r = rel_err(Rr, R)
         say(f"tsqr_r {leaf}: rel diff to tsqr's R {e_r:.2e} (< {TOL32:g}); launches "
-            f"geqrt_batched {counts_r['geqrt_batched']} (pair body {counts_r['geqrt_pair']}), "
+            f"geqrt_batched {counts_r['geqrt_batched']} (pair body {counts_r['geqrt_pair']}, "
+            f"blocked leaf body {counts_r['geqrt_leaf']}), "
             f"chol_inv {counts_r['chol_inv']}, host syncs {counts_r['host_syncs']}")
         if not e_r < TOL32:
             raise AssertionError(f"tsqr_r {leaf} disagrees with tsqr's R")
-        tree_r = (counts_r["geqrt_batched"], counts_r["geqrt_pair"])
-        require(leaf != "householder" or tree_r == (11, 10),
+        tree_r = (counts_r["geqrt_batched"], counts_r["geqrt_pair"], counts_r["geqrt_leaf"])
+        require(leaf != "householder" or tree_r == (11, 10, 1),
                 f"tsqr_r householder launched geqrt_batched {tree_r[0]} times, {tree_r[1]} of "
-                f"them the pair body; expected 11 and 10")
+                f"them the pair body and {tree_r[2]} the blocked leaf body; expected 11, 10 "
+                f"and 1")
         del Q, R, Rr
         result[leaf] = (counts, cuda_time_ms(lambda: ct.tsqr(A, cfg), reps=5, warmup=1),
                         cuda_time_ms(lambda: ct.tsqr_r(A, cfg), reps=5, warmup=1))
@@ -1041,7 +1073,7 @@ def phase_tsqr(torch, np, ct, dev, smi):
         say(f"  tsqr {m}x{n} f32 {leaf}: {t_q:.2f} ms (tsqr_r {t_r:.2f} ms), "
             f"{counts['host_syncs']} host syncs")
     say(f"  torch.linalg.qr reduced: {t_torch:.2f} ms; mode='r': {t_torch_r:.2f} ms")
-    return {k: result["householder"][0][k] for k in ("geqrt_batched", "geqrt_pair")}
+    return {k: result["householder"][0][k] for k in ("geqrt_batched", "geqrt_pair", "geqrt_leaf")}
 
 
 def phase_qr_batched(torch, np, ct, dev):
@@ -3467,6 +3499,11 @@ def main(argv=None) -> int:
          "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
          "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
          "launches": launches["geqrt_pair"], **geqrt_pair},
+        {"name": "geqrt_leaf", "route": "cuda",
+         "source": "cuda_qr_tpu_torch/csrc/geqrt.cu",
+         "replaces": "cuda_qr_tpu/ops/geqrt.py:38",
+         "launches": launches["geqrt_leaf"],
+         **{k: geqrt_b[k] for k in ("ms", "dense_ms", "library_ms", "bound_ms", "bound_by")}},
         {"name": "select_pivots", "route": "cuda",
          "source": "cuda_qr_tpu_torch/csrc/select_pivots.cu",
          "replaces": "cuda_qr_tpu/ops/pallas_select.py:40",

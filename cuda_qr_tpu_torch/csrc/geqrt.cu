@@ -87,8 +87,53 @@
 // once per column, and were 2-4x slower.
 // Only the caller that stacks the pair can ask for it (geqrt_batched's
 // pair=True): a shape cannot tell a stacked pair from a dense panel.
+//
+// What bounds a TSQR leaf, and the blocked leaf body.  A 1,024 x 128 float
+// leaf (512 KB) fits no SM, so the sub-panel body holds 32 columns of it
+// (132 KB), one CTA an SM: the 1,024 leaves of a 1M x 128 call take 8
+// waves.  A clock64 probe of one leaf on it (H100 80GB HBM3, 700 W) reads
+// 2.44 M cycles: 43 % column steps (level-2 work over the whole 32-wide
+// sub-panel, two barriers and a 64-long chain of two shared loads an FMA
+// each), 21 % the other-column products and 9 % the update (a shared word
+// per 2 FMAs).  The blocked body (float32, off = 0, at most 1,024 rows; the
+// plan routes by shape) is geqrf's blocking inside one CTA:
+//   * the sub-panel is held column-major, row stride = 4 (mod 32), so
+//     float4 loads of 4 neighbouring columns hit distinct banks; it comes in
+//     by word cp.async, every copy in flight at once;
+//   * it is factored in inner blocks of 8 columns, their column steps in
+//     registers (thread t holds rows t and t + 512), one barrier a step:
+//     each warp sums 8 slots (the pivot's sum of squares and its dots with
+//     the block's other 7 columns: the update's coefficients for the later
+//     ones, the Gram for the earlier ones) in slot_sums' reduce-scatter,
+//     then every warp adds the 16 warps' sums and takes the reflector
+//     itself.  The sums of squares are unscaled; a column whose largest |x|
+//     lies outside [2^-50, 2^50] (or is 0 or NaN) sends the whole block
+//     again through steps that scale it, as pair_reflector does: kept out of
+//     the common steps, that branch and its divisions cost them ~40 %;
+//   * after each inner block: its T (one warp: T_s's diagonal block), then
+//     C = V_ib^T (the sub-panel's other columns) over the rows (warp = a row
+//     slice, lane = a quarter of it x 4 columns, 8 x 4 accumulators), which
+//     is the Gram with the earlier blocks and W for the later ones, then
+//     A_rest -= V_ib (T_ib^T W);
+//   * T_s above its diagonal blocks by block joins, T[:b, B] = -T[:b, :b]
+//     (Y[:b, B] T_BB); the products with the other columns register-tiled:
+//     Z = V_s^T A_other with a lane 8 reflectors x 4 columns (a float4 of V
+//     feeds 16 FMAs, one of the stage 32), each warp streaming its rows of
+//     the other columns through its own 4-stage cp.async ring; the update
+//     A_trail -= V_s Z_trail in 16 x 32 warp tiles (a lane 4 x 4), the next
+//     tile arriving in the warp's ring while this one's FMAs run, each read
+//     and written once; the T join reads T from shared memory;
+//   * every operation is an FP32 FFMA, with the dense body's conventions.
+// What bounds it now (same card): 1.05 M cycles a leaf, the Z pass 25 %
+// (its warps issue a float4 shared load per 10.7 FMAs), the column steps
+// 23 % (~1,850 cycles a step: the cross-warp sums and the reflector, taken
+// in every thread, after the barrier), the inner blocks' products 18 %, the
+// update 15 %.  Holding the steps' rows in fewer warps (4 or 8) spills or
+// lengthens each thread's part, and was slower.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -827,6 +872,653 @@ geqrt_subpanel_kernel_pair(const T* __restrict__ A, int lda, T* P, T* __restrict
 }
 
 // ------------------------------------------------------------------------
+// Blocked leaf body: geqrf's blocking inside one CTA (see the note at the top)
+// ------------------------------------------------------------------------
+
+constexpr int kIb = 8;                   // inner block: the columns of one run of steps
+constexpr int kLeafRows = 2 * kThreads;  // rows it holds: two a thread in the steps
+constexpr int kZld = 100;                // row stride of Z (at most 96 other columns)
+constexpr int kStage = 4;                // rows of one stage of a warp's ring (4 x 32)
+constexpr int kDepth = 4;                // stages in a warp's ring
+constexpr int kRing = kDepth * kStage * 32;   // a warp's ring; one update tile (16 x 32)
+constexpr int kRedLd = 160;              // one buffer of the steps' warp sums
+
+static_assert(kIb == kSlots, "a step's sums are slot_sums' eight slots");
+
+// Row stride of the column-major sub-panel: = 4 (mod 32), so that float4
+// loads of the same rows of 4 neighbouring columns fall in distinct banks.
+__host__ __device__ constexpr int blocked_ldr(int m) { return ((m + 31) & ~31) + 4; }
+
+// The blocked body's shared memory at m x w, in floats (the layout below).
+__host__ __device__ constexpr int blocked_words(int m, int w) {
+  return kKb * blocked_ldr(m) + 3 * kKb * kLd + kKb + 2 * kRedLd + 2 * kWarps + 2 * kIb
+         + kWarps + kIb * kKb + kKb * kZld + kWarps * kRing + w * (w + 1) / 2;
+}
+
+__device__ __forceinline__ int tri(int q) { return q * (q + 1) / 2; }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// T of the n <= 32 columns b0 .. b0 + n of a sub-panel, from its Gram
+// (Y[k][j] = v_k . v_j at Ys[k * kLd + j], k < j) and tau, by one warp: lane i
+// takes row i, T[i][j] = -tau_j sum_{i<=k<j} T[i][k] Y[k][j], left to right,
+// reading its own row back from Ts (zeros below the diagonal).  The sums are
+// the sub-panel body's T_s rows, less the zeros it adds first.
+__device__ __forceinline__ void t_rows(const float* Ys, const float* tau_s, float* Ts, int b0,
+                                       int n, int lane) {
+  if (lane >= n) return;
+  float* row = Ts + (b0 + lane) * kLd + b0;
+  for (int k = 0; k < lane; ++k) row[k] = 0.f;
+  row[lane] = tau_s[b0 + lane];
+  for (int j = lane + 1; j < n; ++j) {
+    float t = 0.f;
+    for (int k = lane; k < j; ++k) t += row[k] * Ys[(b0 + k) * kLd + b0 + j];
+    row[j] = -tau_s[b0 + j] * t;
+  }
+}
+
+// The column steps of an inner block (columns b0 .. b0 + nib of the
+// sub-panel), its rows in x (thread t: rows t and t + 512), one barrier a
+// step (see the note at the top).  kScaled = false takes each sum of squares
+// unscaled and returns false at the first step whose largest |x| lies
+// outside [2^-50, 2^50] (or is 0 or NaN), the same step in every thread,
+// leaving x and the scratch to be discarded; kScaled = true takes such a
+// step's sum again, scaled by the max, as pair_reflector does.
+template <bool kScaled>
+__device__ __forceinline__ bool inner_steps(float (&x)[2][kIb], int b0, int nib, int rows,
+                                            float* red, float* red_mx, float* rowbuf,
+                                            float* red_s, float* tau_s, float* Ys) {
+  using T = float;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int j = 0; j < kIb; ++j) {
+    if (j >= nib) break;
+    const int p = b0 + j;                              // the pivot row
+    T* rb = red + (j & 1) * kRedLd;
+    T* mb = red_mx + (j & 1) * kWarps;
+    T* pr = rowbuf + (j & 1) * kIb;
+    // own rows: the pivot column's max and sum of squares (rows >= p), its
+    // dots with the other columns (rows > p): slot c for column c, slot j
+    // for the sum of squares
+    T mx = T(0), a[kIb];
+#pragma unroll
+    for (int c = 0; c < kIb; ++c) a[c] = T(0);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = tid + q * kThreads;
+      const T xj = x[q][j];
+      if (r >= p) {
+        mx = nan_max(mx, T(fabs(xj)));
+        a[j] += xj * xj;
+      }
+      if (r > p) {
+#pragma unroll
+        for (int c = 0; c < kIb; ++c)
+          if (c != j && c < nib) a[c] += xj * x[q][c];
+      }
+    }
+    if (tid == p) {
+#pragma unroll
+      for (int c = 0; c < kIb; ++c) pr[c] = x[0][c];
+    }
+    const T sw = slot_sums(a, lane);
+    const T mw = warp_max_abs(mx);
+    // warp w' at 8 (w' + w' / 4): the reads below hit 32 distinct banks
+    if ((lane & 3) == 0) rb[8 * (warp + (warp >> 2)) + (lane >> 2)] = sw;
+    if (lane == 0) mb[warp] = mw;
+    __syncthreads();
+    // the block's sums, the same in every warp: lanes 4s .. 4s + 3 add
+    // slot s of four warps each, then of all sixteen
+    const int slot = lane >> 2, part = lane & 3;
+    T s = T(0);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) s += rb[8 * (5 * part + k) + slot];
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    const T bm = warp_max_abs(lane < kWarps ? mb[lane] : T(0));
+    T tot[kIb];
+#pragma unroll
+    for (int c = 0; c < kIb; ++c) tot[c] = __shfl_sync(0xffffffffu, s, 4 * c);
+    const T x0 = pr[j];
+    T ssq = tot[j], sc = T(1);
+    if (!(bm >= T(1) / big<T>() && bm <= big<T>())) {   // the same in every thread
+      if (!kScaled) return false;
+      const bool fast = bm >= min_normal<T>();         // 1 / bm is finite
+      const T rmx = fast ? T(1) / bm : T(0);
+      T q2 = T(0);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int r = tid + q * kThreads;
+        if (r >= p) {
+          const T xq = x[q][j];
+          const T xs = fast ? xq * rmx : (bm > T(0) ? xq / bm : xq * T(0));   // NaN stays
+          q2 += xs * xs;
+        }
+      }
+      q2 = warp_sum(q2);
+      if (lane == 0) red_s[warp] = q2;
+      __syncthreads();
+      ssq = T(0);
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) ssq += red_s[k];
+      if (!(bm == bm)) ssq = bm;                       // NaN spreads
+      sc = bm > T(0) ? bm : T(1);
+    }
+    const Refl<T> h(x0, sc, ssq);
+    // 1 / safe_u is finite (always unscaled: then |u| >= 2^-50)
+    const bool rcp = !kScaled || h.degen || sc >= min_normal<T>();
+    const T ru = h.degen ? T(0) : T(1) / h.safe_u;
+    // (x . a) / u, as v = x / u below the pivot
+    auto over_u = [&](T d) { return h.degen ? T(0) : (rcp ? d * ru : d / h.safe_u); };
+    T f[kIb];
+#pragma unroll
+    for (int c = 0; c < kIb; ++c)
+      f[c] = c > j && c < nib ? h.tau * (pr[c] + over_u(tot[c])) : T(0);
+    // tau, and the Gram within the block: v_c . v_j = v_c[p] + (x_j . v_c)
+    // / u, by the last warp's lanes 4c (which hold slot c's sum)
+    if (warp == kWarps - 1 && (lane & 3) == 0) {
+      if (lane == 0) tau_s[p] = h.tau;
+      if (slot < j) Ys[(b0 + slot) * kLd + p] = pr[slot] + over_u(s);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = tid + q * kThreads;
+      if (r < p || r >= rows) continue;
+      const T v = r == p ? T(1) : (rcp ? x[q][j] * ru : x[q][j] / h.safe_u);
+      x[q][j] = r == p ? h.beta : v;
+#pragma unroll
+      for (int c = 0; c < kIb; ++c)
+        if (c > j && c < nib) x[q][c] -= f[c] * v;
+    }
+  }
+  return true;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+geqrt_subpanel_kernel_blocked(const T* __restrict__ A, int lda, T* P, T* __restrict__ tau,
+                              T* __restrict__ Tm, int m, int w, int vec) {
+  static_assert(sizeof(T) == 4, "float32 only");
+  // P is read back after it is written: no __restrict__ on it.
+  extern __shared__ unsigned char smem_raw[];
+  const size_t bid = blockIdx.x;
+  A += bid * static_cast<size_t>(m) * lda;
+  P += bid * static_cast<size_t>(m) * w;
+  tau += bid * w;
+  Tm += bid * static_cast<size_t>(w) * w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ldr = blocked_ldr(m);
+  T* Vt = reinterpret_cast<T*>(smem_raw);   // kKb x ldr: the sub-panel, column-major
+  T* Rs = Vt + kKb * ldr;                   // kKb x kLd: R on the inner blocks' triangles
+  T* Ys = Rs + kKb * kLd;                   // the sub-panel's Gram, above the diagonal
+  T* Ts = Ys + kKb * kLd;                   // T_s
+  T* tau_s = Ts + kKb * kLd;                // kKb
+  T* red = tau_s + kKb;                     // 2 x kRedLd: the steps' warp sums
+  T* red_mx = red + 2 * kRedLd;             // 2 x kWarps: the steps' warp maxima
+  T* rowbuf = red_mx + 2 * kWarps;          // 2 x kIb: the pivot row
+  T* red_s = rowbuf + 2 * kIb;              // kWarps: a scaled sum of squares
+  T* Cb = red_s + kWarps;                   // kIb x kKb: an inner block's products
+  T* Z = Cb + kIb * kKb;                    // kKb x kZld: V_s^T A_other, then T_s^T that
+  T* ring = Z + kKb * kZld;                 // kWarps x kRing; also the partial sums
+  T* Tt = ring + kWarps * kRing;            // T, packed by columns: T[p][q] at tri(q) + p
+
+  for (int c0 = 0; c0 < w; c0 += kKb) {
+    const int kbs = w - c0 < kKb ? w - c0 : kKb;
+    const int rows = m - c0;
+    const int lds = c0 == 0 ? lda : w;
+    const T* srow = (c0 == 0 ? A : P) + static_cast<size_t>(c0) * lds;   // local row 0
+    T* prow = P + static_cast<size_t>(c0) * w;
+    __syncthreads();                                   // the last sub-panel's products
+    // ---- the sub-panel in, column-major, zeros below its rows and right of
+    // kbs, by word copies all in flight at once; a warp moves 4 rows x 8
+    // columns (32-byte runs of the rows, distinct banks at the row stride) ----
+    for (int e = tid; e < ldr / 4 * 128; e += kThreads) {
+      const int i = (e & 7) + 8 * ((e >> 5) & 3), r = 4 * (e >> 7) + ((e >> 3) & 3);
+      const bool ok = r < rows && i < kbs;
+      cp_async4(Vt + i * ldr + r, srow + (ok ? static_cast<size_t>(r) * lds + c0 + i : 0), ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int b0 = 0; b0 < kbs; b0 += kIb) {
+      const int nib = kbs - b0 < kIb ? kbs - b0 : kIb;
+      // ---- column steps on the inner block, in registers: thread t holds
+      // rows t and t + 512 of its columns; unscaled sums of squares, and
+      // only if a column needs it the block again with scaled ones ----
+      T x[2][kIb];
+      auto load_x = [&]() {
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int r = tid + q * kThreads;
+#pragma unroll
+          for (int c = 0; c < kIb; ++c) x[q][c] = r < rows ? Vt[(b0 + c) * ldr + r] : T(0);
+        }
+      };
+      load_x();
+      if (!inner_steps<false>(x, b0, nib, rows, red, red_mx, rowbuf, red_s, tau_s, Ys)) {
+        __syncthreads();                               // the scratch, read by every warp
+        load_x();                                      // Vt is written only after the steps
+        inner_steps<true>(x, b0, nib, rows, red, red_mx, rowbuf, red_s, tau_s, Ys);
+      }
+      // the block back: R of its triangle to Rs, V explicit (1 on its
+      // diagonal, 0 above) to Vt
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int r = tid + q * kThreads;
+        if (r < b0 || r >= rows) continue;
+#pragma unroll
+        for (int c = 0; c < kIb; ++c) {
+          if (c >= nib) break;
+          const int col = b0 + c;
+          T val = x[q][c];
+          if (r <= col) {
+            Rs[r * kLd + col] = val;
+            val = r == col ? T(1) : T(0);
+          }
+          Vt[col * ldr + r] = val;
+        }
+      }
+      __syncthreads();
+      if (warp == 0) t_rows(Ys, tau_s, Ts, b0, nib, lane);   // T_s's diagonal block
+      if (nib == kbs) break;                           // no other column in the sub-panel
+      const int nrest = kbs - b0 - nib;
+      // ---- C[k][o] = v_{b0+k} . Vt[:, o] over rows >= b0, for every other
+      // column o of the sub-panel: the Gram with the earlier blocks (o < b0)
+      // and V_ib^T A_rest (o >= b0 + nib).  Warp = a slice of the rows; lane
+      // = a quarter of its rows (rows 4 rq + 16 t) and the columns og + 8u, so
+      // a float4 of V_ib feeds 16 FMAs and 8 lanes read 8 banks' columns ----
+      {
+        const int og = lane & 7, rq = lane >> 3;
+        const int len = (rows - b0 + 3) & ~3;
+        const int span = ((len + kWarps - 1) / kWarps + 3) & ~3;
+        const int r_lo = b0 + warp * span;
+        const int r_hi = r_lo + span < b0 + len ? r_lo + span : b0 + len;
+        bool live[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int o = og + 8 * u;
+          live[u] = o < kbs && (o < b0 || o >= b0 + kIb);
+        }
+        T acc[kIb][4];
+#pragma unroll
+        for (int k = 0; k < kIb; ++k)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[k][u] = T(0);
+        for (int r = r_lo + 4 * rq; r < r_hi; r += 16) {
+          float4 vo[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            vo[u] = live[u] ? *reinterpret_cast<const float4*>(Vt + (og + 8 * u) * ldr + r)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int k = 0; k < kIb; ++k) {
+            const float4 vk = *reinterpret_cast<const float4*>(Vt + (b0 + k) * ldr + r);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              acc[k][u] = fmaf(vk.x, vo[u].x, acc[k][u]);
+              acc[k][u] = fmaf(vk.y, vo[u].y, acc[k][u]);
+              acc[k][u] = fmaf(vk.z, vo[u].z, acc[k][u]);
+              acc[k][u] = fmaf(vk.w, vo[u].w, acc[k][u]);
+            }
+          }
+        }
+        // the quarters' sums, then the warp's partial sums to the ring
+#pragma unroll
+        for (int k = 0; k < kIb; ++k)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[k][u] += __shfl_xor_sync(0xffffffffu, acc[k][u], 8);
+            acc[k][u] += __shfl_xor_sync(0xffffffffu, acc[k][u], 16);
+          }
+        if (rq == 0) {
+#pragma unroll
+          for (int k = 0; k < kIb; ++k)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) ring[(warp * kIb + k) * kKb + og + 8 * u] = acc[k][u];
+        }
+      }
+      __syncthreads();
+      if (tid < kIb * kKb) {
+        T s = T(0);
+#pragma unroll
+        for (int k = 0; k < kWarps; ++k) s += ring[k * kIb * kKb + tid];
+        Cb[tid] = s;                                   // C[k][o] at k * kKb + o
+      }
+      __syncthreads();
+      for (int e = tid; e < b0 * nib; e += kThreads) {
+        const int o = e / nib, k = e - o * nib;
+        Ys[o * kLd + b0 + k] = Cb[k * kKb + o];
+      }
+      if (nrest == 0) continue;                        // the sub-panel's last block
+      // W = T_ib^T C on the later columns, a thread a column
+      if (tid >= b0 + nib && tid < kbs) {
+        T c[kIb];
+#pragma unroll
+        for (int k = 0; k < kIb; ++k) c[k] = k < nib ? Cb[k * kKb + tid] : T(0);
+#pragma unroll
+        for (int j = kIb - 1; j >= 0; --j) {
+          if (j >= nib) continue;
+          T t = T(0);
+#pragma unroll
+          for (int k = 0; k <= j; ++k) t += Ts[(b0 + k) * kLd + b0 + j] * c[k];
+          c[j] = t;                                    // c[k < j] still the inputs
+        }
+#pragma unroll
+        for (int k = 0; k < kIb; ++k)
+          if (k < nib) Cb[k * kKb + tid] = c[k];
+      }
+      __syncthreads();
+      // A_rest -= V_ib W over rows >= b0: thread t rows b0 + 4 (t % 256) ..,
+      // every other later column
+      {
+        const int r = b0 + 4 * (tid & 255);
+        if (r < rows) {
+          float4 vk[kIb];
+#pragma unroll
+          for (int k = 0; k < kIb; ++k)
+            vk[k] = k < nib ? *reinterpret_cast<const float4*>(Vt + (b0 + k) * ldr + r)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int o = b0 + nib + (tid >> 8); o < kbs; o += 2) {
+            float4 a = *reinterpret_cast<const float4*>(Vt + o * ldr + r);
+#pragma unroll
+            for (int k = 0; k < kIb; ++k) {
+              if (k >= nib) break;
+              const T wk = Cb[k * kKb + o];
+              a.x = fmaf(-vk[k].x, wk, a.x);
+              a.y = fmaf(-vk[k].y, wk, a.y);
+              a.z = fmaf(-vk[k].z, wk, a.z);
+              a.w = fmaf(-vk[k].w, wk, a.w);
+            }
+            T* d = Vt + o * ldr + r;
+            if (r + 4 <= rows) {
+              *reinterpret_cast<float4*>(d) = a;
+            } else {                                   // rows past the panel stay zero
+              d[0] = a.x;
+              if (r + 1 < rows) d[1] = a.y;
+              if (r + 2 < rows) d[2] = a.z;
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    __syncthreads();                                   // the last block's Gram entries
+
+    // ---- T_s above its diagonal blocks, a block column at a time:
+    // T[:b, B] = -T[:b, :b] (Y[:b, B] T_BB), M = Y[:b, B] T_BB in Cb ----
+    for (int b = kIb; b < kbs; b += kIb) {
+      const int nb = kbs - b < kIb ? kbs - b : kIb;
+      for (int e = tid; e < b * nb; e += kThreads) {
+        const int jj = e / b, q = e - jj * b;
+        T t = T(0);
+        for (int k = 0; k <= jj; ++k) t += Ys[q * kLd + b + k] * Ts[(b + k) * kLd + b + jj];
+        Cb[jj * kKb + q] = t;
+      }
+      __syncthreads();
+      for (int e = tid; e < b * nb; e += kThreads) {
+        const int jj = e / b, pp = e - jj * b;
+        T t = T(0);
+        for (int q = pp; q < b; ++q) t += Ts[pp * kLd + q] * Cb[jj * kKb + q];
+        Ts[pp * kLd + b + jj] = -t;
+      }
+      __syncthreads();
+    }
+    // ---- the packed sub-panel out (R above the diagonal, from Rs on the
+    // inner blocks' triangles; V below), then V explicit in Vt ----
+    if (tid < kbs) tau[c0 + tid] = tau_s[tid];
+    for (int e = tid; e < (rows + 3) / 4 * 128; e += kThreads) {
+      const int i = (e & 7) + 8 * ((e >> 5) & 3), r = 4 * (e >> 7) + ((e >> 3) & 3);
+      if (r >= rows || i >= kbs) continue;
+      const int blk = i & ~(kIb - 1);
+      T val = Vt[i * ldr + r];
+      if (r >= blk && r <= i) val = Rs[r * kLd + i];
+      prow[static_cast<size_t>(r) * w + c0 + i] = val;
+      if (r < blk) Vt[i * ldr + r] = T(0);
+    }
+    __syncthreads();
+    for (int e = tid; e < kbs * kbs; e += kThreads) {
+      const int i = e / kbs, j = e - i * kbs;
+      if (i <= j) Tt[tri(c0 + j) + c0 + i] = Ts[i * kLd + j];
+    }
+    const int others = w - kbs;
+    if (others == 0) continue;                         // one sub-panel (w <= 32)
+
+    // ---- Z = V_s^T A_other over the sub-panel's rows, the other columns
+    // (compact: o < c0 the earlier ones, o >= c0 column o + kbs) through each
+    // warp's cp.async ring of four stages of 4 rows x 32 columns, three in
+    // flight.  Warp = (o-tile of 32, row slice); lane = 8 reflectors
+    // (g + 4q) x 4 columns (4 og ..), so a float4 of V feeds 16 FMAs and one
+    // of the stage 32 ----
+    {
+      const int nt = (others + 31) / 32;
+      const int ns = kWarps / nt;                      // row slices
+      const int ot = warp % nt, sl = warp / nt;
+      const int span = ((rows + ns - 1) / ns + kStage - 1) & ~(kStage - 1);
+      const int r_lo = sl * span;
+      const int r_hi = r_lo + span < rows ? r_lo + span : rows;
+      const int nst = sl < ns && r_hi > r_lo ? (r_hi - r_lo + kStage - 1) / kStage : 0;
+      T* wring = ring + warp * kRing;
+      const int g = lane & 3, og = lane >> 2;
+      T acc[8][4];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int o = 0; o < 4; ++o) acc[q][o] = T(0);
+      auto stage = [&](int k) {
+        T* st = wring + (k % kDepth) * (kStage * 32);
+        const int rb = r_lo + k * kStage;
+        if (vec) {
+          const int rr = lane >> 3, oo = (lane & 7) * 4, oi = 32 * ot + oo;
+          const int r = rb + rr;
+          const bool ok = r < rows && oi < others;
+          const int col = oi < c0 ? oi : oi + kbs;
+          cp_async16(st + rr * 32 + oo, srow + (ok ? static_cast<size_t>(r) * lds + col : 0), ok);
+        } else {
+#pragma unroll
+          for (int rr = 0; rr < kStage; ++rr) {
+            const int oi = 32 * ot + lane, r = rb + rr;
+            const bool ok = r < rows && oi < others;
+            const int col = oi < c0 ? oi : oi + kbs;
+            cp_async4(st + rr * 32 + lane, srow + (ok ? static_cast<size_t>(r) * lds + col : 0),
+                      ok);
+          }
+        }
+      };
+      // a group per stage, empty past the last, so that "all but the newest
+      // kDepth - 1 groups" is always stage k
+#pragma unroll
+      for (int k = 0; k < kDepth - 1; ++k) {
+        if (k < nst) stage(k);
+        cp_async_commit();
+      }
+      for (int k = 0; k < nst; ++k) {
+        if (k + kDepth - 1 < nst) stage(k + kDepth - 1);
+        cp_async_commit();
+        cp_async_wait<kDepth - 1>();
+        __syncwarp();
+        const T* st = wring + (k % kDepth) * (kStage * 32);
+        const int rb = r_lo + k * kStage;
+        {
+          float4 bb[4];
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr)
+            bb[rr] = *reinterpret_cast<const float4*>(st + rr * 32 + 4 * og);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(Vt + (g + 4 * q) * ldr + rb);
+            const float vr[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int rr = 0; rr < 4; ++rr) {
+              acc[q][0] = fmaf(vr[rr], bb[rr].x, acc[q][0]);
+              acc[q][1] = fmaf(vr[rr], bb[rr].y, acc[q][1]);
+              acc[q][2] = fmaf(vr[rr], bb[rr].z, acc[q][2]);
+              acc[q][3] = fmaf(vr[rr], bb[rr].w, acc[q][3]);
+            }
+          }
+        }
+        __syncwarp();                                  // read before it is refilled
+      }
+      // the slices' partial sums into Z, one slice after another
+      for (int round = 0; round < ns; ++round) {
+        if (sl == round) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int i = g + 4 * q;
+#pragma unroll
+            for (int o = 0; o < 4; ++o) {
+              const int oi = 32 * ot + 4 * og + o;
+              if (oi < others && i < kbs) {
+                T* z = Z + i * kZld + oi;
+                *z = round == 0 ? acc[q][o] : *z + acc[q][o];
+              }
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    // Z[:, o] <- T_s^T Z[:, o]: for o < c0 that is (V_prev^T V_s T_s)^T
+    if (tid < others) {
+      T z[kKb];
+#pragma unroll
+      for (int i = 0; i < kKb; ++i) z[i] = i < kbs ? Z[i * kZld + tid] : T(0);
+#pragma unroll
+      for (int j = kKb - 1; j >= 0; --j) {
+        if (j >= kbs) continue;
+        T t = T(0);
+#pragma unroll
+        for (int i = 0; i <= j; ++i) t += Ts[i * kLd + j] * z[i];
+        z[j] = t;                                      // z[i < j] still the inputs
+      }
+#pragma unroll
+      for (int i = 0; i < kKb; ++i)
+        if (i < kbs) Z[i * kZld + tid] = z[i];
+    }
+    __syncthreads();
+    // T[:c0, c0 + j] = -T[:c0, :c0] K with K[q][j] = Z[j][q], T read in shared
+    // memory: a thread row p and 4 columns; a warp's rows p0 .. p0 + 31 (c0 is a
+    // multiple of 32) run q from p0 together, so T's column q is one run
+    for (int e = tid; e < c0 * ((kbs + 3) / 4); e += kThreads) {
+      const int j0 = e / c0 * 4, p = e - e / c0 * c0;
+      T t[4] = {T(0), T(0), T(0), T(0)};
+      for (int q = p & ~31; q < c0; ++q) {
+        const T tq = q >= p ? Tt[tri(q) + p] : T(0);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) t[u] = fmaf(tq, Z[(j0 + u) * kZld + q], t[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j0 + u < kbs) Tt[tri(c0 + j0 + u) + p] = -t[u];
+    }
+
+    // ---- A_trail -= V_s Z_trail, warp tiles of 16 rows x 32 columns (lane:
+    // rows 4 (lane / 8) .., columns 4 (lane % 8) ..): the next tile comes into
+    // the warp's ring by cp.async while this one's FMAs run on registers, and
+    // each tile is written back once ----
+    const int ntr = others - c0;                       // trailing columns
+    if (ntr > 0) {
+      const int nrt = (rows + 15) / 16, ntiles = nrt * ((ntr + 31) / 32);
+      const int rg = lane >> 3, tg = lane & 7;
+      T* wring = ring + warp * kRing;
+      auto fetch = [&](int tile) {
+        const int r0 = 16 * (tile % nrt), t0 = 32 * (tile / nrt);
+        if (vec) {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const int id = lane + 32 * h, rr = id >> 3, cc = (id & 7) * 4;
+            const int r = r0 + rr, t = t0 + cc;
+            const bool ok = r < rows && t < ntr;
+            cp_async16(wring + rr * 32 + cc,
+                       srow + (ok ? static_cast<size_t>(r) * lds + c0 + kbs + t : 0), ok);
+          }
+        } else {
+#pragma unroll 4
+          for (int rr = 0; rr < 16; ++rr) {
+            const int r = r0 + rr, t = t0 + lane;
+            const bool ok = r < rows && t < ntr;
+            cp_async4(wring + rr * 32 + lane,
+                      srow + (ok ? static_cast<size_t>(r) * lds + c0 + kbs + t : 0), ok);
+          }
+        }
+        cp_async_commit();
+      };
+      if (warp < ntiles) fetch(warp);
+      for (int tile = warp; tile < ntiles; tile += kWarps) {
+        cp_async_wait<0>();
+        __syncwarp();
+        T cur[4][4];
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const float4 a = *reinterpret_cast<const float4*>(wring + (4 * rg + rr) * 32 + 4 * tg);
+          cur[rr][0] = a.x;
+          cur[rr][1] = a.y;
+          cur[rr][2] = a.z;
+          cur[rr][3] = a.w;
+        }
+        __syncwarp();                                  // read before it is refilled
+        if (tile + kWarps < ntiles) fetch(tile + kWarps);
+        const int r0 = 16 * (tile % nrt) + 4 * rg, t0 = 32 * (tile / nrt) + 4 * tg;
+        if (t0 >= ntr) continue;
+#pragma unroll 4
+        for (int i = 0; i < kbs; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(Vt + i * ldr + r0);
+          const float4 z = *reinterpret_cast<const float4*>(Z + i * kZld + c0 + t0);
+          const float vr[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr) {
+            cur[rr][0] = fmaf(-vr[rr], z.x, cur[rr][0]);
+            cur[rr][1] = fmaf(-vr[rr], z.y, cur[rr][1]);
+            cur[rr][2] = fmaf(-vr[rr], z.z, cur[rr][2]);
+            cur[rr][3] = fmaf(-vr[rr], z.w, cur[rr][3]);
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 4; ++rr) {
+          const int r = r0 + rr;
+          if (r >= rows) break;
+          T* d = prow + static_cast<size_t>(r) * w + c0 + kbs + t0;
+          if (vec) {
+            *reinterpret_cast<float4*>(d) = make_float4(cur[rr][0], cur[rr][1], cur[rr][2],
+                                                        cur[rr][3]);
+          } else {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              if (t0 + cc < ntr) d[cc] = cur[rr][cc];
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < w * w; e += kThreads) {
+    const int r = e / w, c = e - r * w;
+    Tm[e] = r <= c ? Tt[tri(c) + r] : T(0);
+  }
+}
+
+// ------------------------------------------------------------------------
 // Streaming body (kb = 0): the panel stays in L2, column steps read it there
 // ------------------------------------------------------------------------
 
@@ -987,6 +1679,29 @@ int launch(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// L leaves of m x w (m <= 1024, row stride lda, panel stride m lda) on the
+// blocked body; vec: 16-byte copies (A and P 16-byte aligned, lda and w
+// multiples of 4).
+template <typename T>
+int launch_blocked(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int m, int w,
+                   void* stream) {
+  if (batch < 1 || w < 1 || w > kMaxW || m < w || m > kLeafRows || lda < w)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = sizeof(T) * blocked_words(m, w);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(geqrt_subpanel_kernel_blocked<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  const int vec = lda % 4 == 0 && w % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(P) % 16 == 0;
+  geqrt_subpanel_kernel_blocked<T><<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), lda, static_cast<T*>(P), static_cast<T*>(tau),
+      static_cast<T*>(Tm), m, w, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // L triangle pairs of 2w x w (row stride lda, panel stride 2w lda).
 template <typename T>
 int launch_pair(const void* A, int lda, void* P, void* tau, void* Tm, int batch, int w,
@@ -1012,6 +1727,11 @@ extern "C" int cqt_geqrt_batched_f64(const void* A, int lda, void* P, void* tau,
                                      int batch, int m, int w, int off, int kb, int resident,
                                      int nslices, void* stream) {
   return launch<double>(A, lda, P, tau, Tm, batch, m, w, off, kb, resident, nslices, stream);
+}
+
+extern "C" int cqt_geqrt_blocked_f32(const void* A, int lda, void* P, void* tau, void* Tm,
+                                     int batch, int m, int w, void* stream) {
+  return launch_blocked<float>(A, lda, P, tau, Tm, batch, m, w, stream);
 }
 
 extern "C" int cqt_geqrt_pair_f32(const void* A, int lda, void* P, void* tau, void* Tm,

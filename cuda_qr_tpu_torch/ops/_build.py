@@ -44,6 +44,8 @@ _SIGNATURES = {
         # A, lda, packed, tau, T, batch, m, w, off, kb, resident, nslices, stream
         "cqt_geqrt_batched_f32": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "cqt_geqrt_batched_f64": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # A, lda, packed, tau, T, batch, m, w, stream
+        "cqt_geqrt_blocked_f32": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
         # A, lda, packed, tau, T, batch, w, stream
         "cqt_geqrt_pair_f32": [_P, _I, _P, _P, _P, _I, _I, _P],
         "cqt_geqrt_pair_f64": [_P, _I, _P, _P, _P, _I, _I, _P],

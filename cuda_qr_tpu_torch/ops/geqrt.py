@@ -28,7 +28,8 @@ dense body returns.
 The kernel reads each panel as it lies (row-major) and writes contiguous
 outputs.  ``plan`` decides from the shape alone, before the launch, how it
 runs: the sub-panel width, whether the whole panel stays in shared memory,
-and when the panel is too tall for either, the streaming body.
+when the panel is too tall for either, the streaming body, and whether a
+float32 leaf takes the blocked body (a TSQR leaf of up to 1,024 rows).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ MIN_KB = 4                # narrowest shared-memory sub-panel
 MAX_SLICES = 16           # row slices of the other-column products
 RED_WORDS = 600           # the column steps' reduction scratch
 SMEM_BUDGET = 232_448     # shared memory one CTA may use on an H100 (227 KB)
+BLOCKED_ROWS = 1024       # rows the blocked body holds: two a thread of 512
 
 
 def supported(shape, dtype) -> bool:
@@ -89,6 +91,18 @@ class Plan(NamedTuple):
     kb: int          # sub-panel width; 0: the streaming body
     resident: bool   # the whole panel in shared memory
     slices: int      # row slices of the other-column products (partial sums)
+    blocked: bool = False   # the blocked body (kb, resident, slices unused)
+
+
+def blocked_words(m: int, w: int) -> int:
+    """The blocked body's shared memory at m x w, in floats: the sub-panel
+    column-major (32 x ldr, ldr = m rounded up to 32, plus 4), R's, the
+    Gram's and T_s's 32 x 33, tau, the column steps' sums (2 x 160 + 2 x 16
+    + 2 x 8 + 16), the inner block's products (8 x 32), Z (32 x 100), each
+    warp's ring (16 x 512) and T packed (w (w + 1) / 2)."""
+    ldr = -(-m // 32) * 32 + 4
+    return (KB * ldr + 3 * KB * (KB + 1) + KB + 2 * 160 + 2 * 16 + 2 * 8 + 16 + 8 * KB
+            + KB * 100 + 16 * 512 + w * (w + 1) // 2)
 
 
 def plan(m: int, w: int, off: int, dtype) -> Plan:
@@ -102,7 +116,19 @@ def plan(m: int, w: int, off: int, dtype) -> Plan:
     columns' products (kb x w) once per row slice,
     up to 16 slices as the rest of the 227 KB allows.  kb = 0 when not even
     a 4-column sub-panel fits: the streaming body.
+
+    blocked: a float32 panel of that sub-panel path (kb = 32, not resident)
+    with off = 0 and at most 1,024 rows (a TSQR leaf) takes the blocked
+    body instead, which keeps the rest of the plan unread.
     """
+    dense = _dense_plan(m, w, off, dtype)
+    blocked = (dtype == torch.float32 and off == 0 and m <= BLOCKED_ROWS
+               and dense.kb == KB and not dense.resident)
+    return dense._replace(blocked=blocked)
+
+
+def _dense_plan(m: int, w: int, off: int, dtype) -> Plan:
+    """The dense bodies' plan: kb, residency and slices as ``plan`` says."""
     size = 8 if dtype == torch.float64 else 4
     rows = m - off
 
@@ -121,9 +147,12 @@ def plan(m: int, w: int, off: int, dtype) -> Plan:
 
 
 def body(m: int, w: int, off: int, dtype) -> str:
-    """Which kernel body a panel shape takes: "resident" (the whole panel in
-    shared memory), "subpanel" (one sub-panel at a time) or "stream"."""
+    """Which kernel body a panel shape takes: "blocked" (a float32 leaf),
+    "resident" (the whole panel in shared memory), "subpanel" (one sub-panel
+    at a time) or "stream"."""
     p = plan(m, w, off, dtype)
+    if p.blocked:
+        return "blocked"
     return "resident" if p.resident else ("subpanel" if p.kb else "stream")
 
 
@@ -139,7 +168,8 @@ def pair_occupancy(w: int, dtype) -> int:
 def _launch(name: str, A: torch.Tensor, lda: int, off: int, pair: bool = False):
     """One launch over a stack A (L panels of m x w, row stride lda, panel
     stride m * lda): (packed (L, m, w) contiguous, tau (L, w), T (L, w, w)).
-    ``pair``: the triangle-pair body's own entry (m = 2w, off = 0)."""
+    ``pair``: the triangle-pair body's own entry (m = 2w, off = 0); a
+    blocked plan: the blocked body's own entry."""
     L, m, w = A.shape
     packed = torch.empty((L, m, w), dtype=A.dtype, device=A.device)
     tau = torch.empty((L, w), dtype=A.dtype, device=A.device)
@@ -151,9 +181,11 @@ def _launch(name: str, A: torch.Tensor, lda: int, off: int, pair: bool = False):
     if pair:
         fn = lib.cqt_geqrt_pair_f32 if f32 else lib.cqt_geqrt_pair_f64
         shape = (L, w)
+    elif (p := plan(m, w, off, A.dtype)).blocked:
+        fn = lib.cqt_geqrt_blocked_f32
+        shape = (L, m, w)
     else:
         fn = lib.cqt_geqrt_batched_f32 if f32 else lib.cqt_geqrt_batched_f64
-        p = plan(m, w, off, A.dtype)
         shape = (L, m, w, off, p.kb, int(p.resident), p.slices)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -167,7 +199,8 @@ def geqrt_base(panel: torch.Tensor, off: int):
 
     Returns (packed (m x w), tau (w,), T (w x w)); rows above ``off`` are
     returned unchanged.  A column slice of a wider row-major matrix is read
-    in place (its row stride goes to the kernel).
+    in place (its row stride goes to the kernel).  ``launches`` counts every
+    launch, ``leaf_launches`` those of the blocked body.
     """
     m, w = panel.shape
     _check_shape("geqrt_base", m, w, off)
@@ -178,10 +211,12 @@ def geqrt_base(panel: torch.Tensor, off: int):
         panel = panel.contiguous()
     packed, tau, T = _launch("geqrt", panel[None], panel.stride(0), off)
     geqrt_base.launches += 1
+    geqrt_base.leaf_launches += int(plan(m, w, off, panel.dtype).blocked)
     return packed[0], tau[0], T[0]
 
 
 geqrt_base.launches = 0
+geqrt_base.leaf_launches = 0
 
 
 def geqrt_batched(panels: torch.Tensor, off: int, pair: bool = False):
@@ -194,7 +229,8 @@ def geqrt_batched(panels: torch.Tensor, off: int, pair: bool = False):
     shape.  The result is the dense body's to rounding, with exact zeros
     below the diagonals of both halves and of T.  A CPU tensor takes the
     plain version either way.  ``launches`` counts every launch,
-    ``pair_launches`` those of the pair body.
+    ``pair_launches`` those of the pair body, ``leaf_launches`` those of
+    the blocked body (``plan``).
     """
     L, m, w = panels.shape
     _check_shape("geqrt_batched", m, w, off)
@@ -207,11 +243,13 @@ def geqrt_batched(panels: torch.Tensor, off: int, pair: bool = False):
     out = _launch("geqrt_batched", panels.contiguous(), w, off, pair)
     geqrt_batched.launches += 1
     geqrt_batched.pair_launches += int(pair)
+    geqrt_batched.leaf_launches += int(not pair and plan(m, w, off, panels.dtype).blocked)
     return out
 
 
 geqrt_batched.launches = 0
 geqrt_batched.pair_launches = 0
+geqrt_batched.leaf_launches = 0
 
 
 def geqrt_auto(A: torch.Tensor, config, off: int = 0, pair: bool = False):

@@ -19,8 +19,8 @@ import torch
 
 import cuda_qr_tpu_torch as ct
 from cuda_qr_tpu_torch.ops.chol_kernel import chol_with_inv_auto, chol_with_inv_kernel
-from cuda_qr_tpu_torch.ops.geqrt import (geqrt_base, geqrt_base_plain, geqrt_batched,
-                                        geqrt_batched_plain, pair_occupancy)
+from cuda_qr_tpu_torch.ops.geqrt import (BLOCKED_ROWS, body, geqrt_base, geqrt_base_plain,
+                                        geqrt_batched, geqrt_batched_plain, pair_occupancy)
 from cuda_qr_tpu_torch.ops.householder import unpack_v
 from cuda_qr_tpu_torch.ops.newton_kernel import newton_certified_kernel
 from cuda_qr_tpu_torch.ops.qrcp import qrcp_blocked
@@ -264,6 +264,107 @@ def test_geqrt_batched_kernel_matches_plain(dev, L, m, w, off, dtype):
     assert float(got[1][1].abs().max()) == 0.0 and float(got[1][2, 5]) == 0.0
 
 
+def leaf_launch(fn, *args, leaf=1):
+    """fn(*args) on geqrt_batched or geqrt_base, checked to launch once,
+    ``leaf`` times on the blocked body."""
+    before = (fn.launches, fn.leaf_launches)
+    out = fn(*args)
+    assert (fn.launches - before[0], fn.leaf_launches - before[1]) == (1, leaf)
+    return out
+
+
+@pytest.mark.parametrize("L,m,w", [(64, 1024, 128), (4, 1021, 128), (4, 1024, 77),
+                                   (4, 1024, 100), (4, 398, 128), (4, 1024, 64),
+                                   (3, 600, 96)])
+def test_geqrt_blocked_kernel_matches_plain(dev, L, m, w):
+    """B2's blocked leaf body against the plain version: the TSQR leaf
+    (1,024 x 128), rows not a multiple of its 32-row tiles, w not a multiple
+    of 8 (a ragged last inner block) or of 32 (a narrow last sub-panel), the
+    fewest rows at w = 128, two sub-panels; a zero panel (tau = 0) and a zero
+    column; exact zeros below T's diagonal; one launch, counted as a leaf
+    launch."""
+    P = torch.from_numpy(np.random.default_rng(m + w).standard_normal((L, m, w))).to(
+        dev, torch.float32)
+    P[1] = 0
+    P[2, :, 5] = 0
+    assert body(m, w, 0, torch.float32) == "blocked"
+    got = leaf_launch(geqrt_batched, P, 0)
+    want = geqrt_batched_plain(P, 0)
+    for a, b in zip(got, want):
+        assert a.is_contiguous() and torch.isfinite(a).all() and rel(a, b) < TOLS[torch.float32]
+    lower = torch.ones(w, w, dtype=torch.bool, device=dev).tril(-1)
+    assert (got[2][:, lower] == 0).all()
+    assert float(got[1][1].abs().max()) == 0.0 and float(got[1][2, 5]) == 0.0
+
+
+@pytest.mark.parametrize("case", ["overflow", "underflow", "small panel"])
+def test_geqrt_blocked_kernel_scales_a_norm_out_of_range(dev, case):
+    """Column steps whose largest |x| lies outside [2^-50, 2^50] take the
+    scaled sum of squares: an entry of 1e20 (its square overflows float32),
+    a column of 1e-25 entries (their squares underflow) and a panel of 1e-17
+    (in range, but scaled).  The dot products stay unscaled, as in the dense
+    body, so the entries keep their products in range.  Each panel agrees
+    with the plain version at its own scale."""
+    P = torch.from_numpy(np.random.default_rng(7).standard_normal((4, 1024, 128))).to(
+        dev, torch.float32)
+    if case == "overflow":
+        P[1, 700, 5] = 1e20
+    elif case == "underflow":
+        P[1, :, 37] *= 1e-25
+    else:
+        P[1] *= 1e-17
+    got = leaf_launch(geqrt_batched, P, 0)
+    want = geqrt_batched_plain(P, 0)
+    for b in range(4):
+        for a, w_ in zip(got, want):
+            assert torch.isfinite(a[b]).all() and rel(a[b], w_[b]) < TOLS[torch.float32]
+
+
+@pytest.mark.parametrize("m,w", [(BLOCKED_ROWS + 1, 128), (BLOCKED_ROWS, 32)])
+def test_geqrt_just_outside_the_blocked_body_takes_the_dense_one(dev, m, w):
+    """A row past the blocked body's envelope, and a leaf held whole in
+    shared memory, run the dense body as before."""
+    P = torch.from_numpy(np.random.default_rng(m).standard_normal((4, m, w))).to(
+        dev, torch.float32)
+    assert body(m, w, 0, torch.float32) != "blocked"
+    got = leaf_launch(geqrt_batched, P, 0, leaf=0)
+    for a, b in zip(got, geqrt_batched_plain(P, 0)):
+        assert torch.isfinite(a).all() and rel(a, b) < TOLS[torch.float32]
+
+
+@pytest.mark.parametrize("col", [0, 37, 127])
+def test_geqrt_blocked_kernel_nan_column(dev, col):
+    """A NaN column leaves its panel's later columns, tau and T non-finite,
+    the columns before it and the other panels as the plain version has
+    them."""
+    P = torch.from_numpy(np.random.default_rng(col).standard_normal((4, 1024, 128))).to(
+        dev, torch.float32)
+    P[1, :, col] = float("nan")
+    pk, tau, T = got = leaf_launch(geqrt_batched, P, 0)
+    assert not torch.isfinite(tau[1]).all() and not torch.isfinite(pk[1]).all()
+    keep = [0, 2, 3]
+    for a, b in zip(got, geqrt_batched_plain(P[keep], 0)):
+        assert torch.isfinite(a[keep]).all() and rel(a[keep], b) < TOLS[torch.float32]
+    if col:
+        pp, taup, Tp = geqrt_batched_plain(P[1:2], 0)
+        assert rel(pk[1, :, :col], pp[0, :, :col]) < TOLS[torch.float32]
+        assert rel(tau[1, :col], taup[0, :col]) < TOLS[torch.float32]
+        assert rel(T[1, :col, :col], Tp[0, :col, :col]) < TOLS[torch.float32]
+
+
+@pytest.mark.parametrize("c0,w", [(64, 128), (3, 77)])
+def test_geqrt_blocked_kernel_reads_a_column_slice_in_place(dev, c0, w):
+    """geqrt_base on a column slice of a 1,024 x 256 matrix (row stride 256)
+    takes the blocked body; at column 3 the slice is not 16-byte aligned, so
+    the body copies single words."""
+    A = torch.from_numpy(np.random.default_rng(c0).standard_normal((1024, 256))).to(
+        dev, torch.float32)
+    got = leaf_launch(geqrt_base, A[:, c0:c0 + w], 0)
+    want = geqrt_base_plain(A[:, c0:c0 + w].contiguous(), 0)
+    for a, b in zip(got, want):
+        assert rel(a, b) < TOLS[torch.float32]
+
+
 def triangle_pairs(L, w, seed, dtype, dev):
     """L stacked pairs [R_i; R_j] (L x 2w x w) of upper triangles shaped as a
     TSQR level's: N(0, 1) above the diagonal, +-sqrt(4w - i) on it."""
@@ -360,15 +461,16 @@ def test_tsqr_on_the_card(dev, leaf):
         (65536, 128), dtype=np.float32)).to(dev)
     cfg = ct.QRConfig(device="cuda", tsqr_leaf=leaf)
     before = (geqrt_batched.launches, chol_with_inv_kernel.launches,
-              geqrt_batched.pair_launches)
+              geqrt_batched.pair_launches, geqrt_batched.leaf_launches)
     Q, R = ct.tsqr(A, cfg)
     launched = (geqrt_batched.launches - before[0], chol_with_inv_kernel.launches - before[1],
-                geqrt_batched.pair_launches - before[2])
+                geqrt_batched.pair_launches - before[2], geqrt_batched.leaf_launches - before[3])
     chk = ct.check_qr_device(A, Q, R)
     assert chk.residual_ok
     if leaf == "householder":
         assert launched[0] == 7 and chk.orthogonality_ok      # 64 leaves, 6 levels
         assert launched[2] == 6                               # each level a pair launch
+        assert launched[3] == 1                               # the leaves on the blocked body
     else:
         # the direct path's own gate, 4 sqrt(m) eps: the Gram's rounding floor
         assert launched[1] >= 1 and chk.orthogonality < 4 * 65536 ** 0.5 * chk.eps

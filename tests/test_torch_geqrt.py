@@ -171,11 +171,11 @@ def test_batched_gate_and_non_cpu_tensor():
 
 
 @pytest.mark.parametrize("m,w,off,dtype,kb,resident,body", [
-    (1024, 128, 0, torch.float32, 32, False, "subpanel"),  # TSQR leaf: four sub-panels
+    (1024, 128, 0, torch.float32, 32, False, "blocked"),   # TSQR leaf: the blocked body
     (256, 128, 0, torch.float32, 32, True, "resident"),    # TSQR node: held whole
     (256, 128, 0, torch.float64, 32, False, "subpanel"),   # float64 does not fit whole
     (397, 128, 0, torch.float32, 32, True, "resident"),    # the last m held whole ...
-    (398, 128, 0, torch.float32, 32, False, "subpanel"),   # ... and the first not
+    (398, 128, 0, torch.float32, 32, False, "blocked"),    # ... and the first not
     (1553, 128, 0, torch.float32, 32, False, "subpanel"),  # the last m at kb = 32 ...
     (1554, 128, 0, torch.float32, 16, False, "subpanel"),  # ... and the first at kb = 16
     (8192, 32, 0, torch.float32, 4, False, "subpanel"),    # the tallest width that fits
@@ -186,7 +186,46 @@ def test_batched_gate_and_non_cpu_tensor():
 def test_plan_at_the_edges(m, w, off, dtype, kb, resident, body):
     p = port.plan(m, w, off, dtype)
     assert (p.kb, p.resident) == (kb, resident) and port.body(m, w, off, dtype) == body
-    assert (p.slices >= 1) == (kb > 0)
+    assert (p.slices >= 1) == (kb > 0) and p.blocked == (body == "blocked")
+
+
+def test_blocked_body_takes_exactly_its_envelope():
+    """Over a grid of shapes: the blocked body takes a float32 panel at
+    off = 0 of at most 1,024 rows that the dense plan would give 32-column
+    sub-panels not held whole, and no other; its layout fits the budget."""
+    for dtype in (torch.float32, torch.float64):
+        for m in (32, 64, 100, 256, 397, 398, 600, 800, 1000, 1021, 1024, 1025, 1553, 2048, 8192):
+            for w in (1, 16, 31, 32, 33, 40, 64, 72, 77, 96, 100, 127, 128):
+                for off in (0, 1, 5):
+                    if off + w > m:
+                        continue
+                    p = port.plan(m, w, off, dtype)
+                    dense = p._replace(blocked=False)
+                    want = (dtype == torch.float32 and off == 0 and m <= port.BLOCKED_ROWS
+                            and dense.kb == port.KB and not dense.resident)
+                    assert p.blocked == want, (m, w, off, dtype)
+                    assert (port.body(m, w, off, dtype) == "blocked") == want
+                    if want:
+                        assert 4 * port.blocked_words(m, w) <= port.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("m,w,off,dtype,want", [
+    (1025, 128, 0, torch.float32, (32, False, 5)),     # a row past the envelope
+    (1024, 128, 5, torch.float32, (32, False, 5)),     # a row offset
+    (1024, 128, 0, torch.float64, (16, False, 4)),     # float64
+    (397, 128, 0, torch.float32, (32, True, 1)),       # held whole
+    (256, 128, 0, torch.float32, (32, True, 5)),       # a TSQR node
+    (1024, 32, 0, torch.float32, (32, True, 16)),      # narrow: held whole
+    (1024, 31, 0, torch.float32, (31, True, 16)),      # one sub-panel of w
+    (8192, 128, 0, torch.float32, (4, False, 16)),     # the 8,192-row CAQR leaf
+    (8192, 32, 0, torch.float32, (4, False, 16)),      # geqrt_panel's tall panel
+    (8192, 32, 40, torch.float64, (0, False, 0)),      # the streaming body
+])
+def test_shapes_outside_the_envelope_keep_their_plan(m, w, off, dtype, want):
+    """Every shape outside the blocked body's envelope keeps the plan it had
+    before the blocked body existed (kb, residency, slices), not blocked."""
+    assert port.plan(m, w, off, dtype) == port.Plan(*want, blocked=False)
+    assert port.body(m, w, off, dtype) != "blocked"
 
 
 def layout_words(rows, w, kb, ldp, slices):
@@ -268,12 +307,9 @@ def test_batched_counts_pair_launches(monkeypatch):
             port.geqrt_batched.pair_launches - before[1]) == (2, 1)
 
 
-@pytest.mark.parametrize("pair", [True, False])
-@pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32"), (torch.float64, "f64")])
-def test_launch_takes_the_pair_bodys_own_entry(monkeypatch, dtype, suffix, pair):
-    """pair=True calls the pair body's C entry with (batch, w) and no plan;
-    the dense body's entry gets the shape and ``plan``'s choice (the library
-    and the stream stubbed: no card here)."""
+def _stub_library(monkeypatch):
+    """The kernel library, the device and the stream stubbed (no card
+    here): the calls made, as (entry, lda, arguments after the pointers)."""
     calls = []
 
     class Lib:
@@ -284,6 +320,56 @@ def test_launch_takes_the_pair_bodys_own_entry(monkeypatch, dtype, suffix, pair)
     monkeypatch.setattr(port.torch.cuda, "device", lambda d: contextlib.nullcontext())
     monkeypatch.setattr(port.torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+@pytest.mark.parametrize("shape,lda,dtype,entry,args", [
+    ((3, 1024, 128), 128, torch.float32, "cqt_geqrt_blocked_f32", (3, 1024, 128)),
+    ((2, 1024, 77), 256, torch.float32, "cqt_geqrt_blocked_f32", (2, 1024, 77)),
+    ((3, 1024, 128), 128, torch.float64, "cqt_geqrt_batched_f64", (3, 1024, 128, 0, 16, 0, 4)),
+    ((3, 1025, 128), 128, torch.float32, "cqt_geqrt_batched_f32", (3, 1025, 128, 0, 32, 0, 5)),
+])
+def test_launch_takes_the_blocked_bodys_own_entry(monkeypatch, shape, lda, dtype, entry, args):
+    """A blocked plan calls the blocked body's C entry with (batch, m, w)
+    and the row stride; any other shape the dense entry with its plan."""
+    calls = _stub_library(monkeypatch)
+    port._launch("geqrt_batched", torch.empty(shape, dtype=dtype, device="meta"), lda, 0)
+    assert calls == [(entry, lda, args)]
+
+
+@pytest.mark.parametrize("shape,pair,leaf", [((4, 1024, 128), False, 1), ((4, 32, 16), False, 0),
+                                             ((4, 256, 128), True, 0)])
+def test_batched_counts_leaf_launches(monkeypatch, shape, pair, leaf):
+    """A launch of the blocked body counts in ``launches`` and in
+    ``leaf_launches``; a dense or pair launch only in ``launches`` (the
+    launch itself stubbed: no card here)."""
+    monkeypatch.setattr(port, "_check_device", lambda name, t: None)
+    monkeypatch.setattr(port, "_launch", lambda name, A, lda, off, pair=False: None)
+    before = (port.geqrt_batched.launches, port.geqrt_batched.leaf_launches)
+    port.geqrt_batched(torch.empty(shape, device="meta"), 0, pair=pair)
+    assert (port.geqrt_batched.launches - before[0],
+            port.geqrt_batched.leaf_launches - before[1]) == (1, leaf)
+
+
+@pytest.mark.parametrize("off,leaf", [(0, 1), (5, 0)])
+def test_base_counts_leaf_launches(monkeypatch, off, leaf):
+    """geqrt_base counts its blocked-body launches too: a 1,024 x 128
+    float32 panel at off = 0 takes it, at off = 5 the dense body."""
+    monkeypatch.setattr(port, "_check_device", lambda name, t: None)
+    monkeypatch.setattr(port, "_launch", lambda name, A, lda, off, pair=False: (A[0], A[0], A[0]))
+    before = (port.geqrt_base.launches, port.geqrt_base.leaf_launches)
+    port.geqrt_base(torch.empty((1024, 128), device="meta"), off)
+    assert (port.geqrt_base.launches - before[0],
+            port.geqrt_base.leaf_launches - before[1]) == (1, leaf)
+
+
+@pytest.mark.parametrize("pair", [True, False])
+@pytest.mark.parametrize("dtype,suffix", [(torch.float32, "f32"), (torch.float64, "f64")])
+def test_launch_takes_the_pair_bodys_own_entry(monkeypatch, dtype, suffix, pair):
+    """pair=True calls the pair body's C entry with (batch, w) and no plan;
+    the dense body's entry gets the shape and ``plan``'s choice (the library
+    and the stream stubbed: no card here)."""
+    calls = _stub_library(monkeypatch)
     port._launch("geqrt_batched", torch.empty((3, 32, 16), dtype=dtype, device="meta"), 16, 0,
                  pair)
     p = port.plan(32, 16, 0, dtype)
